@@ -10,11 +10,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 2. build the hand-written kernels from ``sfast_tpu_torch/csrc`` (nvcc, into
    ``build/sfast_tpu_torch/``) and print the build seconds;
 3. hold each kernel against its plain PyTorch version in bf16 at the shapes
-   the main path gives it, and time both with CUDA events;
+   the main path gives it, and time both: CUDA events around one call,
+   and the device time of its kernels (torch.profiler);
 4. run SD1.5 text2img at full width with seeded random weights — 512²,
    batch 1, DPM++ 50 steps, CFG 7.5 — through ``StableDiffusionPipeline``;
    count the kernel launches of one image, time 3 more, check the image,
-   and hold one UNet eval and one VAE decode against the plain route.
+   profile one more (device time and the device's idle share), and hold
+   one UNet eval and one VAE decode against the plain route;
+5. the same pipeline under the opt-in kernel configuration
+   (``enable_fused_group_norm``, ``enable_fused_linear_geglu``,
+   ``enable_int8_attention``), which takes K3+K5, K4 and K6 in the UNet:
+   the same launch count, timing, image and profile steps, and one UNet
+   eval held against the plain route.
 
 The line before the last is ``{"kernels": [...]}`` and the last is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -35,19 +42,63 @@ import time
 K1_RMS_REL = 1e-2
 K2_RMS_REL = 2e-2
 STATS_REL = 1e-3  # K2's Σy, Σy² and K3's mean, rstd: f32 sums, other order
+# K5 and K4 against f32 plain versions: the kernels round their output to
+# bf16 once (2^-9 relative), so rms errors of a few 1e-3 are expected.
+K5_RMS_REL = 1e-2
+K4_RMS_REL = 1e-2
+# K6 against its plain version at the kernel's kv tile: the same int8 math,
+# with exp2 and sums in another order flipping a few roundings of p; and
+# against exact attention, the bound of the JAX package's own int8 test.
+K6_RMS_REL = 1e-2
+K6_EXACT_RMS_REL = 0.015
 # Full-model kernel route vs plain route: one UNet eval and one VAE
 # decode in bf16 at random weights, where tens of layers compound those
 # per-kernel errors.
 MODEL_RMS_REL = 5e-2
-EXPECTED_LAUNCHES = {"flash_attention": 250, "conv3x3": 21, "group_norm_stats": 9}
+# The opt-in route adds int8 attention (about 1e-2 at each level-0
+# attention output) and the tanh GELU of K4 against the plain erf GELU.
+OPTIN_MODEL_RMS_REL = 1e-1
+STEPS = 50
+# launches of one image: 5 level-0 self-attentions x 50 steps; 9 fused VAE
+# resnets x 2 + 3 upsample convs; one K3 per fused resnet.  Opt-in: every
+# UNet GroupNorm (22 resnets x 2 + 16 transformers + conv_norm_out = 61 per
+# eval) is K3 + K5; 11 of the 16 GEGLUs pass the width rule (K = 320 fails
+# it); the 5 level-0 self-attentions take K6.
+EXPECTED_LAUNCHES = {
+    "flash_attention": 5 * STEPS, "flash_attention_int8": 0, "conv3x3": 21,
+    "group_norm_stats": 9, "group_norm_apply": 0, "linear_geglu": 0,
+}
+EXPECTED_OPTIN_LAUNCHES = {
+    "flash_attention": 0, "flash_attention_int8": 5 * STEPS, "conv3x3": 21,
+    "group_norm_stats": 61 * STEPS + 9, "group_norm_apply": 61 * STEPS,
+    "linear_geglu": 11 * STEPS,
+}
 
 KERNELS = {
     "flash_attention": ("sfast_tpu_torch/csrc/flash_attention.cu",
                         "sfast_tpu/ops/flash_attention.py:52"),
+    "flash_attention_int8": ("sfast_tpu_torch/csrc/flash_attention_int8.cu",
+                             "sfast_tpu/ops/flash_attention.py:183"),
     "conv3x3": ("sfast_tpu_torch/csrc/conv3x3.cu", "sfast_tpu/ops/conv_pallas.py:53"),
     "group_norm_stats": ("sfast_tpu_torch/csrc/group_norm_stats.cu",
                          "sfast_tpu/ops/group_norm.py:76"),
+    "group_norm_apply": ("sfast_tpu_torch/csrc/group_norm_apply.cu",
+                         "sfast_tpu/ops/group_norm.py:105"),
+    "linear_geglu": ("sfast_tpu_torch/csrc/geglu.cu", "sfast_tpu/ops/geglu.py:43"),
 }
+
+# Every distinct UNet GroupNorm of the opt-in path at 512² (batch 2):
+# (H = W, C, act); act None is a transformer's norm (eps 1e-6)
+UNET_GN = [
+    (64, 320, "silu"), (64, 320, None), (64, 640, "silu"), (64, 960, "silu"),
+    (32, 320, "silu"), (32, 640, "silu"), (32, 640, None), (32, 960, "silu"),
+    (32, 1280, "silu"), (32, 1920, "silu"),
+    (16, 640, "silu"), (16, 1280, "silu"), (16, 1280, None), (16, 1920, "silu"),
+    (16, 2560, "silu"),
+    (8, 1280, "silu"), (8, 1280, None), (8, 2560, "silu"),
+]
+# K4's calls: (M, K, F) of the feed-forwards at levels 1, 2 and mid
+UNET_GEGLU = [(2048, 640, 2560), (512, 1280, 5120), (128, 1280, 5120)]
 
 
 def log(*a):
@@ -85,15 +136,39 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(fn, iters=10):
+    """Mean device milliseconds of one call: the kernel rows of a
+    torch.profiler trace.  CUDA events around one call also time the host's
+    launch of it, which is most of what they read below ~0.1 ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in rows) / iters / 1e3
+
+
 def time_pair(kernel, plain):
-    """Kernel and plain medians, timed in turns plain, kernel, kernel, plain."""
+    """(kernel ms, plain ms, kernel device ms, plain device ms): CUDA-event
+    medians timed in turns plain, kernel, kernel, plain, then device times."""
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return (k1 + k2) / 2, (p1 + p2) / 2, device_ms(kernel), device_ms(plain)
+
+
+def timing_text(t):
+    return (f"kernel {t[0]:.4f} ms (device {t[2]:.4f})  "
+            f"plain {t[1]:.4f} ms (device {t[3]:.4f})")
 
 
 def check_kernels(torch, dev):
-    """Phase 3.  Returns {kernel: (max_abs_err, ms, plain_ms)} of its first
-    (main-path) case."""
+    """Phase 3.  Returns {kernel: (max_abs_err, time_pair(...))} of its
+    first (main-path) case."""
     from sfast_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
     from sfast_tpu_torch.ops.fused_conv import conv3x3_block, conv3x3_block_ref
     from sfast_tpu_torch.ops.group_norm import group_norm_stats, group_norm_stats_ref
@@ -114,13 +189,12 @@ def check_kernels(torch, dev):
         got = flash_attention(q, k, v)
         torch.cuda.synchronize()
         max_abs, max_rel, rms = rel_errors(got, flash_attention_ref(q, k, v))
-        ms, plain_ms = time_pair(lambda: flash_attention(q, k, v),
-                                 lambda: flash_attention_ref(q, k, v))
+        t = time_pair(lambda: flash_attention(q, k, v), lambda: flash_attention_ref(q, k, v))
         log(f"K1 flash_attention q={tuple(q.shape)} kv={sk}: max_rel {max_rel:.3e} "
-            f"rms_rel {rms:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+            f"rms_rel {rms:.3e}  {timing_text(t)}")
         if not rms <= K1_RMS_REL:
             raise AssertionError(f"K1 rms rel error {rms} > {K1_RMS_REL}")
-        out.setdefault("flash_attention", (max_abs, ms, plain_ms))
+        out.setdefault("flash_attention", (max_abs, t))
 
     # K2: every distinct call of the VAE decoder's main path — the fused
     # resnets' conv1 (GN in, per-batch bias, stats out) and conv2 (GN in,
@@ -158,14 +232,13 @@ def check_kernels(torch, dev):
             if not stats_err <= STATS_REL:
                 raise AssertionError(f"K2 stats rel error {stats_err} > {STATS_REL}")
         max_abs, max_rel, rms = rel_errors(got, ref)
-        ms, plain_ms = time_pair(lambda: conv3x3_block(x, w, **kw),
-                                 lambda: conv3x3_block_ref(x, w, **kw))
+        t = time_pair(lambda: conv3x3_block(x, w, **kw), lambda: conv3x3_block_ref(x, w, **kw))
         extra = f" stats_rel {stats_err:.3e}" if kind == "conv1" else ""
         log(f"K2 conv3x3 {kind} {hw}²·{c}→{f}: max_rel {max_rel:.3e} rms_rel {rms:.3e}"
-            f"{extra}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+            f"{extra}  {timing_text(t)}")
         if not rms <= K2_RMS_REL:
             raise AssertionError(f"K2 rms rel error {rms} > {K2_RMS_REL}")
-        out.setdefault("conv3x3", (max_abs, ms, plain_ms))
+        out.setdefault("conv3x3", (max_abs, t))
 
     # K3: the fused-resnet entries' GroupNorm statistics (32 groups, eps 1e-6)
     for hw, c in [(128, 512), (256, 512), (256, 256), (512, 256), (512, 128)]:
@@ -174,18 +247,103 @@ def check_kernels(torch, dev):
         torch.cuda.synchronize()
         rm, rr = group_norm_stats_ref(x, groups=32, eps=1e-6)
         em, er = rel_errors(mean, rm), rel_errors(rstd, rr)
-        ms, plain_ms = time_pair(lambda: group_norm_stats(x, groups=32, eps=1e-6),
-                                 lambda: group_norm_stats_ref(x, groups=32, eps=1e-6))
+        t = time_pair(lambda: group_norm_stats(x, groups=32, eps=1e-6),
+                      lambda: group_norm_stats_ref(x, groups=32, eps=1e-6))
         log(f"K3 group_norm_stats {hw}²·{c}: mean max_rel {em[1]:.3e} rstd max_rel "
-            f"{er[1]:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+            f"{er[1]:.3e}  {timing_text(t)}")
         if not max(em[1], er[1]) <= STATS_REL:
             raise AssertionError(f"K3 rel error {max(em[1], er[1])} > {STATS_REL}")
-        out.setdefault("group_norm_stats", (max(em[0], er[0]), ms, plain_ms))
+        out.setdefault("group_norm_stats", (max(em[0], er[0]), t))
+
+    check_optin_kernels(torch, dev, randn, out)
     return out
 
 
-def run_pipeline(torch, dev):
-    """Phase 4.  Returns the launch counts of one image."""
+def check_optin_kernels(torch, dev, randn, out):
+    """Phase 3, the opt-in path's kernels: K3′+K5 at every UNet GroupNorm
+    shape, K4 at its three shapes, K6 at the level-0 shape and a ragged kv."""
+    from sfast_tpu_torch.ops.flash_attention import flash_attention_ref
+    from sfast_tpu_torch.ops.flash_attention_int8 import (
+        flash_attention_int8,
+        flash_attention_int8_ref,
+    )
+    from sfast_tpu_torch.ops.geglu import (
+        linear_geglu_fused,
+        linear_geglu_fused_ref,
+        linear_geglu_plain,
+    )
+    from sfast_tpu_torch.ops.group_norm import (
+        group_norm_apply,
+        group_norm_apply_ref,
+        group_norm_stats,
+        group_norm_stats_ref,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    for hw, c, act in UNET_GN:
+        eps = 1e-5 if act else 1e-6
+        x = randn(2, hw, hw, c) + 0.3
+        gamma = torch.rand((c,), generator=g, device=dev) + 0.5
+        beta = torch.randn((c,), generator=g, device=dev) * 0.2
+        mean, rstd = group_norm_stats(x, groups=32, eps=eps)
+        got = group_norm_apply(x, mean, rstd, gamma, beta, act=act)
+        torch.cuda.synchronize()
+        rm, rr = group_norm_stats_ref(x, groups=32, eps=eps)
+        stats_err = max(rel_errors(mean, rm)[1], rel_errors(rstd, rr)[1])
+        max_abs, max_rel, rms = rel_errors(got, group_norm_apply_ref(x, mean, rstd, gamma, beta,
+                                                                      act=act))
+        t = time_pair(lambda: group_norm_apply(x, mean, rstd, gamma, beta, act=act),
+                      lambda: group_norm_apply_ref(x, mean, rstd, gamma, beta, act=act))
+        st = time_pair(lambda: group_norm_stats(x, groups=32, eps=eps),
+                       lambda: group_norm_stats_ref(x, groups=32, eps=eps))
+        log(f"K3'+K5 group_norm (2, {hw}², {c}) act={act}: K5 max_rel {max_rel:.3e} "
+            f"rms_rel {rms:.3e}  {timing_text(t)}; K3' stats_rel {stats_err:.3e}  "
+            f"{timing_text(st)}")
+        if not rms <= K5_RMS_REL:
+            raise AssertionError(f"K5 rms rel error {rms} > {K5_RMS_REL}")
+        if not stats_err <= STATS_REL:
+            raise AssertionError(f"K3' rel error {stats_err} > {STATS_REL}")
+        out.setdefault("group_norm_apply", (max_abs, t))
+
+    for m, k, f in UNET_GEGLU:
+        x = randn(m, k)
+        w = (torch.randn((2 * f, k), generator=g, device=dev) / k**0.5).to(torch.bfloat16)
+        b = (torch.randn((2 * f,), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        got = linear_geglu_fused(x, w, b)
+        torch.cuda.synchronize()
+        max_abs, max_rel, rms = rel_errors(got, linear_geglu_fused_ref(x, w, b))
+        t = time_pair(lambda: linear_geglu_fused(x, w, b),
+                      lambda: linear_geglu_fused_ref(x, w, b))
+        unfused_ms = device_ms(lambda: linear_geglu_plain(x, w, b))
+        log(f"K4 linear_geglu M={m} K={k} F={f}: max_rel {max_rel:.3e} rms_rel {rms:.3e}  "
+            f"{timing_text(t)}  (unfused bf16 erf route: device {unfused_ms:.4f} ms)")
+        if not rms <= K4_RMS_REL:
+            raise AssertionError(f"K4 rms rel error {rms} > {K4_RMS_REL}")
+        out.setdefault("linear_geglu", (max_abs, t))
+
+    # K6: level-0 self-attention, head-split views; then a ragged kv tail
+    for b, h, sq, sk, d in [(2, 8, 4096, 4096, 40), (2, 8, 4096, 1000, 40)]:
+        q = randn(b, sq, h * d).view(b, sq, h, d).transpose(1, 2)
+        k = (randn(b, sk, h * d) + 0.5).view(b, sk, h, d).transpose(1, 2)
+        v = (randn(b, sk, h * d) - 0.3).view(b, sk, h, d).transpose(1, 2)
+        got = flash_attention_int8(q, k, v)
+        torch.cuda.synchronize()
+        max_abs, max_rel, rms = rel_errors(got, flash_attention_int8_ref(q, k, v))
+        exact = rel_errors(got, flash_attention_ref(q, k, v))[2]
+        t = time_pair(lambda: flash_attention_int8(q, k, v),
+                      lambda: flash_attention_int8_ref(q, k, v))
+        log(f"K6 flash_attention_int8 q={tuple(q.shape)} kv={sk}: max_rel {max_rel:.3e} "
+            f"rms_rel {rms:.3e} (exact attention: rms_rel {exact:.3e})  {timing_text(t)}")
+        if not rms <= K6_RMS_REL:
+            raise AssertionError(f"K6 rms rel error {rms} > {K6_RMS_REL}")
+        if not exact <= K6_EXACT_RMS_REL:
+            raise AssertionError(f"K6 vs exact attention: rms rel {exact} > {K6_EXACT_RMS_REL}")
+        out.setdefault("flash_attention_int8", (max_abs, t))
+
+
+def build_pipeline(torch, dev):
+    """SD1.5 at full width with seeded random weights, through the entry
+    points a user calls."""
     import sfast_tpu_torch
     from sfast_tpu_torch import CompilationConfig
     from sfast_tpu_torch.models import (
@@ -193,9 +351,7 @@ def run_pipeline(torch, dev):
         UNet2DConditionModel, init_weights_,
     )
     from sfast_tpu_torch.pipelines import StableDiffusionPipeline
-    from sfast_tpu_torch.runtime import cuda_build
     from sfast_tpu_torch.schedulers import DPMSolverMultistepScheduler
-    from sfast_tpu_torch.utils.image import denormalize_to_uint8
 
     bf16 = torch.bfloat16
     t0 = time.perf_counter()
@@ -211,10 +367,22 @@ def run_pipeline(torch, dev):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for m in (unet, vae, te) for p in m.parameters())
     log(f"models built: {n_params / 1e6:.1f} M params in {time.perf_counter() - t0:.1f} s")
+    return pipe
 
+
+def run_path(torch, dev, pipe, name, cfg, expected, model_bound):
+    """Phases 4 and 5: one path of the pipeline under ``cfg``.  Returns the
+    launch counts of one image."""
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.models import SD_VAE
+    from sfast_tpu_torch.runtime import cuda_build
+    from sfast_tpu_torch.utils.image import denormalize_to_uint8
+
+    bf16 = torch.bfloat16
+    pipe.set_compilation_config(cfg)
     prompt_ids = torch.randint(0, 49408, (1, 77), generator=torch.Generator().manual_seed(1))
     kw = dict(prompt_ids=prompt_ids, height=512, width=512,
-              num_inference_steps=50, guidance_scale=7.5)
+              num_inference_steps=STEPS, guidance_scale=7.5)
 
     def timed(**extra):
         torch.cuda.synchronize()
@@ -227,51 +395,78 @@ def run_pipeline(torch, dev):
     cuda_build.reset_launch_counts()
     out, warm_ms = timed(seed=0)
     counts = dict(cuda_build.launch_counts)
-    log(f"launches per image: {counts} (first run {warm_ms:.1f} ms)")
-    if counts != EXPECTED_LAUNCHES:
-        raise AssertionError(f"launch counts {counts} != {EXPECTED_LAUNCHES}")
+    log(f"[{name}] launches per image: {counts} (first run {warm_ms:.1f} ms)")
+    if counts != expected:
+        raise AssertionError(f"[{name}] launch counts {counts} != {expected}")
     img = out.images
     if img.shape != (1, 512, 512, 3) or str(img.dtype) != "uint8":
-        raise AssertionError(f"image {img.shape} {img.dtype}")
+        raise AssertionError(f"[{name}] image {img.shape} {img.dtype}")
 
     torch.cuda.reset_peak_memory_stats()
     runs = [timed(seed=s)[1] for s in (1, 2, 3)]
-    log(f"e2e ms: runs {[round(r, 3) for r in runs]} median {statistics.median(runs):.3f}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[{name}] e2e ms: runs {[round(r, 3) for r in runs]} median "
+        f"{statistics.median(runs):.3f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     lat = torch.randn((1, 64, 64, 4), generator=torch.Generator(device=dev).manual_seed(5),
                       device=dev)
     image_f = pipe(**kw, latents=lat, output_type="float").images
     if not bool(torch.isfinite(image_f).all()) or image_f.float().std().item() == 0.0:
-        raise AssertionError("decoded image is not finite or is constant")
+        raise AssertionError(f"[{name}] decoded image is not finite or is constant")
     u8_a = denormalize_to_uint8(image_f)
     u8_b = pipe(**kw, latents=lat, output_type="pt").images
     # the kernels are deterministic; one level allows for the libraries'
     # (cuBLAS, cuDNN) choice of algorithm between calls
     diff = (u8_a.int() - u8_b.int()).abs().max().item()
-    log(f"same latents twice: max uint8 difference {diff}; image std "
+    log(f"[{name}] same latents twice: max uint8 difference {diff}; image std "
         f"{image_f.float().std().item():.4f}")
     if diff > 1:
-        raise AssertionError(f"two runs with the same latents differ by {diff} levels")
+        raise AssertionError(f"[{name}] two runs with the same latents differ by {diff} levels")
+
+    profile_image(torch, lambda: pipe(**kw, seed=4), name)
 
     # kernel route vs plain route at full width
+    gen = torch.Generator(device=dev).manual_seed(6)
     with torch.inference_mode():
         ctx = pipe.encode_prompt(prompt_ids.to(dev))
         x = torch.randn((2, 64, 64, 4), generator=gen, device=dev).to(bf16)
         t = torch.full((2,), 801.0, device=dev)
         z = torch.randn((1, 64, 64, 4), generator=gen, device=dev) / SD_VAE.scaling_factor
         res = {}
-        for name, cfg in (("kernels", CompilationConfig.Default()),
-                          ("plain", CompilationConfig(enable_kernels=False))):
-            pipe.set_compilation_config(cfg)
-            res[name] = (unet(x, t, ctx), vae.decode(z))
+        for route, rcfg in (("kernels", cfg), ("plain", CompilationConfig(enable_kernels=False))):
+            pipe.set_compilation_config(rcfg)
+            res[route] = (pipe.unet(x, t, ctx), pipe.vae.decode(z))
         pipe.set_compilation_config(CompilationConfig.Default())
     for i, what in enumerate(("UNet eps", "VAE image")):
         _, max_rel, rms = rel_errors(res["kernels"][i], res["plain"][i])
-        log(f"{what}, kernel route vs plain route: max_rel {max_rel:.3e} rms_rel {rms:.3e}")
-        if not rms <= MODEL_RMS_REL:
-            raise AssertionError(f"{what}: rms rel {rms} > {MODEL_RMS_REL}")
+        log(f"[{name}] {what}, kernel route vs plain route: max_rel {max_rel:.3e} "
+            f"rms_rel {rms:.3e}")
+        if not rms <= model_bound:
+            raise AssertionError(f"[{name}] {what}: rms rel {rms} > {model_bound}")
     return counts
+
+
+def profile_image(torch, run, name):
+    """One image under torch.profiler: device time and the device's idle
+    share of the image's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # an unprofiled image right before, for its wall time
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # the kernels' own rows: an operator's row repeats its kernels' time
+    dev_ms = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
+    log(f"[{name}] profile: device time {dev_ms:.1f} ms per image; unprofiled image "
+        f"{wall_ms:.1f} ms -> device idle {100 * (1 - dev_ms / wall_ms):.1f}%")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
 
 
 def main():
@@ -280,6 +475,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from sfast_tpu_torch import CompilationConfig
     from sfast_tpu_torch.runtime import cuda_build
 
     smi = subprocess.run(
@@ -300,14 +496,22 @@ def main():
         + f", loaded after {time.perf_counter() - t0:.1f} s")
 
     measured = check_kernels(torch, dev)
-    counts = run_pipeline(torch, dev)
+    pipe = build_pipeline(torch, dev)
+    default = run_path(torch, dev, pipe, "default", CompilationConfig.Default(),
+                       EXPECTED_LAUNCHES, MODEL_RMS_REL)
+    optin_cfg = CompilationConfig(enable_fused_group_norm=True, enable_fused_linear_geglu=True,
+                                  enable_int8_attention=True)
+    optin = run_path(torch, dev, pipe, "opt-in", optin_cfg, EXPECTED_OPTIN_LAUNCHES,
+                     OPTIN_MODEL_RMS_REL)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        max_abs, ms, plain_ms = measured[name]
+        max_abs, (ms, plain_ms, dev_ms, plain_dev_ms) = measured[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "launches": default[name] + optin[name], "launches_default": default[name],
+            "launches_optin": optin[name], "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

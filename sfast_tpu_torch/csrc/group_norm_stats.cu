@@ -18,10 +18,14 @@
 //    writes one (2, C) partial per chunk.  The wrapper sizes chunks so the
 //    grid has about 256 blocks, two per SM, enough to keep every SM
 //    streaming.
-// 2. fold: one block per sample adds the partials per channel, folds
-//    channels into groups and computes var = E[x^2] - E[x]^2 (as JAX does)
-//    and rstd = rsqrt(var + eps), broadcast back to channels.
-// The partials make the result deterministic: no atomics.
+// 2. fold: one block per (group, sample) adds that group's partials (its
+//    channels of every chunk) with a fixed assignment to threads and a
+//    fixed tree, computes var = E[x^2] - E[x]^2 (as JAX does) and
+//    rstd = rsqrt(var + eps), and writes both to the group's channels.
+//    groups x batch blocks keep the fold parallel at the UNet's batch 2,
+//    where up to 2560 channels x 128 chunks are folded per sample.
+// The partials and the fixed order make the result deterministic: no
+// atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,32 +92,33 @@ __global__ void __launch_bounds__(THREADS)
     stats_fold_kernel(const float* __restrict__ partial, float* __restrict__ mean,
                       float* __restrict__ rstd, int hw, int c, int groups,
                       int n_chunks, float eps) {
-  extern __shared__ float sums[];  // [2][c]
-  const int n = blockIdx.x;
-  const float* pn = partial + static_cast<long long>(n) * n_chunks * 2 * c;
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    float a = 0.f, b = 0.f;
-    for (int k = 0; k < n_chunks; ++k) {
-      a += pn[k * 2 * c + ch];
-      b += pn[k * 2 * c + c + ch];
-    }
-    sums[ch] = a;
-    sums[c + ch] = b;
+  __shared__ float red[2][THREADS];
+  const int grp = blockIdx.x, n = blockIdx.y, tid = threadIdx.x;
+  const int cpg = c / groups, c0 = grp * cpg;
+  const float* pn = partial + static_cast<long long>(n) * n_chunks * 2 * c + c0;
+  float a = 0.f, b = 0.f;
+  for (int i = tid; i < n_chunks * cpg; i += THREADS) {
+    const int k = i / cpg, ch = i - k * cpg;
+    a += pn[static_cast<long long>(k) * 2 * c + ch];
+    b += pn[static_cast<long long>(k) * 2 * c + c + ch];
   }
+  red[0][tid] = a;
+  red[1][tid] = b;
   __syncthreads();
-  const int cpg = c / groups;
-  const float cnt = static_cast<float>(hw) * cpg;
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    const int c0 = (ch / cpg) * cpg;
-    float a = 0.f, b = 0.f;
-    for (int i = 0; i < cpg; ++i) {
-      a += sums[c0 + i];
-      b += sums[c + c0 + i];
+  for (int s = THREADS / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      red[0][tid] += red[0][tid + s];
+      red[1][tid] += red[1][tid + s];
     }
-    const float m = a / cnt;
-    const float var = b / cnt - m * m;
-    mean[n * c + ch] = m;
-    rstd[n * c + ch] = rsqrtf(var + eps);
+    __syncthreads();
+  }
+  const float cnt = static_cast<float>(hw) * cpg;
+  const float m = red[0][0] / cnt;
+  const float var = red[1][0] / cnt - m * m;
+  const float r = rsqrtf(var + eps);
+  for (int ch = tid; ch < cpg; ch += THREADS) {
+    mean[n * c + c0 + ch] = m;
+    rstd[n * c + c0 + ch] = r;
   }
 }
 
@@ -133,14 +138,7 @@ extern "C" int sfast_group_norm_stats_bf16(const void* x, void* partial,
       rows_per_chunk, n_chunks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = 2 * c * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(stats_fold_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  stats_fold_kernel<<<n, THREADS, smem, st>>>(
+  stats_fold_kernel<<<dim3(groups, n), THREADS, 0, st>>>(
       static_cast<const float*>(partial), static_cast<float*>(mean),
       static_cast<float*>(rstd), hw, c, groups, n_chunks, eps);
   return cudaGetLastError();

@@ -7,9 +7,13 @@ conv OIHW); activations stay NHWC, as in JAX, and every op goes through
 ``sfast_tpu_torch.ops``.  Normalization parameters are f32 whatever the
 model's dtype, as JAX keeps them.
 
-Routing, as in JAX: ``attn_backend`` and ``conv_backend`` are ``None``
-(auto rule per shape) or ``'plain'``; the models derive them from their
-``CompilationConfig``.
+Routing, as in JAX (``layers.py:472-486, 576-590, 614-636, 693-696``):
+``attn_backend`` (``ops.attention``: ``None``, ``'int8'``, ``'flash_int8'``
+or ``'plain'``), ``conv_backend`` (``None`` = auto rule or ``'plain'``),
+``gn_backend`` (``ops.group_norm``: ``None`` = plain, ``'kernel'``,
+``'hybrid'`` or ``'plain'``) and ``geglu_backend`` (``ops.geglu``: ``None``
+= auto rule, ``'kernel'`` or ``'plain'``); the models derive them from
+their ``CompilationConfig``.
 """
 
 import math
@@ -63,9 +67,12 @@ class Conv2d(nn.Conv2d):
 
 
 class GroupNorm(nn.GroupNorm):
-    def forward(self, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, act: Optional[str] = None, backend: Optional[str] = None
+    ) -> torch.Tensor:
         return group_norm(
-            x, self.weight, self.bias, groups=self.num_groups, eps=self.eps, act=act
+            x, self.weight, self.bias, groups=self.num_groups, eps=self.eps, act=act,
+            backend=backend,
         )
 
 
@@ -189,6 +196,7 @@ class ResnetBlock2D(nn.Module):
         x: torch.Tensor,
         temb: Optional[torch.Tensor] = None,
         *,
+        gn_backend: Optional[str] = None,
         conv_backend: Optional[str] = None,
         output_scale: float = 1.0,
     ) -> torch.Tensor:
@@ -221,10 +229,10 @@ class ResnetBlock2D(nn.Module):
                 gn_scale=sc2, gn_shift=sh2, residual=skip, output_scale=output_scale,
             )
 
-        h = self.conv1(self.norm1(x, act="silu"))
+        h = self.conv1(self.norm1(x, act="silu", backend=gn_backend))
         if use_temb:
             h = h + self._temb(temb)[:, None, None, :].to(h.dtype)
-        h = self.conv2(self.norm2(h, act="silu"))
+        h = self.conv2(self.norm2(h, act="silu", backend=gn_backend))
         skip = x if self.conv_shortcut is None else self.conv_shortcut(x)
         return ((skip.float() + h.float()) / output_scale).to(x.dtype)
 
@@ -283,8 +291,8 @@ class GEGLU(nn.Module):
         super().__init__()
         self.proj = Linear(dim, inner * 2, device=device, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear_geglu(x, self.proj.weight, self.proj.bias)
+    def forward(self, x: torch.Tensor, backend: Optional[str] = None) -> torch.Tensor:
+        return linear_geglu(x, self.proj.weight, self.proj.bias, backend=backend)
 
 
 class FeedForward(nn.Module):
@@ -299,8 +307,8 @@ class FeedForward(nn.Module):
             Linear(inner, dim, device=device, dtype=dtype),
         ])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+    def forward(self, x: torch.Tensor, geglu_backend: Optional[str] = None) -> torch.Tensor:
+        return self.net[2](self.net[0](x, backend=geglu_backend))
 
 
 class BasicTransformerBlock(nn.Module):
@@ -319,11 +327,16 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim, **mk)
 
     def forward(
-        self, x: torch.Tensor, context: torch.Tensor, *, attn_backend: Optional[str] = None
+        self,
+        x: torch.Tensor,
+        context: torch.Tensor,
+        *,
+        attn_backend: Optional[str] = None,
+        geglu_backend: Optional[str] = None,
     ) -> torch.Tensor:
         x = x + self.attn1(self.norm1(x), attn_backend=attn_backend)
         x = x + self.attn2(self.norm2(x), context, attn_backend=attn_backend)
-        return x + self.ff(self.norm3(x))
+        return x + self.ff(self.norm3(x), geglu_backend=geglu_backend)
 
 
 class Transformer2DModel(nn.Module):
@@ -357,16 +370,22 @@ class Transformer2DModel(nn.Module):
         )
 
     def forward(
-        self, x: torch.Tensor, context: torch.Tensor, *, attn_backend: Optional[str] = None
+        self,
+        x: torch.Tensor,
+        context: torch.Tensor,
+        *,
+        gn_backend: Optional[str] = None,
+        attn_backend: Optional[str] = None,
+        geglu_backend: Optional[str] = None,
     ) -> torch.Tensor:
         b, hgt, wid, c = x.shape
-        h = self.norm(x)
+        h = self.norm(x, backend=gn_backend)
         if self.use_linear_projection:
             h = self.proj_in(h.reshape(b, hgt * wid, c))
         else:
             h = self.proj_in(h).reshape(b, hgt * wid, c)
         for blk in self.transformer_blocks:
-            h = blk(h, context, attn_backend=attn_backend)
+            h = blk(h, context, attn_backend=attn_backend, geglu_backend=geglu_backend)
         if self.use_linear_projection:
             h = self.proj_out(h).reshape(b, hgt, wid, c)
         else:

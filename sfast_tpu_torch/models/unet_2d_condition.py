@@ -75,11 +75,22 @@ TINY_UNET = UNetConfig(
 
 
 def backends(ccfg: CompilationConfig) -> dict:
-    """Config knobs → op routes (None = per-op auto rule, 'plain' = never a
-    kernel), as JAX's ``_backends``."""
-    attn = None if (ccfg.enable_kernels and ccfg.enable_flash_attention) else "plain"
-    conv = None if (ccfg.enable_kernels and ccfg.enable_fused_conv) else "plain"
-    return dict(attn=attn, conv=conv)
+    """Config knobs → op routes, as JAX's ``_backends``
+    (``unet_2d_condition.py:324-349``): None = the op's auto rule, 'plain' =
+    never a kernel, 'kernel' = K3 + K5 for every GroupNorm, 'int8' = the
+    auto rule with K6 in place of K1."""
+    if not ccfg.enable_kernels:
+        return dict(gn="plain", attn="plain", geglu="plain", conv="plain")
+    gn = "kernel" if ccfg.enable_fused_group_norm else None
+    conv = None if ccfg.enable_fused_conv else "plain"
+    if not ccfg.enable_flash_attention:
+        attn = "plain"
+    elif ccfg.enable_int8_attention:
+        attn = "int8"
+    else:
+        attn = None
+    geglu = None if ccfg.enable_fused_linear_geglu else "plain"
+    return dict(gn=gn, attn=attn, geglu=geglu, conv=conv)
 
 
 class _Block(nn.Module):
@@ -182,10 +193,17 @@ class UNet2DConditionModel(nn.Module):
         emb = self.time_embedding(t_emb)
         context = encoder_hidden_states.to(dtype)
 
+        def resnet(rn, h):
+            return rn(h, emb, gn_backend=be["gn"], conv_backend=be["conv"])
+
+        def attention(at, h):
+            return at(h, context, gn_backend=be["gn"], attn_backend=be["attn"],
+                      geglu_backend=be["geglu"])
+
         def level(blk, j, h):
-            h = blk.resnets[j](h, emb, conv_backend=be["conv"])
+            h = resnet(blk.resnets[j], h)
             if blk.attentions is not None:
-                h = blk.attentions[j](h, context, attn_backend=be["attn"])
+                h = attention(blk.attentions[j], h)
             return h
 
         h = self.conv_in(sample.to(dtype))
@@ -199,9 +217,9 @@ class UNet2DConditionModel(nn.Module):
                 res_stack.append(h)
 
         mid = self.mid_block
-        h = mid.resnets[0](h, emb, conv_backend=be["conv"])
-        h = mid.attentions[0](h, context, attn_backend=be["attn"])
-        h = mid.resnets[1](h, emb, conv_backend=be["conv"])
+        h = resnet(mid.resnets[0], h)
+        h = attention(mid.attentions[0], h)
+        h = resnet(mid.resnets[1], h)
 
         for blk in self.up_blocks:
             for j in range(len(blk.resnets)):
@@ -210,4 +228,4 @@ class UNet2DConditionModel(nn.Module):
             if blk.upsamplers is not None:
                 h = blk.upsamplers[0](h, conv_backend=be["conv"])
 
-        return self.conv_out(self.conv_norm_out(h, act="silu"))
+        return self.conv_out(self.conv_norm_out(h, act="silu", backend=be["gn"]))

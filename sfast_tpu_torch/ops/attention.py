@@ -1,14 +1,20 @@
-"""Attention dispatch: the flash kernel (K1) or the plain materializing path.
+"""Attention dispatch: the flash kernels (K1, K6) or the plain materializing
+path.
 
 Counterpart of ``sfast_tpu/ops/attention.py`` with the same routing rule
 (``attention.py:30-37, 81-96``): flash only when both q and kv are long —
 at least 1024 for head dim ≤ 64, 2048 otherwise — and, in place of "on
-TPU", when the tensors lie on a CUDA device.  The kernel takes bf16 with
+TPU", when the tensors lie on a CUDA device.  The kernels take bf16 with
 d a multiple of 8 up to 160, so the rule asks for those as well.  For
 SD1.5 at 512² that is the UNet's level-0 self-attention only (4096
-tokens, 8 heads, d = 40).  The other route is the materializing softmax
-of JAX's ``xla_attention``, which is the kernel's plain version,
-``flash_attention_ref``.
+tokens, 8 heads, d = 40).  Backends, as JAX's:
+
+- ``None``: the rule picks K1;
+- ``'int8'``: the rule picks K6, the int8 kernel
+  (``enable_int8_attention``);
+- ``'flash_int8'``: K6 whatever the shape;
+- ``'plain'``: the materializing softmax of JAX's ``xla_attention``, which
+  is K1's plain version, ``flash_attention_ref``.
 """
 
 from typing import Optional
@@ -20,14 +26,17 @@ from sfast_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_ref,
 )
+from sfast_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 
 _FLASH_MIN_Q = 2048
 _FLASH_MIN_Q_SMALL_D = 1024
 _SMALL_D = 64
+_BACKENDS = (None, "int8", "flash_int8", "plain")
 
 
 def flash_ok(q_shape, k_shape, dtype: torch.dtype, device_type: str) -> bool:
-    """The auto rule: does attention of these (B, H, S, D) shapes go to K1?"""
+    """The auto rule: does attention of these (B, H, S, D) shapes go to a
+    flash kernel (K1, or K6 under ``'int8'``)?"""
     d = q_shape[-1]
     min_q = _FLASH_MIN_Q_SMALL_D if d <= _SMALL_D else _FLASH_MIN_Q
     return (
@@ -47,11 +56,14 @@ def dot_product_attention(
     *,
     scale: Optional[float] = None,
     causal: bool = False,
-    backend: Optional[str] = None,  # None = auto rule | 'plain'
+    backend: Optional[str] = None,  # None | 'int8' | 'flash_int8' | 'plain'
 ) -> torch.Tensor:
     """Attention over (batch, heads, seq, head_dim)."""
-    if backend not in (None, "plain"):
+    if backend not in _BACKENDS:
         raise ValueError(f"unknown attention backend: {backend}")
-    if backend is None and flash_ok(q.shape, k.shape, q.dtype, q.device.type):
-        return flash_attention(q, k, v, scale=scale, causal=causal)
+    if backend == "flash_int8":
+        return flash_attention_int8(q, k, v, scale=scale, causal=causal)
+    if backend != "plain" and flash_ok(q.shape, k.shape, q.dtype, q.device.type):
+        kernel = flash_attention_int8 if backend == "int8" else flash_attention
+        return kernel(q, k, v, scale=scale, causal=causal)
     return flash_attention_ref(q, k, v, scale=scale, causal=causal)

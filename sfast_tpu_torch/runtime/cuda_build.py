@@ -1,12 +1,14 @@
 """Build and load the hand-written CUDA kernels of ``sfast_tpu_torch/csrc``.
 
 Counterpart of ``sfast_tpu/runtime/native_build.py``.  The kernels have a
-plain C interface and are compiled with ``nvcc`` straight into one shared
-library at first use, then loaded with :mod:`ctypes` — no PyTorch headers,
-so a build takes seconds, not minutes:
+plain C interface and are compiled with ``nvcc`` at first use, then loaded
+with :mod:`ctypes` — no PyTorch headers, so a build takes seconds, not
+minutes.  Each source compiles to an object in its own ``nvcc`` process,
+all started together, and one more call links them into one library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/sfast_tpu_torch/libsfast_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -c csrc/<kernel>.cu -o <kernel>.o          # one per source, in parallel
+    nvcc -shared -o build/sfast_tpu_torch/libsfast_kernels-<hash>.so *.o
 
 The library lands in ``build/sfast_tpu_torch/`` under the checkout, named
 by a hash of the sources and flags, so an edited source rebuilds and an
@@ -31,10 +33,17 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "sfast_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # kernel name -> launches since the last reset_launch_counts()
-launch_counts = {"flash_attention": 0, "conv3x3": 0, "group_norm_stats": 0}
+launch_counts = {
+    "flash_attention": 0,
+    "flash_attention_int8": 0,
+    "conv3x3": 0,
+    "group_norm_stats": 0,
+    "group_norm_apply": 0,
+    "linear_geglu": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +53,9 @@ _SIGNATURES = {
     "sfast_flash_attention_bf16": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "sfast_conv3x3_bf16": [_P] * 8 + [_I] * 5 + [_F, _P],
     "sfast_group_norm_stats_bf16": [_P] * 4 + [_I] * 4 + [_F, _I, _I, _P],
+    "sfast_group_norm_apply_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    "sfast_linear_geglu_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    "sfast_flash_attention_int8": [_P] * 7 + [_I] * 6 + [_L] * 3 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -80,31 +92,50 @@ def library_path(extra_flags=()) -> Path:
     return BUILD_DIR / f"libsfast_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the output of the first
+    that fails, else print what they said."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]  # waits for every process
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{text}")
+    said = "".join(o for o in outs if o.strip())
+    if said:
+        print(said, end="", flush=True)
+
+
 def build(extra_flags=()) -> Path:
     """Compile ``csrc/*.cu`` into the shared library unless it exists.
 
-    Returns its path.  ``extra_flags`` go to nvcc as given (for example
-    ``["-Xptxas", "-v"]``, whose report nvcc writes to stderr, which this
-    function leaves attached to the caller's)."""
+    Returns its path.  ``extra_flags`` go to every compile as given (for
+    example ``["-Xptxas", "-v"]``, whose report is printed)."""
     global build_seconds
     out = library_path(extra_flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = sorted(SRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = (
-        [_nvcc()] + NVCC_FLAGS + list(extra_flags)
-        + ["-o", str(tmp)] + [str(s) for s in SRC_DIR.glob("*.cu")]
-    )
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        _run_all([
+            [nvcc] + NVCC_FLAGS + list(extra_flags) + ["-c", str(src), "-o", str(obj)]
+            for src, obj in zip(srcs, objs)
+        ])
+        _run_all([[nvcc] + ARCH_FLAGS + ["-shared", "-o", str(tmp)] + [str(o) for o in objs]])
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}")
-    if proc.stdout.strip():
-        print(proc.stdout, end="", flush=True)
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        build_seconds = time.perf_counter() - t0
     return out
 
 

@@ -10,7 +10,10 @@ without it run:
 
 Tolerances are those of ``chip_smoke.py``: relative rms 1e-2 for K1 and
 2e-2 for K2 outputs in bf16, 1e-3 relative for the f32 statistics (Σy
-against Σ|y|, since Σy may cancel).
+against Σ|y|, since Σy may cancel); K5 and K4 within 1e-2 rms of their
+f32 plain versions (bf16 output rounding); K6 within 2e-2 rms of its plain
+version at the kernel's tile (the same math; exp2 and the order of sums
+flip a few int8 roundings of p) and 0.015 of exact attention.
 """
 
 import pytest
@@ -18,7 +21,14 @@ import torch
 
 from sfast_tpu_torch.ops import fused_conv
 from sfast_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
-from sfast_tpu_torch.ops.group_norm import group_norm_stats, group_norm_stats_ref
+from sfast_tpu_torch.ops.flash_attention_int8 import flash_attention_int8, flash_attention_int8_ref
+from sfast_tpu_torch.ops.geglu import linear_geglu_fused, linear_geglu_fused_ref
+from sfast_tpu_torch.ops.group_norm import (
+    group_norm_apply,
+    group_norm_apply_ref,
+    group_norm_stats,
+    group_norm_stats_ref,
+)
 from sfast_tpu_torch.runtime import cuda_build
 
 pytestmark = pytest.mark.cuda
@@ -127,7 +137,11 @@ def test_conv3x3_block_rejects_what_it_cannot_run(dev):
         fused_conv.conv3x3_block(x, torch.zeros(1, 1, 12, 16, device=dev, dtype=BF16))
 
 
-@pytest.mark.parametrize("n,h,w,c,groups", [(2, 37, 45, 64, 32), (1, 9, 7, 40, 4), (3, 64, 64, 320, 32)])
+@pytest.mark.parametrize(
+    "n,h,w,c,groups",
+    [(2, 37, 45, 64, 32), (1, 9, 7, 40, 4), (3, 64, 64, 320, 32),
+     (2, 8, 8, 1280, 32), (2, 64, 64, 960, 32), (2, 8, 8, 2560, 32)],  # UNet: K3′
+)
 def test_group_norm_stats_matches_plain(dev, n, h, w, c, groups):
     x = _randn(dev, n, h, w, c, seed=7) + 0.5
     mean, rstd = group_norm_stats(x, groups=groups, eps=1e-6)
@@ -139,3 +153,99 @@ def test_group_norm_stats_matches_plain(dev, n, h, w, c, groups):
 def test_group_norm_stats_rejects_f32(dev):
     with pytest.raises(ValueError, match="bf16"):
         group_norm_stats(torch.zeros(1, 4, 4, 64, device=dev), groups=8)
+
+
+@pytest.mark.parametrize("act", [None, "silu", "gelu"])
+@pytest.mark.parametrize("n,h,w,c", [(2, 9, 7, 40), (1, 5, 3, 8), (2, 16, 16, 2560)])
+def test_group_norm_apply_matches_plain(dev, act, n, h, w, c):
+    x = _randn(dev, n, h, w, c, seed=8) + 0.3
+    g = torch.Generator(device=dev).manual_seed(9)
+    gamma = torch.rand((c,), generator=g, device=dev) + 0.5
+    beta = torch.randn((c,), generator=g, device=dev) * 0.2
+    mean, rstd = group_norm_stats(x, groups=8, eps=1e-6)
+    before = cuda_build.launch_counts["group_norm_apply"]
+    got = group_norm_apply(x, mean, rstd, gamma, beta, act=act)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["group_norm_apply"] == before + 1
+    assert got.shape == x.shape and got.dtype == BF16
+    assert _rms_rel(got, group_norm_apply_ref(x, mean, rstd, gamma, beta, act=act)) <= 1e-2
+
+
+def test_group_norm_apply_rejects_what_it_cannot_run(dev):
+    stats = (torch.zeros(1, 1, 1, 12, device=dev), torch.ones(1, 1, 1, 12, device=dev))
+    one, zero = torch.ones(12, device=dev), torch.zeros(12, device=dev)
+    with pytest.raises(ValueError, match="C % 8"):
+        group_norm_apply(torch.zeros(1, 4, 4, 12, device=dev, dtype=BF16), *stats, one, zero)
+    with pytest.raises(ValueError, match="bf16"):
+        group_norm_apply(torch.zeros(1, 4, 4, 16, device=dev), *stats, one, zero)
+    with pytest.raises(ValueError, match="activation"):
+        group_norm_apply(torch.zeros(1, 4, 4, 16, device=dev, dtype=BF16), *stats, one, zero,
+                         act="relu")
+
+
+@pytest.mark.parametrize(
+    "lead,k,f,bias",
+    [((2, 1024), 640, 2560, True), ((300,), 128, 64, False), ((1, 77), 96, 192, True),
+     ((5,), 32, 128, False)],  # M not a tile multiple
+)
+def test_linear_geglu_matches_plain(dev, lead, k, f, bias):
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = _randn(dev, *lead, k, seed=11)
+    w = (torch.randn((2 * f, k), generator=g, device=dev) / k**0.5).to(BF16)
+    b = torch.randn((2 * f,), generator=g, device=dev).to(BF16) if bias else None
+    before = cuda_build.launch_counts["linear_geglu"]
+    got = linear_geglu_fused(x, w, b)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["linear_geglu"] == before + 1
+    assert got.shape == (*lead, f) and got.dtype == BF16
+    assert _rms_rel(got, linear_geglu_fused_ref(x, w, b)) <= 1e-2
+
+
+def test_linear_geglu_rejects_what_it_cannot_run(dev):
+    x = torch.zeros(4, 40, device=dev, dtype=BF16)
+    with pytest.raises(ValueError, match="K % 32"):
+        linear_geglu_fused(x, torch.zeros(128, 40, device=dev, dtype=BF16))
+    x = torch.zeros(4, 64, device=dev, dtype=BF16)
+    with pytest.raises(ValueError, match="F % 64"):
+        linear_geglu_fused(x, torch.zeros(96, 64, device=dev, dtype=BF16))
+    with pytest.raises(ValueError, match="bf16"):
+        linear_geglu_fused(x.float(), torch.zeros(128, 64, device=dev))
+    w = torch.zeros(128, 64, device=dev, dtype=BF16)
+    with pytest.raises(ValueError, match=r"b \(2F,\)"):
+        linear_geglu_fused(x, w, torch.zeros(64, device=dev))
+
+
+@pytest.mark.parametrize(
+    "b,h,sq,sk,d,causal",
+    [
+        (2, 8, 4096, 1000, 40, False),  # ragged kv
+        (1, 2, 300, 77, 40, False),     # ragged q, kv shorter than a tile
+        (1, 2, 512, 512, 40, True),
+        (1, 2, 384, 384, 64, True),
+        (2, 2, 1024, 1024, 64, False),
+        (1, 2, 256, 200, 80, False),
+        (1, 1, 256, 256, 160, False),
+    ],
+)
+def test_flash_attention_int8_matches_plain(dev, b, h, sq, sk, d, causal):
+    # head-split views of (B, S, H·D) projections, as the UNet passes them
+    q = _randn(dev, b, sq, h * d, seed=12).view(b, sq, h, d).transpose(1, 2)
+    k = (_randn(dev, b, sk, h * d, seed=13) + 0.5).view(b, sk, h, d).transpose(1, 2)
+    v = (_randn(dev, b, sk, h * d, seed=14) - 0.3).view(b, sk, h, d).transpose(1, 2)
+    before = cuda_build.launch_counts["flash_attention_int8"]
+    got = flash_attention_int8(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["flash_attention_int8"] == before + 1
+    assert got.shape == (b, h, sq, d) and got.dtype == BF16
+    assert _rms_rel(got, flash_attention_int8_ref(q, k, v, causal=causal)) <= 2e-2
+    assert _rms_rel(got, flash_attention_ref(q, k, v, causal=causal)) <= 0.015
+
+
+def test_flash_attention_int8_rejects_what_it_cannot_run(dev):
+    q = torch.zeros(1, 1, 64, 40, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention_int8(q, q, q)
+    for d in (36, 192):
+        q = torch.zeros(1, 1, 64, d, device=dev, dtype=BF16)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention_int8(q, q, q)

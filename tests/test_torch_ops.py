@@ -32,8 +32,14 @@ from sfast_tpu_torch.ops import fused_conv
 from sfast_tpu_torch.ops.attention import dot_product_attention
 from sfast_tpu_torch.ops.conv import conv2d
 from sfast_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
-from sfast_tpu_torch.ops.geglu import linear_geglu
-from sfast_tpu_torch.ops.group_norm import group_norm, group_norm_stats, group_norm_stats_ref
+from sfast_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
+from sfast_tpu_torch.ops.geglu import linear_geglu, linear_geglu_fused
+from sfast_tpu_torch.ops.group_norm import (
+    group_norm,
+    group_norm_apply,
+    group_norm_stats,
+    group_norm_stats_ref,
+)
 from sfast_tpu_torch.ops.layer_norm import layer_norm
 from sfast_tpu_torch.ops.linear import linear
 from sfast_tpu_torch.runtime import cuda_build
@@ -249,7 +255,11 @@ def test_gn_affine_and_affine_from_stats_match_jax():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "conv3x3", "group_norm_stats"])
+@pytest.mark.parametrize(
+    "kernel",
+    ["flash_attention", "conv3x3", "group_norm_stats", "group_norm_apply", "linear_geglu",
+     "flash_attention_int8"],
+)
 def test_kernel_wrappers_raise_off_cpu_and_cuda(kernel):
     meta = dict(device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -258,8 +268,17 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda(kernel):
             flash_attention(q, q, q)
         elif kernel == "conv3x3":
             fused_conv.conv3x3_block(torch.empty(1, 8, 8, 16, **meta), torch.empty(3, 3, 16, 16, **meta))
-        else:
+        elif kernel == "group_norm_stats":
             group_norm_stats(torch.empty(1, 8, 8, 64, **meta), groups=8)
+        elif kernel == "group_norm_apply":
+            stats = torch.empty(1, 1, 1, 64, **meta)
+            group_norm_apply(torch.empty(1, 8, 8, 64, **meta), stats, stats,
+                             torch.empty(64, **meta), torch.empty(64, **meta))
+        elif kernel == "linear_geglu":
+            linear_geglu_fused(torch.empty(4, 128, **meta), torch.empty(256, 128, **meta))
+        else:
+            q = torch.empty(1, 2, 64, 40, **meta)
+            flash_attention_int8(q, q, q)
 
 
 def test_cpu_calls_launch_nothing():
@@ -267,5 +286,12 @@ def test_cpu_calls_launch_nothing():
     x = torch.randn(1, 8, 8, 16)
     fused_conv.conv3x3_gn_silu(x, torch.randn(3, 3, 16, 16))
     fused_conv.gn_affine(x, torch.ones(16), torch.zeros(16), groups=8)
-    flash_attention(torch.randn(1, 1, 8, 8), torch.randn(1, 1, 8, 8), torch.randn(1, 1, 8, 8))
-    assert cuda_build.launch_counts == {"flash_attention": 0, "conv3x3": 0, "group_norm_stats": 0}
+    q = torch.randn(1, 1, 8, 8)
+    flash_attention(q, q, q)
+    flash_attention_int8(q, q, q)
+    group_norm(x, torch.ones(16), torch.zeros(16), groups=8, act="gelu", backend="kernel")
+    linear_geglu_fused(torch.randn(4, 32), torch.randn(128, 32))
+    assert cuda_build.launch_counts == {
+        "flash_attention": 0, "flash_attention_int8": 0, "conv3x3": 0,
+        "group_norm_stats": 0, "group_norm_apply": 0, "linear_geglu": 0,
+    }

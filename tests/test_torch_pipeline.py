@@ -29,6 +29,8 @@ from sfast_tpu.models.unet_2d_condition import TINY_UNET as J_TINY_UNET
 from sfast_tpu.models.unet_2d_condition import create_unet
 from sfast_tpu.pipelines import StableDiffusionPipeline as JaxPipeline
 from sfast_tpu.schedulers import DPMSolverMultistepScheduler as JaxDPM
+from sfast_tpu.compilers.diffusion_pipeline_compiler import compile_unet
+from sfast_tpu.config import CompilationConfig as JaxConfig
 from sfast_tpu.utils.image import denormalize_to_uint8 as j_denormalize
 from sfast_tpu_torch import CompilationConfig
 from sfast_tpu_torch.interop import from_jax
@@ -38,6 +40,7 @@ from sfast_tpu_torch.models import (
 )
 from sfast_tpu_torch.models.layers import fused_conv_ok
 from sfast_tpu_torch.models.unet_2d_condition import backends
+from sfast_tpu_torch.ops import group_norm as t_group_norm
 from sfast_tpu_torch.ops.attention import flash_ok
 from sfast_tpu_torch.pipelines import StableDiffusionPipeline
 from sfast_tpu_torch.runtime import cuda_build
@@ -48,6 +51,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 J_UNET64 = dataclasses.replace(J_TINY_UNET, cross_attention_dim=64)
 UNET64 = dataclasses.replace(TINY_UNET, cross_attention_dim=64)
 STEPS, HW = 3, 32
+# the opt-in kernel configuration, in both packages
+OPTIN_KNOBS = dict(enable_fused_group_norm=True, enable_fused_linear_geglu=True,
+                   enable_int8_attention=True)
+OPTIN = CompilationConfig(**OPTIN_KNOBS)
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +93,50 @@ def test_tiny_pipeline_matches_jax(pipes):
     assert timg.shape == jimg.shape == (1, HW, HW, 3) and timg.dtype == np.uint8
     assert np.abs(timg.astype(int) - jimg.astype(int)).max() <= 1
     # on CPU tensors no kernel launches
-    assert cuda_build.launch_counts == {"flash_attention": 0, "conv3x3": 0, "group_norm_stats": 0}
+    assert cuda_build.launch_counts == {
+        "flash_attention": 0, "flash_attention_int8": 0, "conv3x3": 0,
+        "group_norm_stats": 0, "group_norm_apply": 0, "linear_geglu": 0,
+    }
+
+
+def test_tiny_pipeline_optin_matches_jax(pipes, monkeypatch):
+    """The opt-in configuration end to end.  At these widths K4 (K < 128)
+    and K6 (sequences below the length rule) do not fire on either side, so
+    this covers K3′+K5 in every UNet GroupNorm and the config plumbing;
+    tests/test_torch_optin.py covers K4 and K6 at module level."""
+    jpipe, tpipe = pipes
+    gn_mod = sys.modules["sfast_tpu.ops.group_norm"]
+    pallas_gn = gn_mod.group_norm_pallas
+    calls = []
+
+    def interpret_gn(*a, **kw):
+        calls.append(a[0].shape)
+        return pallas_gn(*a, **{**kw, "interpret": True})
+
+    monkeypatch.setattr(gn_mod, "group_norm_pallas", interpret_gn)
+    ours = []
+    apply_ref = t_group_norm.group_norm_apply
+    monkeypatch.setattr(t_group_norm, "group_norm_apply",
+                        lambda x, *a, **kw: ours.append(x.shape) or apply_ref(x, *a, **kw))
+    # JAX's stepwise pipeline calls its UNet bundle, which takes its config
+    # from sfast_tpu's compile step
+    monkeypatch.setattr(jpipe, "unet", compile_unet(
+        jpipe.unet, JaxConfig(**OPTIN_KNOBS, enable_aot_cache=False)))
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, 1000, (1, 77)).astype(np.int32)
+    lat = rng.standard_normal((1, HW // 2, HW // 2, 4)).astype(np.float32)
+    kw = dict(height=HW, width=HW, num_inference_steps=STEPS, guidance_scale=7.5,
+              output_type="latent")
+    jlat = np.asarray(jpipe(prompt_ids=jnp.asarray(ids), latents=jnp.asarray(lat), **kw).images)
+    try:
+        tpipe.set_compilation_config(OPTIN)
+        tlat = tpipe(prompt_ids=ids, latents=torch.from_numpy(lat), **kw).images
+    finally:
+        tpipe.set_compilation_config(CompilationConfig.Default())
+    # every UNet GroupNorm took K3′+K5 on both sides: JAX traced its UNet
+    # once, the port ran it STEPS times on the CFG batch
+    assert calls and len(ours) == STEPS * len(calls)
+    np.testing.assert_allclose(tlat.numpy(), jlat, rtol=0, atol=2e-3 * np.abs(jlat).max())
 
 
 def test_tiny_pipeline_seeds_and_outputs(pipes):
@@ -158,10 +208,14 @@ def test_fused_conv_routing_rule(x, dtype, dev, ks, backend, expect):
 
 
 def test_config_to_backends():
-    assert backends(CompilationConfig()) == {"attn": None, "conv": "plain"}
-    assert backends(CompilationConfig(enable_kernels=False)) == {"attn": "plain", "conv": "plain"}
-    assert backends(CompilationConfig(enable_fused_conv=True)) == {"attn": None, "conv": None}
+    assert backends(CompilationConfig()) == {
+        "gn": None, "attn": None, "geglu": "plain", "conv": "plain"}
+    assert backends(CompilationConfig(enable_kernels=False)) == {
+        "gn": "plain", "attn": "plain", "geglu": "plain", "conv": "plain"}
+    assert backends(CompilationConfig(enable_fused_conv=True)) == {
+        "gn": None, "attn": None, "geglu": "plain", "conv": None}
     assert backends(CompilationConfig(enable_flash_attention=False))["attn"] == "plain"
+    assert backends(OPTIN) == {"gn": "kernel", "attn": "int8", "geglu": None, "conv": "plain"}
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``build/sfast_tpu_torch/``) and print the build seconds;
 3. hold each kernel against its plain PyTorch version in bf16 at the shapes
    the main path gives it, and time both: CUDA events around one call,
-   and the device time of its kernels (torch.profiler);
+   and the device time of its kernels (torch.profiler); time beside it the
+   one PyTorch call that computes the same function where there is one
+   (``library_ms``), and state its bound (``bound_ms``: operations over
+   the peak rate against bytes over the memory rate) and the share of it
+   reached;
 4. run SD1.5 text2img at full width with seeded random weights — 512²,
    batch 1, DPM++ 50 steps, CFG 7.5 — through ``StableDiffusionPipeline``;
    count the kernel launches of one image, time 3 more, check the image,
@@ -23,7 +27,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the same launch count, timing, image and profile steps, and one UNet
    eval held against the plain route.
 
-The line before the last is ``{"kernels": [...]}`` and the last is
+The line before the last is ``{"kernels": [...]}``: per kernel its
+launches per image on each path, the main-path case's numbers and every
+case under ``cases``.  The last is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
 """
 
@@ -59,6 +65,13 @@ MODEL_RMS_REL = 5e-2
 # attention output) and the tanh GELU of K4 against the plain erf GELU.
 OPTIN_MODEL_RMS_REL = 1e-1
 STEPS = 50
+# The card's published peaks (H100 SXM, dense): bf16 and int8 tensor-core
+# rates and device memory; the exp2 rate of the MUFU units (16 per clock
+# per SM, 132 SMs) at the 1.98 GHz boost clock, K1's second floor
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
+HBM_BYTES_PER_S = 3.35e12
+EXP2_PER_S = 16 * 132 * 1.98e9
 # launches of one image: 5 level-0 self-attentions x 50 steps; 9 fused VAE
 # resnets x 2 + 3 upsample convs; one K3 per fused resnet.  Opt-in: every
 # UNet GroupNorm (22 resnets x 2 + 16 transformers + conv_norm_out = 61 per
@@ -136,29 +149,70 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, iters=10):
+def device_ms(fn, floor_ms, iters=10, names=False, tries=5):
     """Mean device milliseconds of one call: the kernel rows of a
     torch.profiler trace.  CUDA events around one call also time the host's
-    launch of it, which is most of what they read below ~0.1 ms."""
+    launch of it, which is most of what they read below ~0.1 ms.  With
+    ``names`` also returns the names of the kernels that ran.
+
+    The profiler now and then loses kernel rows, and the trace then reads
+    too low.  A trace with no kernel row, with a kernel counted a number of
+    times that is not a multiple of the calls, or whose time is not above
+    ``floor_ms`` (the function's bound) is taken again; after ``tries``
+    such traces this raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in rows) / iters / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        ms = sum(e.self_device_time_total for e in rows) / iters / 1e3
+        if rows and all(e.count % iters == 0 for e in rows) and ms > floor_ms:
+            return (ms, sorted({e.key for e in rows})) if names else ms
+        log(f"    profiler trace of {iters} calls lost kernel rows: {ms:.4f} ms per call, "
+            f"bound {floor_ms:.4f} ms, counts {[e.count for e in rows]}; tracing again")
+    raise RuntimeError(f"device_ms: {tries} profiler traces lost kernel rows "
+                       f"(last: {ms:.4f} ms per call against a bound of {floor_ms:.4f} ms)")
 
 
-def time_pair(kernel, plain):
+def bound(flops, nbytes, peak=PEAK_BF16):
+    """(least ms the card could take, what sets it): the operations over
+    the peak rate of their type against every input read once and every
+    output written once over the memory rate."""
+    op_ms, byte_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def record(out, name, case, max_abs, t, bnd, lib=None, **extra):
+    """Log one case of a kernel and keep it under ``out[name]``.  ``lib`` is
+    (library device ms, what the call is) or None."""
+    ms, plain_ms, dev, plain_dev = t
+    row = {
+        "case": case, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "device_ms": dev, "plain_device_ms": plain_dev,
+        "library_ms": None if lib is None else lib[0],
+        "library": "none" if lib is None else lib[1],
+        "bound_ms": bnd[0], "bound_by": bnd[1], "share_of_bound": bnd[0] / dev,
+        **extra,
+    }
+    lib_text = "none" if lib is None else f"{lib[0]:.4f} ({lib[1]})"
+    log(f"    {name} {case}: device {dev:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+        f"{100 * bnd[0] / dev:.1f}% of bound; library {lib_text}")
+    out.setdefault(name, []).append(row)
+
+
+def time_pair(kernel, plain, bnd):
     """(kernel ms, plain ms, kernel device ms, plain device ms): CUDA-event
-    medians timed in turns plain, kernel, kernel, plain, then device times."""
+    medians timed in turns plain, kernel, kernel, plain, then device times,
+    each above ``bnd``, the function's bound."""
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2, device_ms(kernel), device_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2, device_ms(kernel, bnd[0]), device_ms(plain, bnd[0])
 
 
 def timing_text(t):
@@ -166,9 +220,21 @@ def timing_text(t):
             f"plain {t[1]:.4f} ms (device {t[3]:.4f})")
 
 
+def sdpa_backend(names):
+    """Which of PyTorch's attention backends ran, from its kernels' names."""
+    text = " ".join(names).lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "mem-efficient"),
+                         ("efficient", "mem-efficient")):
+        if key in text:
+            return backend
+    return "math"
+
+
 def check_kernels(torch, dev):
-    """Phase 3.  Returns {kernel: (max_abs_err, time_pair(...))} of its
-    first (main-path) case."""
+    """Phase 3.  Returns {kernel: [case, ...]}, the main-path case first:
+    errors, kernel / plain / library times, bound."""
+    import torch.nn.functional as F
+
     from sfast_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
     from sfast_tpu_torch.ops.fused_conv import conv3x3_block, conv3x3_block_ref
     from sfast_tpu_torch.ops.group_norm import group_norm_stats, group_norm_stats_ref
@@ -181,7 +247,7 @@ def check_kernels(torch, dev):
 
     out = {}
     # K1: UNet level-0 self-attention, q/k/v as head-split views of the
-    # (B, S, H·D) projections; then a ragged kv tail (1000 = 15·64 + 40)
+    # (B, S, H·D) projections; then a ragged kv tail (1000 = 7·128 + 104)
     for b, h, sq, sk, d in [(2, 8, 4096, 4096, 40), (2, 8, 4096, 1000, 40)]:
         q = randn(b, sq, h * d).view(b, sq, h, d).transpose(1, 2)
         k = randn(b, sk, h * d).view(b, sk, h, d).transpose(1, 2)
@@ -189,12 +255,23 @@ def check_kernels(torch, dev):
         got = flash_attention(q, k, v)
         torch.cuda.synchronize()
         max_abs, max_rel, rms = rel_errors(got, flash_attention_ref(q, k, v))
-        t = time_pair(lambda: flash_attention(q, k, v), lambda: flash_attention_ref(q, k, v))
+        again = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("K1: two calls on the same inputs differ")
+        nbytes = 2 * b * h * d * (2 * sq + 2 * sk)  # q, k, v in, o out
+        bnd = bound(4 * b * h * sq * sk * d, nbytes)
+        t = time_pair(lambda: flash_attention(q, k, v), lambda: flash_attention_ref(q, k, v),
+                      bnd)
+        sdpa_ms, sdpa_names = device_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                                        bnd[0], names=True)
         log(f"K1 flash_attention q={tuple(q.shape)} kv={sk}: max_rel {max_rel:.3e} "
             f"rms_rel {rms:.3e}  {timing_text(t)}")
         if not rms <= K1_RMS_REL:
             raise AssertionError(f"K1 rms rel error {rms} > {K1_RMS_REL}")
-        out.setdefault("flash_attention", (max_abs, t))
+        record(out, "flash_attention", f"({b}, {h}, {sq}x{sk}, {d})", max_abs, t, bnd,
+               (sdpa_ms, f"F.scaled_dot_product_attention, {sdpa_backend(sdpa_names)} backend"),
+               exp2_floor_ms=b * h * sq * sk / EXP2_PER_S * 1e3)
 
     # K2: every distinct call of the VAE decoder's main path — the fused
     # resnets' conv1 (GN in, per-batch bias, stats out) and conv2 (GN in,
@@ -226,19 +303,33 @@ def check_kernels(torch, dev):
         torch.cuda.synchronize()
         ref = conv3x3_block_ref(x, w, **kw)
         if kind == "conv1":
+            again = conv3x3_block(x, w, **kw)
             got, s1, s2 = got
             ref, r1, r2 = ref
+            if not (torch.equal(s1, again[1]) and torch.equal(s2, again[2])):
+                raise AssertionError("K2: two calls give different statistics")
             stats_err = max(rel_errors(s1, r1)[1], rel_errors(s2, r2)[1])
             if not stats_err <= STATS_REL:
                 raise AssertionError(f"K2 stats rel error {stats_err} > {STATS_REL}")
         max_abs, max_rel, rms = rel_errors(got, ref)
-        t = time_pair(lambda: conv3x3_block(x, w, **kw), lambda: conv3x3_block_ref(x, w, **kw))
+        flops, conv_bytes = 2 * hw * hw * 9 * c * f, 2 * (hw * hw * c + 9 * c * f + hw * hw * f)
+        bnd = bound(flops, conv_bytes + (2 * hw * hw * f if kind == "conv2" else 0))
+        t = time_pair(lambda: conv3x3_block(x, w, **kw), lambda: conv3x3_block_ref(x, w, **kw),
+                      bnd)
+        # cuDNN's bf16 conv with bias on the channels-last NCHW views: the
+        # same function where there is no GroupNorm in front (upsample), a
+        # lower floor where there is (conv1, conv2)
+        xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        bc = kw.get("bias", kw.get("bias_batch", torch.zeros(1, f, device=dev))).reshape(f).to(bf16)
+        lib_ms = device_ms(lambda: F.conv2d(xc, wc, bc, padding=1), bound(flops, conv_bytes)[0])
         extra = f" stats_rel {stats_err:.3e}" if kind == "conv1" else ""
         log(f"K2 conv3x3 {kind} {hw}²·{c}→{f}: max_rel {max_rel:.3e} rms_rel {rms:.3e}"
             f"{extra}  {timing_text(t)}")
         if not rms <= K2_RMS_REL:
             raise AssertionError(f"K2 rms rel error {rms} > {K2_RMS_REL}")
-        out.setdefault("conv3x3", (max_abs, t))
+        record(out, "conv3x3", f"{kind} {hw}^2 {c}->{f}", max_abs, t, bnd,
+               (lib_ms, "F.conv2d + bias" + (", same function" if kind == "upsample"
+                                             else ", without the GroupNorm: a lower floor")))
 
     # K3: the fused-resnet entries' GroupNorm statistics (32 groups, eps 1e-6)
     for hw, c in [(128, 512), (256, 512), (256, 256), (512, 256), (512, 128)]:
@@ -247,13 +338,16 @@ def check_kernels(torch, dev):
         torch.cuda.synchronize()
         rm, rr = group_norm_stats_ref(x, groups=32, eps=1e-6)
         em, er = rel_errors(mean, rm), rel_errors(rstd, rr)
+        bnd = bound(0, 2 * x.numel())
         t = time_pair(lambda: group_norm_stats(x, groups=32, eps=1e-6),
-                      lambda: group_norm_stats_ref(x, groups=32, eps=1e-6))
+                      lambda: group_norm_stats_ref(x, groups=32, eps=1e-6), bnd)
         log(f"K3 group_norm_stats {hw}²·{c}: mean max_rel {em[1]:.3e} rstd max_rel "
             f"{er[1]:.3e}  {timing_text(t)}")
         if not max(em[1], er[1]) <= STATS_REL:
             raise AssertionError(f"K3 rel error {max(em[1], er[1])} > {STATS_REL}")
-        out.setdefault("group_norm_stats", (max(em[0], er[0]), t))
+        xg = x.view(1, hw * hw, 32, c // 32)
+        record(out, "group_norm_stats", f"K3 {hw}^2 {c}", max(em[0], er[0]), t, bnd,
+               (device_ms(lambda: torch.var_mean(xg, dim=(1, 3)), bnd[0]), "torch.var_mean"))
 
     check_optin_kernels(torch, dev, randn, out)
     return out
@@ -292,10 +386,11 @@ def check_optin_kernels(torch, dev, randn, out):
         stats_err = max(rel_errors(mean, rm)[1], rel_errors(rstd, rr)[1])
         max_abs, max_rel, rms = rel_errors(got, group_norm_apply_ref(x, mean, rstd, gamma, beta,
                                                                       act=act))
+        bnd, st_bnd = bound(0, 4 * x.numel()), bound(0, 2 * x.numel())
         t = time_pair(lambda: group_norm_apply(x, mean, rstd, gamma, beta, act=act),
-                      lambda: group_norm_apply_ref(x, mean, rstd, gamma, beta, act=act))
+                      lambda: group_norm_apply_ref(x, mean, rstd, gamma, beta, act=act), bnd)
         st = time_pair(lambda: group_norm_stats(x, groups=32, eps=eps),
-                       lambda: group_norm_stats_ref(x, groups=32, eps=eps))
+                       lambda: group_norm_stats_ref(x, groups=32, eps=eps), st_bnd)
         log(f"K3'+K5 group_norm (2, {hw}², {c}) act={act}: K5 max_rel {max_rel:.3e} "
             f"rms_rel {rms:.3e}  {timing_text(t)}; K3' stats_rel {stats_err:.3e}  "
             f"{timing_text(st)}")
@@ -303,7 +398,12 @@ def check_optin_kernels(torch, dev, randn, out):
             raise AssertionError(f"K5 rms rel error {rms} > {K5_RMS_REL}")
         if not stats_err <= STATS_REL:
             raise AssertionError(f"K3' rel error {stats_err} > {STATS_REL}")
-        out.setdefault("group_norm_apply", (max_abs, t))
+        case = f"(2, {hw}^2, {c}) {act or 'none'}"
+        record(out, "group_norm_apply", case, max_abs, t, bnd)
+        xg = x.view(2, hw * hw, 32, c // 32)
+        stats_abs = max(rel_errors(mean, rm)[0], rel_errors(rstd, rr)[0])
+        record(out, "group_norm_stats", "K3' " + case, stats_abs, st, st_bnd,
+               (device_ms(lambda: torch.var_mean(xg, dim=(1, 3)), st_bnd[0]), "torch.var_mean"))
 
     for m, k, f in UNET_GEGLU:
         x = randn(m, k)
@@ -312,14 +412,16 @@ def check_optin_kernels(torch, dev, randn, out):
         got = linear_geglu_fused(x, w, b)
         torch.cuda.synchronize()
         max_abs, max_rel, rms = rel_errors(got, linear_geglu_fused_ref(x, w, b))
+        bnd = bound(2 * m * k * 2 * f, 2 * (m * k + 2 * f * k + 2 * f + m * f))
         t = time_pair(lambda: linear_geglu_fused(x, w, b),
-                      lambda: linear_geglu_fused_ref(x, w, b))
-        unfused_ms = device_ms(lambda: linear_geglu_plain(x, w, b))
+                      lambda: linear_geglu_fused_ref(x, w, b), bnd)
+        unfused_ms = device_ms(lambda: linear_geglu_plain(x, w, b), bnd[0])
         log(f"K4 linear_geglu M={m} K={k} F={f}: max_rel {max_rel:.3e} rms_rel {rms:.3e}  "
             f"{timing_text(t)}  (unfused bf16 erf route: device {unfused_ms:.4f} ms)")
         if not rms <= K4_RMS_REL:
             raise AssertionError(f"K4 rms rel error {rms} > {K4_RMS_REL}")
-        out.setdefault("linear_geglu", (max_abs, t))
+        record(out, "linear_geglu", f"M={m} K={k} F={f}", max_abs, t, bnd,
+               unfused_route_ms=unfused_ms)
 
     # K6: level-0 self-attention, head-split views; then a ragged kv tail
     for b, h, sq, sk, d in [(2, 8, 4096, 4096, 40), (2, 8, 4096, 1000, 40)]:
@@ -330,15 +432,16 @@ def check_optin_kernels(torch, dev, randn, out):
         torch.cuda.synchronize()
         max_abs, max_rel, rms = rel_errors(got, flash_attention_int8_ref(q, k, v))
         exact = rel_errors(got, flash_attention_ref(q, k, v))[2]
+        bnd = bound(4 * b * h * sq * sk * d, 2 * b * h * d * (2 * sq + 2 * sk), PEAK_INT8)
         t = time_pair(lambda: flash_attention_int8(q, k, v),
-                      lambda: flash_attention_int8_ref(q, k, v))
+                      lambda: flash_attention_int8_ref(q, k, v), bnd)
         log(f"K6 flash_attention_int8 q={tuple(q.shape)} kv={sk}: max_rel {max_rel:.3e} "
             f"rms_rel {rms:.3e} (exact attention: rms_rel {exact:.3e})  {timing_text(t)}")
         if not rms <= K6_RMS_REL:
             raise AssertionError(f"K6 rms rel error {rms} > {K6_RMS_REL}")
         if not exact <= K6_EXACT_RMS_REL:
             raise AssertionError(f"K6 vs exact attention: rms rel {exact} > {K6_EXACT_RMS_REL}")
-        out.setdefault("flash_attention_int8", (max_abs, t))
+        record(out, "flash_attention_int8", f"({b}, {h}, {sq}x{sk}, {d})", max_abs, t, bnd)
 
 
 def build_pipeline(torch, dev):
@@ -506,12 +609,15 @@ def main():
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        max_abs, (ms, plain_ms, dev_ms, plain_dev_ms) = measured[name]
+        first = measured[name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": default[name] + optin[name], "launches_default": default[name],
-            "launches_optin": optin[name], "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms, "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+            "launches": default[name] + optin[name],
+            "launches_per_image": {"default": default[name], "optin": optin[name]},
+            **{key: first[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "plain_device_ms", "share_of_bound", "library")},
+            "cases": measured[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ from sfast_tpu_torch.models.layers import (
     Upsample2D,
 )
 from sfast_tpu_torch.ops.attention import dot_product_attention
+from sfast_tpu_torch.runtime.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +110,7 @@ class AutoencoderKL(nn.Module):
         super().__init__()
         self.config = cfg
         self.compilation_config = CompilationConfig.Default()
+        device = resolve_device(device)
         self.post_quant_conv = Conv2d(
             cfg.latent_channels, cfg.latent_channels, 1, device=device, dtype=dtype
         )

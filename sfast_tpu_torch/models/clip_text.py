@@ -14,6 +14,7 @@ import torch.nn as nn
 
 from sfast_tpu_torch.models.layers import LayerNorm, Linear
 from sfast_tpu_torch.ops.attention import dot_product_attention
+from sfast_tpu_torch.runtime.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,7 +126,7 @@ class CLIPTextModel(nn.Module):
     def __init__(self, cfg: CLIPTextConfig = SD15_TEXT_ENCODER, *, device=None, dtype=None):
         super().__init__()
         self.config = cfg
-        self.text_model = CLIPTextTransformer(cfg, device=device, dtype=dtype)
+        self.text_model = CLIPTextTransformer(cfg, device=resolve_device(device), dtype=dtype)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         tm = self.text_model

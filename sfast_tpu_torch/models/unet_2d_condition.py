@@ -25,6 +25,7 @@ from sfast_tpu_torch.models.layers import (
     Upsample2D,
     timestep_embedding,
 )
+from sfast_tpu_torch.runtime.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +112,7 @@ class UNet2DConditionModel(nn.Module):
         super().__init__()
         self.config = cfg
         self.compilation_config = CompilationConfig.Default()
+        device = resolve_device(device)
         mk = dict(device=device, dtype=dtype)
         boc = cfg.block_out_channels
         n_levels = len(boc)

@@ -45,7 +45,8 @@ def flash_attention_ref(
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """Every (b, h, s) row starts on 16 bytes, as the kernel's copies need."""
+    """Every (b, h, s) row starts on 16 bytes, as the kernel's TMA tensor
+    maps need (base and strides multiples of 16 bytes)."""
     return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
         s % 8 == 0 for s in t.stride()[:3]
     )
@@ -82,6 +83,8 @@ def flash_attention(
     q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if not scale > 0:  # the kernel takes the row max before scaling
+        raise ValueError(f"flash_attention: scale must be positive, got {scale}")
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = cuda_build.library()
     err = lib.sfast_flash_attention_bf16(

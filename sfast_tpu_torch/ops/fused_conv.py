@@ -21,8 +21,7 @@ import torch.nn.functional as F
 from sfast_tpu_torch.ops.group_norm import group_norm_stats
 from sfast_tpu_torch.runtime import cuda_build
 
-_PIXELS_PER_BLOCK = 128  # BM in csrc/conv3x3.cu
-
+_PATCH_H, _PATCH_W = 16, 8  # output pixels per block: TH x TW in csrc/conv3x3.cu
 
 def _bias_rows(bias, bias_batch, n: int, f: int, device) -> torch.Tensor:
     """The epilogue's per-(batch, channel) bias, (N, F) f32."""
@@ -106,6 +105,8 @@ def conv3x3_block(
         raise ValueError("conv3x3_block: gn_scale and gn_shift go together")
     x = x.contiguous()
     w_rows = w.permute(3, 0, 1, 2).contiguous()  # (F, 3, 3, C): a view when w came from OIHW channels_last
+    # TMA reads both from 16-byte aligned addresses
+    x, w_rows = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w_rows))
     bias2 = _bias_rows(bias, bias_batch, n, f, x.device).contiguous()
     if gn_scale is not None:
         gn_scale = gn_scale.float().reshape(n, c).contiguous()
@@ -117,9 +118,9 @@ def conv3x3_block(
             )
         residual = residual.contiguous()
     out = torch.empty((n, h, wd, f), dtype=x.dtype, device=x.device)
-    # one partial (Σy, Σy²) row per block of output pixels, summed below in
+    # one partial (Σy, Σy²) row per patch of output pixels, summed below in
     # a fixed order, so the statistics repeat exactly from run to run
-    pixel_blocks = -(-(h * wd) // _PIXELS_PER_BLOCK)
+    pixel_blocks = -(-h // _PATCH_H) * -(-wd // _PATCH_W)
     partials = (
         torch.empty((2, n, pixel_blocks, f), dtype=torch.float32, device=x.device)
         if emit_stats else None

@@ -64,6 +64,9 @@ def _randn(dev, *shape, seed=0):
         (1, 2, 256, 256, 64, True, False),
         (1, 1, 130, 130, 160, False, False),
         (1, 1, 1, 5, 16, False, False),
+        (1, 3, 300, 300, 40, True, True),    # causal at the ones-column head dim
+        (1, 2, 300, 300, 160, True, True),   # causal with 64-row kv tiles
+        (2, 4, 500, 1000, 56, False, True),  # d padded to 64
     ],
 )
 def test_flash_attention_matches_plain(dev, b, h, sq, sk, d, causal, strided):
@@ -81,6 +84,27 @@ def test_flash_attention_matches_plain(dev, b, h, sq, sk, d, causal, strided):
     assert _rms_rel(got, flash_attention_ref(q, k, v, causal=causal)) <= 1e-2
 
 
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+@pytest.mark.parametrize("sk", [1000, 77 * 3])  # not multiples of the 128- or 64-row kv tile
+def test_flash_attention_head_dims_ragged_kv_and_edge_heads(dev, d, sk):
+    """Batch 1, head-split views of (1, S, H·d): the kernel's tensor maps
+    take d as their innermost extent, so the first head must not see the
+    second's columns and the last head's pad columns arrive as zeros (a
+    48-wide box at d = 40 would read past it).  Two calls agree bit for
+    bit."""
+    b, h, sq = 1, 5, 384
+    q = _randn(dev, b, sq, h * d, seed=1).view(b, sq, h, d).transpose(1, 2)
+    k = _randn(dev, b, sk, h * d, seed=2).view(b, sk, h, d).transpose(1, 2)
+    v = _randn(dev, b, sk, h * d, seed=3).view(b, sk, h, d).transpose(1, 2)
+    got = flash_attention(q, k, v)
+    again = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v)
+    assert torch.equal(got, again)
+    for head in (0, h - 1):
+        assert _rms_rel(got[:, head], ref[:, head]) <= 1e-2
+
+
 def test_flash_attention_rejects_what_it_cannot_run(dev):
     q = torch.zeros(1, 1, 64, 40, device=dev)
     with pytest.raises(ValueError, match="bf16"):
@@ -89,6 +113,9 @@ def test_flash_attention_rejects_what_it_cannot_run(dev):
         q = torch.zeros(1, 1, 64, d, device=dev, dtype=BF16)
         with pytest.raises(ValueError, match="head dim"):
             flash_attention(q, q, q)
+    q = torch.zeros(1, 1, 64, 40, device=dev, dtype=BF16)
+    with pytest.raises(ValueError, match="scale must be positive"):
+        flash_attention(q, q, q, scale=-0.1)
 
 
 @pytest.mark.parametrize(
@@ -98,6 +125,10 @@ def test_flash_attention_rejects_what_it_cannot_run(dev):
         (1, 5, 7, 8, 16, True, "batch", False, 1.0, True),
         (1, 130, 129, 128, 136, True, "vector", True, 1.0, False),  # F not a tile multiple
         (2, 16, 16, 32, 32, False, None, False, 1.0, True),
+        (1, 35, 21, 256, 264, True, "batch", False, 1.0, True),   # H·W not a patch multiple
+        (1, 24, 40, 512, 512, False, "vector", False, 1.0, False),  # 256-channel blocks
+        (1, 19, 17, 512, 256, True, "vector", True, 0.5, True),
+        (2, 20, 12, 320, 320, True, "batch", True, 1.0, False),   # the UNet's 320 channels
     ],
 )
 def test_conv3x3_block_matches_plain(dev, n, h, w, c, f, gn, bias, res, oscale, stats):
@@ -127,6 +158,35 @@ def test_conv3x3_block_matches_plain(dev, n, h, w, c, f, gn, bias, res, oscale, 
         assert _max_rel(s2, r2) <= 1e-3
     assert got.shape == (n, h, w, f)
     assert _rms_rel(got, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("c,f", [(128, 128), (256, 256), (512, 512)])
+def test_conv3x3_gn_far_shift_and_repeatable_stats(dev, c, f):
+    """A GroupNorm shift far from 0: the halo outside the image must be
+    set back to 0 after the affine and SiLU (silu(shift) is about 3 here),
+    as the plain version pads after the GroupNorm.  Σy and Σy² agree bit
+    for bit across two calls."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    n, h, w = 1, 21, 27
+    x = _randn(dev, n, h, w, c, seed=9)
+    wt = (torch.randn((f, 3, 3, c), generator=g, device=dev) / (9 * c) ** 0.5).to(BF16)
+    wt = wt.permute(1, 2, 3, 0)
+    kw = dict(
+        gn_scale=torch.rand((n, c), generator=g, device=dev) + 0.5,
+        gn_shift=torch.randn((n, c), generator=g, device=dev) * 0.1 + 3.0,
+        bias_batch=torch.randn((n, f), generator=g, device=dev),
+        emit_stats=True,
+    )
+    got, s1, s2 = fused_conv.conv3x3_block(x, wt, **kw)
+    _, s1b, s2b = fused_conv.conv3x3_block(x, wt, **kw)
+    torch.cuda.synchronize()
+    ref, r1, r2 = fused_conv.conv3x3_block_ref(x, wt, **kw)
+    assert torch.equal(s1, s1b) and torch.equal(s2, s2b)
+    assert _rms_rel(got, ref) <= 2e-2
+    # the border rows and columns are where a wrong halo shows
+    assert _rms_rel(got[:, [0, -1]], ref[:, [0, -1]]) <= 2e-2
+    assert _rms_rel(got[:, :, [0, -1]], ref[:, :, [0, -1]]) <= 2e-2
+    assert _max_rel(s2, r2) <= 1e-3
 
 
 def test_conv3x3_block_rejects_what_it_cannot_run(dev):

@@ -28,7 +28,7 @@ from sfast_tpu_torch.models.clip_text import TINY_TEXT_ENCODER, CLIPTextModel
 from sfast_tpu_torch.models.unet_2d_condition import TINY_UNET, UNet2DConditionModel
 
 TOL = 1e-4
-F32 = dict(dtype=torch.float32)
+F32 = dict(device="cpu", dtype=torch.float32)
 
 
 def _randn(seed, *shape):
@@ -245,3 +245,23 @@ def test_tiny_configs_mirror_jax():
         mine = dataclasses.asdict(ours)
         ref = {k: v for k, v in dataclasses.asdict(theirs).items() if k in mine}
         assert mine == ref
+
+
+@pytest.mark.parametrize(
+    "build",
+    [
+        lambda **kw: UNet2DConditionModel(TINY_UNET, **kw),
+        lambda **kw: AutoencoderKL(TINY_TEST_VAE, **kw),
+        lambda **kw: CLIPTextModel(TINY_TEXT_ENCODER, **kw),
+    ],
+    ids=["unet", "vae", "clip"],
+)
+def test_models_build_on_the_card_by_default(build, monkeypatch):
+    """With no device a model is built on ``cuda``; without a CUDA device
+    that raises and says how to ask for the CPU, and ``device="cpu"``
+    builds there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build(dtype=torch.float32)
+    m = build(device="cpu", dtype=torch.float32)
+    assert {p.device.type for p in m.parameters()} == {"cpu"}

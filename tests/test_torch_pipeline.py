@@ -64,7 +64,7 @@ def pipes():
     te = create_text_encoder(J_TINY_TE, jax.random.key(2))
     jpipe = JaxPipeline(unet=unet, vae=dec, vae_encode=enc, text_encoder=te,
                         scheduler=JaxDPM(), dtype=jnp.float32)
-    f32 = dict(dtype=torch.float32)
+    f32 = dict(device="cpu", dtype=torch.float32)
     tu = UNet2DConditionModel(UNET64, **f32)
     tu.load_state_dict(from_jax.unet_state_dict(unet.params))
     tv = AutoencoderKL(TINY_TEST_VAE, **f32)
@@ -232,7 +232,7 @@ def test_port_imports_and_runs_without_jax():
         from sfast_tpu_torch.models import TINY_UNET, UNet2DConditionModel, init_weights_
         from sfast_tpu_torch.runtime import cuda_build
         import sfast_tpu_torch.interop.from_jax, sfast_tpu_torch.pipelines, sfast_tpu_torch.schedulers
-        unet = init_weights_(UNet2DConditionModel(TINY_UNET, dtype=torch.float32),
+        unet = init_weights_(UNet2DConditionModel(TINY_UNET, device="cpu", dtype=torch.float32),
                              torch.Generator().manual_seed(0))
         with torch.inference_mode():
             out = unet(torch.randn(1, 16, 16, 4), torch.tensor([10.0]), torch.randn(1, 7, 32))

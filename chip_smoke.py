@@ -15,11 +15,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    one PyTorch call that computes the same function where there is one
    (``library_ms``), and state its bound (``bound_ms``: operations over
    the peak rate against bytes over the memory rate) and the share of it
-   reached;
+   reached.  K6 is timed whole and as its two parts, the pre-processing
+   (``quantize_qkv``) and the body, beside K1 at the same shape;
 4. run SD1.5 text2img at full width with seeded random weights — 512²,
    batch 1, DPM++ 50 steps, CFG 7.5 — through ``StableDiffusionPipeline``;
    count the kernel launches of one image, time 3 more, check the image,
-   profile one more (device time and the device's idle share), and hold
+   profile one more (device time, the device's idle share and the count
+   of CUDA kernels an image launches; a trace whose rows of the port's
+   kernels disagree with the counted launches is taken again), and hold
    one UNet eval and one VAE decode against the plain route;
 5. the same pipeline under the opt-in kernel configuration
    (``enable_fused_group_norm``, ``enable_fused_linear_geglu``,
@@ -57,6 +60,11 @@ K4_RMS_REL = 1e-2
 # against exact attention, the bound of the JAX package's own int8 test.
 K6_RMS_REL = 1e-2
 K6_EXACT_RMS_REL = 0.015
+# K6's pre-processing against its plain version: the means are summed in
+# another order, so a value on a rounding boundary may take the next int8
+# level; the f32 outputs (scales, corr, v's mean) agree to 1e-6
+PREP_CODE_SHARE = 1e-3
+PREP_F32_REL = 1e-6
 # Full-model kernel route vs plain route: one UNet eval and one VAE
 # decode in bf16 at random weights, where tens of layers compound those
 # per-kernel errors.
@@ -78,12 +86,12 @@ EXP2_PER_S = 16 * 132 * 1.98e9
 # eval) is K3 + K5; 11 of the 16 GEGLUs pass the width rule (K = 320 fails
 # it); the 5 level-0 self-attentions take K6.
 EXPECTED_LAUNCHES = {
-    "flash_attention": 5 * STEPS, "flash_attention_int8": 0, "conv3x3": 21,
-    "group_norm_stats": 9, "group_norm_apply": 0, "linear_geglu": 0,
+    "flash_attention": 5 * STEPS, "quantize_qkv": 0, "flash_attention_int8": 0,
+    "conv3x3": 21, "group_norm_stats": 9, "group_norm_apply": 0, "linear_geglu": 0,
 }
 EXPECTED_OPTIN_LAUNCHES = {
-    "flash_attention": 0, "flash_attention_int8": 5 * STEPS, "conv3x3": 21,
-    "group_norm_stats": 61 * STEPS + 9, "group_norm_apply": 61 * STEPS,
+    "flash_attention": 0, "quantize_qkv": 5 * STEPS, "flash_attention_int8": 5 * STEPS,
+    "conv3x3": 21, "group_norm_stats": 61 * STEPS + 9, "group_norm_apply": 61 * STEPS,
     "linear_geglu": 11 * STEPS,
 }
 
@@ -92,6 +100,9 @@ KERNELS = {
                         "sfast_tpu/ops/flash_attention.py:52"),
     "flash_attention_int8": ("sfast_tpu_torch/csrc/flash_attention_int8.cu",
                              "sfast_tpu/ops/flash_attention.py:183"),
+    # K6's pre-processing: XLA ops before the Pallas kernel in JAX
+    "quantize_qkv": ("sfast_tpu_torch/csrc/quantize_qkv.cu",
+                     "sfast_tpu/ops/flash_attention.py:326"),
     "conv3x3": ("sfast_tpu_torch/csrc/conv3x3.cu", "sfast_tpu/ops/conv_pallas.py:53"),
     "group_norm_stats": ("sfast_tpu_torch/csrc/group_norm_stats.cu",
                          "sfast_tpu/ops/group_norm.py:76"),
@@ -112,6 +123,17 @@ UNET_GN = [
 ]
 # K4's calls: (M, K, F) of the feed-forwards at levels 1, 2 and mid
 UNET_GEGLU = [(2048, 640, 2560), (512, 1280, 5120), (128, 1280, 5120)]
+# The device kernels each launch counted by cuda_build.launch_counts runs
+# once, by a piece of their names in the profiler
+KERNEL_ROWS = {
+    "flash_attention": ("flash_fwd_kernel",),
+    "quantize_qkv": ("::stats_kernel(", "::quantize_kernel("),
+    "flash_attention_int8": ("flash_int8_kernel",),
+    "conv3x3": ("conv3x3_kernel",),
+    "group_norm_stats": ("stats_partial_kernel", "stats_fold_kernel"),
+    "group_norm_apply": ("gn_apply_kernel",),
+    "linear_geglu": ("geglu_kernel",),
+}
 
 
 def log(*a):
@@ -355,11 +377,16 @@ def check_kernels(torch, dev):
 
 def check_optin_kernels(torch, dev, randn, out):
     """Phase 3, the opt-in path's kernels: K3′+K5 at every UNet GroupNorm
-    shape, K4 at its three shapes, K6 at the level-0 shape and a ragged kv."""
-    from sfast_tpu_torch.ops.flash_attention import flash_attention_ref
+    shape, K4 at its three shapes, K6 and its pre-processing at the level-0
+    shape and a ragged kv."""
+    from sfast_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
     from sfast_tpu_torch.ops.flash_attention_int8 import (
         flash_attention_int8,
+        flash_attention_int8_body,
         flash_attention_int8_ref,
+        kernel_inputs,
+        kv_tile,
+        quantize_qkv_cuda,
     )
     from sfast_tpu_torch.ops.geglu import (
         linear_geglu_fused,
@@ -423,25 +450,70 @@ def check_optin_kernels(torch, dev, randn, out):
         record(out, "linear_geglu", f"M={m} K={k} F={f}", max_abs, t, bnd,
                unfused_route_ms=unfused_ms)
 
-    # K6: level-0 self-attention, head-split views; then a ragged kv tail
+    # K6: level-0 self-attention, head-split views; then a ragged kv tail.
+    # The whole call (pre-processing and body) is held against the plain
+    # version, the pre-processing alone against its own, and the body timed
+    # alone on the pre-processing's output; K1 at the same shape beside it.
     for b, h, sq, sk, d in [(2, 8, 4096, 4096, 40), (2, 8, 4096, 1000, 40)]:
         q = randn(b, sq, h * d).view(b, sq, h, d).transpose(1, 2)
         k = (randn(b, sk, h * d) + 0.5).view(b, sk, h, d).transpose(1, 2)
         v = (randn(b, sk, h * d) - 0.3).view(b, sk, h, d).transpose(1, 2)
+        scale = d ** -0.5
         got = flash_attention_int8(q, k, v)
+        again = flash_attention_int8(q, k, v)
         torch.cuda.synchronize()
-        max_abs, max_rel, rms = rel_errors(got, flash_attention_int8_ref(q, k, v))
+        if not torch.equal(got, again):
+            raise AssertionError("K6: two calls on the same inputs differ")
+        max_abs, max_rel, rms = rel_errors(got, flash_attention_int8_ref(q, k, v,
+                                                                         block_k=kv_tile(d)))
         exact = rel_errors(got, flash_attention_ref(q, k, v))[2]
+        inputs = quantize_qkv_cuda(q, k, v, scale)
+        code_diff, code_share, f32_rel = prep_errors(
+            torch, inputs, kernel_inputs(q.float(), k.float(), v.float(), scale))
         bnd = bound(4 * b * h * sq * sk * d, 2 * b * h * d * (2 * sq + 2 * sk), PEAK_INT8)
         t = time_pair(lambda: flash_attention_int8(q, k, v),
-                      lambda: flash_attention_int8_ref(q, k, v), bnd)
+                      lambda: flash_attention_int8_ref(q, k, v, block_k=kv_tile(d)), bnd)
+        prep_bnd = bound(0, sum(x.numel() * x.element_size() for x in (q, k, v, *inputs)))
+        prep_t = time_pair(lambda: quantize_qkv_cuda(q, k, v, scale),
+                           lambda: kernel_inputs(q, k, v, scale), prep_bnd)
+        body_ms = device_ms(lambda: flash_attention_int8_body(inputs, q.shape), bnd[0])
+        k1_ms = device_ms(lambda: flash_attention(q, k, v), bnd[0])
+        exp2_floor = b * h * sq * sk / EXP2_PER_S * 1e3
         log(f"K6 flash_attention_int8 q={tuple(q.shape)} kv={sk}: max_rel {max_rel:.3e} "
-            f"rms_rel {rms:.3e} (exact attention: rms_rel {exact:.3e})  {timing_text(t)}")
+            f"rms_rel {rms:.3e} (exact attention: rms_rel {exact:.3e}); pre-processing: codes "
+            f"off by {code_diff} on {code_share:.2e} of them, f32 max_rel {f32_rel:.2e}  "
+            f"{timing_text(t)}; device: pre-processing {prep_t[2]:.4f} ms, body {body_ms:.4f} "
+            f"ms, K1 at this shape {k1_ms:.4f} ms, exp2 floor {exp2_floor:.4f} ms")
         if not rms <= K6_RMS_REL:
             raise AssertionError(f"K6 rms rel error {rms} > {K6_RMS_REL}")
         if not exact <= K6_EXACT_RMS_REL:
             raise AssertionError(f"K6 vs exact attention: rms rel {exact} > {K6_EXACT_RMS_REL}")
-        record(out, "flash_attention_int8", f"({b}, {h}, {sq}x{sk}, {d})", max_abs, t, bnd)
+        if not (code_diff <= 1 and code_share <= PREP_CODE_SHARE and f32_rel <= PREP_F32_REL):
+            raise AssertionError(f"K6 pre-processing: codes off by {code_diff} on {code_share} "
+                                 f"of them, f32 rel {f32_rel}")
+        case = f"({b}, {h}, {sq}x{sk}, {d})"
+        record(out, "flash_attention_int8", case, max_abs, t, bnd, exp2_floor_ms=exp2_floor,
+               prep_device_ms=prep_t[2], body_device_ms=body_ms, k1_device_ms=k1_ms)
+        record(out, "quantize_qkv", case, float(code_diff), prep_t, prep_bnd,
+               code_mismatch_share=code_share, f32_max_rel=f32_rel)
+
+
+def prep_errors(torch, got, ref):
+    """K6's pre-processing against its plain version: (largest int8 code
+    difference, share of codes that differ, largest relative error of the
+    f32 outputs), each two calls bit-identical."""
+    diff, share, rel = 0, 0.0, 0.0
+    for name, a, r in zip(got._fields, got, ref):
+        if a.shape != r.shape or a.dtype != r.dtype:
+            raise AssertionError(f"K6 pre-processing {name}: {a.shape} {a.dtype} != "
+                                 f"{r.shape} {r.dtype}")
+        if a.dtype == torch.int8:
+            dd = (a.int() - r.int()).abs()
+            diff = max(diff, dd.max().item())
+            share = max(share, (dd > 0).float().mean().item())
+        else:
+            rel = max(rel, rel_errors(a, r)[1])
+    return diff, share, rel
 
 
 def build_pipeline(torch, dev):
@@ -549,11 +621,17 @@ def run_path(torch, dev, pipe, name, cfg, expected, model_bound):
     return counts
 
 
-def profile_image(torch, run, name):
-    """One image under torch.profiler: device time and the device's idle
-    share of the image's wall time."""
+def profile_image(torch, run, name, tries=5):
+    """One image under torch.profiler: device time, the device's idle share
+    of the image's wall time and the count of CUDA kernels the image
+    launches (every host dispatch that reaches the card).  The profiler now
+    and then loses kernel rows; a trace whose rows of the port's kernels do
+    not match the launches ``cuda_build`` counted during it is taken again,
+    and after ``tries`` such traces this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from sfast_tpu_torch.runtime import cuda_build
 
     run()  # an unprofiled image right before, for its wall time
     torch.cuda.synchronize()
@@ -561,15 +639,30 @@ def profile_image(torch, run, name):
     run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    # the kernels' own rows: an operator's row repeats its kernels' time
-    dev_ms = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
+    for _ in range(tries):
+        cuda_build.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        launches = dict(cuda_build.launch_counts)
+        events = prof.key_averages()
+        # the kernels' own rows: an operator's row repeats its kernels' time
+        rows = [e for e in events if e.device_type == DeviceType.CUDA]
+        seen = {k: [sum(e.count for e in rows if piece in e.key) for piece in pieces]
+                for k, pieces in KERNEL_ROWS.items()}
+        lost = {k: c for k, c in seen.items() if any(n != launches[k] for n in c)}
+        if not lost:
+            break
+        log(f"    [{name}] profiler trace lost kernel rows: rows {lost} against launches "
+            f"{launches}; tracing again")
+    else:
+        raise RuntimeError(f"[{name}] {tries} profiler traces of one image lost kernel rows")
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    n_kernels = sum(e.count for e in rows)
     log(f"[{name}] profile: device time {dev_ms:.1f} ms per image; unprofiled image "
-        f"{wall_ms:.1f} ms -> device idle {100 * (1 - dev_ms / wall_ms):.1f}%")
-    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+        f"{wall_ms:.1f} ms -> device idle {100 * (1 - dev_ms / wall_ms):.1f}%; "
+        f"{n_kernels} CUDA kernels per image")
+    log(events.table(sort_by="self_device_time_total", row_limit=15))
 
 
 def main():

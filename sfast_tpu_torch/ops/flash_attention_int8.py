@@ -1,32 +1,57 @@
-"""K6: int8 flash attention forward (``csrc/flash_attention_int8.cu``) and
-its plain version.
+"""K6: int8 flash attention forward — its pre-processing
+(``csrc/quantize_qkv.cu``) and its body (``csrc/flash_attention_int8.cu``)
+— and their plain versions.
 
 Counterpart of ``sfast_tpu/ops/flash_attention.py::flash_attention_int8``,
 the SageAttention-style design of the Pallas kernel: q, k and v are
-mean-centred and quantized to int8 outside the kernel
-(:func:`quantize_qkv`, JAX ``:326-349``), q·kᵀ and p·v run int8 × int8 →
-int32, and p is quantized per kv tile against that tile's row max.
+mean-centred and quantized to int8 before the body (:func:`quantize_qkv`,
+JAX ``:326-349``), q·kᵀ and p·v run int8 × int8 → int32, and p is quantized
+per kv tile against that tile's row max.
 
-:func:`flash_attention_int8` launches the kernel for CUDA tensors and takes
+:func:`flash_attention_int8` runs the pre-processing (two kernels) and the
+body (one) for CUDA tensors, and no other device work, and takes
 :func:`flash_attention_int8_ref` for CPU tensors; any other device raises.
 Tensors are (B, H, S, D), as K1's.
 
-The kernel's kv tile is 64 (:data:`KV_TILE`); JAX's default block is
-1024.  Since p is quantized per tile, the two differ by int8 rounding
-noise, within the same bound of exact attention.  The plain version takes
-``block_k`` so that each comparison can use the other side's tile.
+The body's kv tile is :func:`kv_tile` (128 at d <= 64); JAX's
+default block is 1024.  Since p is quantized per tile, the two differ by
+int8 rounding noise, within the same bound of exact attention.  The plain
+version takes ``block_k`` so that each comparison can use the other side's
+tile.
 """
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from sfast_tpu_torch.ops.flash_attention import LOG2E, MAX_HEAD_DIM
+from sfast_tpu_torch.ops.flash_attention import LOG2E, MAX_HEAD_DIM, _aligned
 from sfast_tpu_torch.runtime import cuda_build
 
-KV_TILE = 64  # K6's kv tile, over which p shares one row max
 NEG_INF = -1e30  # the Pallas kernel's mask value
+PREP_ROWS = 256  # rows per block of the pre-processing (csrc/quantize_qkv.cu)
+
+
+def kv_tile(d: int) -> int:
+    """K6's kv tile at head dim ``d``, over which p shares one row max."""
+    return 128 if d <= 64 else (64 if d <= 128 else 32)
+
+
+class KernelInputs(NamedTuple):
+    """What K6's body reads, in its layout (``csrc/flash_attention_int8.cu``):
+    ``q8`` (BH, Sq, KP) and ``k8`` (BH, Sk, KP) int8, rows zero-padded to
+    KP = D rounded up to 32; ``vt`` (BH, D, SKP) int8, vᵀ with kv in the
+    permuted order of :func:`permute_kv`, zero past Sk; ``corr`` (BH, SKP)
+    f32, zero past Sk, with SKP = Sk rounded up to 16; ``sqk`` (BH,),
+    ``sv`` and ``vm`` (BH, D) f32."""
+
+    q8: torch.Tensor
+    k8: torch.Tensor
+    vt: torch.Tensor
+    sqk: torch.Tensor
+    sv: torch.Tensor
+    corr: torch.Tensor
+    vm: torch.Tensor
 
 
 def _quantize_per_bh(x: torch.Tensor):
@@ -69,32 +94,44 @@ def quantize_qkv(q, k, v, scale: float):
     return q8, k8, v8, s_q * s_k, s_v / 127.0, corr, vm
 
 
-def kernel_inputs(q, k, v, scale: float):
-    """Everything K6 reads, each contiguous: ``(q8, k8, vt, sqk, sv, corr,
-    vm)`` with v and corr as :func:`kernel_layout` gives them.  (With one
-    batch, ``reshape`` turns a head-split view into a (BH, S, D) view
-    without a copy, and the elementwise ops keep its strides, so contiguity
-    has to be asked for.)"""
+def kernel_inputs(q, k, v, scale: float) -> KernelInputs:
+    """Plain version of K6's pre-processing: :func:`quantize_qkv`, then
+    :func:`kernel_layout`, each tensor contiguous."""
     q8, k8, v8, sqk, sv, corr, vm = quantize_qkv(q, k, v, scale)
-    vt, corr = kernel_layout(v8, corr)
-    return tuple(t.contiguous() for t in (q8, k8, vt, sqk, sv, corr, vm))
+    return kernel_layout(q8, k8, v8, sqk, sv, corr, vm)
 
 
-def kernel_layout(v8: torch.Tensor, corr: torch.Tensor):
-    """v and corr as K6 reads them: kv padded with zeros to a multiple of
-    :data:`KV_TILE`; v transposed to (BH, D, Skp) with each 16-wide kv group
-    in the order (0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15), the
-    order in which a thread's quantized scores form its A fragments
-    (``csrc/flash_attention_int8.cu``).  Position 4a + 2b + c of a group
-    holds kv 8b + 2a + c."""
+def _pad_rows(x8: torch.Tensor) -> torch.Tensor:
+    """(BH, S, D) int8 → (BH, S, KP): rows zero-padded to KP = D rounded up
+    to 32, the depth of K6's q·kᵀ."""
+    bh, s, d = x8.shape
+    xp = x8.new_zeros((bh, s, -(-d // 32) * 32))
+    xp[:, :, :d] = x8
+    return xp
+
+
+def permute_kv(x: torch.Tensor) -> torch.Tensor:
+    """Reorder dim 1 (a multiple of 16) within each 16-wide group to (0, 1,
+    8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15): position 4a + 2b + c
+    holds kv 8b + 2a + c, the order in which a thread's quantized scores
+    form its A registers of p·v (``csrc/flash_attention_int8.cu``)."""
+    n, s = x.shape[:2]
+    rest = x.shape[2:]
+    return x.reshape(n, s // 16, 2, 4, 2, *rest).transpose(2, 3).reshape(n, s, *rest)
+
+
+def kernel_layout(q8, k8, v8, sqk, sv, corr, vm) -> KernelInputs:
+    """:func:`quantize_qkv`'s outputs in the layout K6's body reads
+    (:class:`KernelInputs`)."""
     bh, sk, d = v8.shape
-    skp = -(-sk // KV_TILE) * KV_TILE
+    skp = -(-sk // 16) * 16
     vp = v8.new_zeros((bh, skp, d))
     vp[:, :sk] = v8
-    vt = vp.view(bh, skp // 16, 2, 4, 2, d).permute(0, 5, 1, 3, 2, 4).reshape(bh, d, skp)
+    vt = permute_kv(vp).transpose(1, 2).contiguous()  # (BH, D, SKP)
     cp = corr.new_zeros((bh, skp))
     cp[:, :sk] = corr
-    return vt, cp
+    return KernelInputs(_pad_rows(q8), _pad_rows(k8), vt, sqk.contiguous(),
+                        sv.contiguous(), cp, vm.reshape(bh, d).contiguous())
 
 
 def flash_attention_int8_ref(
@@ -104,7 +141,7 @@ def flash_attention_int8_ref(
     *,
     scale: Optional[float] = None,
     causal: bool = False,
-    block_k: int = KV_TILE,
+    block_k: int = 128,
 ) -> torch.Tensor:
     """Plain version of K6: the Pallas kernel's math, kv block by kv block
     in f32, with p quantized against each ``block_k``-wide block's row max.
@@ -143,6 +180,60 @@ def flash_attention_int8_ref(
     return out.reshape(b, h, sq, d)
 
 
+def quantize_qkv_cuda(q, k, v, scale: float) -> KernelInputs:
+    """K6's pre-processing on the card, 2 launches: the same values as
+    :func:`kernel_inputs` up to the order of the sums (a code may land one
+    level off where a value sits on a rounding boundary).  q, k and v as
+    :func:`flash_attention_int8` passes them: bf16 (B, H, S, D) with a unit
+    D stride and rows on 16 bytes."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bh, kp, skp = b * h, -(-d // 32) * 32, -(-sk // 16) * 16
+    nch = -(-max(sq, sk) // PREP_ROWS)
+    dev = q.device
+    out = KernelInputs(
+        q8=torch.empty((bh, sq, kp), dtype=torch.int8, device=dev),
+        k8=torch.empty((bh, sk, kp), dtype=torch.int8, device=dev),
+        vt=torch.empty((bh, d, skp), dtype=torch.int8, device=dev),
+        sqk=torch.empty((bh,), dtype=torch.float32, device=dev),
+        sv=torch.empty((bh, d), dtype=torch.float32, device=dev),
+        corr=torch.empty((bh, skp), dtype=torch.float32, device=dev),
+        vm=torch.empty((bh, d), dtype=torch.float32, device=dev),
+    )
+    part = torch.empty((3, bh, nch, 3, d), dtype=torch.float32, device=dev)
+    err = cuda_build.library().sfast_quantize_qkv_int8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), b, h, sq, sk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale) * LOG2E,
+        part.data_ptr(), out.q8.data_ptr(), out.k8.data_ptr(), out.vt.data_ptr(),
+        out.corr.data_ptr(), out.sqk.data_ptr(), out.sv.data_ptr(), out.vm.data_ptr(),
+        cuda_build.stream_ptr(q),
+    )
+    cuda_build.check(err, "quantize_qkv")
+    cuda_build.launch_counts["quantize_qkv"] += 1
+    return out
+
+
+def flash_attention_int8_body(
+    inputs: KernelInputs, shape, *, causal: bool = False
+) -> torch.Tensor:
+    """K6's body on the card, 1 launch, over inputs in its layout; ``shape``
+    is q's (B, H, Sq, D).  Returns a (B, H, Sq, D) view of a (B, Sq, H, D)
+    bf16 buffer."""
+    b, h, sq, d = shape
+    sk = inputs.k8.shape[1]
+    dev = inputs.q8.device
+    o = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=dev).transpose(1, 2)
+    err = cuda_build.library().sfast_flash_attention_int8(
+        inputs.q8.data_ptr(), inputs.k8.data_ptr(), inputs.vt.data_ptr(),
+        inputs.corr.data_ptr(), inputs.sqk.data_ptr(), inputs.sv.data_ptr(),
+        inputs.vm.data_ptr(), o.data_ptr(), b, h, sq, sk, d, *o.stride()[:3], int(causal),
+        cuda_build.stream_ptr(o),
+    )
+    cuda_build.check(err, "flash_attention_int8")
+    cuda_build.launch_counts["flash_attention_int8"] += 1
+    return o
+
+
 def flash_attention_int8(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -154,8 +245,11 @@ def flash_attention_int8(
     """int8-compute blockwise attention over (B, H, S, D): the contract of
     K1 with about 1e-2 relative error from the int8 quantization; on CUDA
     bf16 with d a multiple of 8 up to 160."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
-        return flash_attention_int8_ref(q, k, v, scale=scale, causal=causal)
+        return flash_attention_int8_ref(q, k, v, scale=scale, causal=causal, block_k=kv_tile(d))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -172,16 +266,5 @@ def flash_attention_int8(
         raise ValueError(
             f"flash_attention_int8: head dim {d} is not a multiple of 8 up to {MAX_HEAD_DIM}"
         )
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    q8, k8, vt, sqk, sv, corr, vm = kernel_inputs(q, k, v, scale)
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    err = cuda_build.library().sfast_flash_attention_int8(
-        q8.data_ptr(), k8.data_ptr(), vt.data_ptr(), sqk.data_ptr(), sv.data_ptr(),
-        corr.data_ptr(), o.data_ptr(),
-        b, h, sq, sk, vt.shape[-1], d, *o.stride()[:3], int(causal),
-        cuda_build.stream_ptr(q),
-    )
-    cuda_build.check(err, "flash_attention_int8")
-    cuda_build.launch_counts["flash_attention_int8"] += 1
-    return o + vm.view(b, h, 1, d).to(o.dtype)
+    q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
+    return flash_attention_int8_body(quantize_qkv_cuda(q, k, v, scale), q.shape, causal=causal)

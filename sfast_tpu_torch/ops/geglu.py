@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from sfast_tpu_torch.runtime import cuda_build
 
-BLOCK_K = 32  # K4's k tile: K must be a multiple
+BLOCK_K = 32  # K must be a multiple (the tail of K4's 64-wide k tile loads as zeros)
 BLOCK_F = 64  # K4's F tile: F must be a multiple
 
 
@@ -91,13 +91,19 @@ def linear_geglu_fused(
             f"got K={k} F={f2 // 2}"
         )
     m = x.numel() // k
-    # the kernel's 16-byte copies need 16-byte aligned rows
+    # TMA needs 16-byte aligned rows: K % 32 == 0 gives the stride, the
+    # base pointer may still be off (a slice of a larger buffer)
     x2, w = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
         memory_format=torch.contiguous_format) for t in (x.reshape(m, k), w))
-    bias = None if b is None else b.to(device=x.device, dtype=torch.float32).contiguous()
+    # the kernel reads a bf16 or f32 bias as it lies and adds it in f32
+    bias = b
+    if b is not None and not (b.device == x.device and b.is_contiguous()
+                              and b.dtype in (torch.bfloat16, torch.float32)):
+        bias = b.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty((m, f2 // 2), dtype=x.dtype, device=x.device)
     err = cuda_build.library().sfast_linear_geglu_bf16(
         x2.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        int(bias is not None and bias.dtype == torch.bfloat16),
         out.data_ptr(), m, k, f2 // 2, cuda_build.stream_ptr(x),
     )
     cuda_build.check(err, "linear_geglu")

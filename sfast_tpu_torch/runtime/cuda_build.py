@@ -38,6 +38,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # kernel name -> launches since the last reset_launch_counts()
 launch_counts = {
     "flash_attention": 0,
+    "quantize_qkv": 0,
     "flash_attention_int8": 0,
     "conv3x3": 0,
     "group_norm_stats": 0,
@@ -54,8 +55,9 @@ _SIGNATURES = {
     "sfast_conv3x3_bf16": [_P] * 8 + [_I] * 5 + [_F, _P],
     "sfast_group_norm_stats_bf16": [_P] * 4 + [_I] * 4 + [_F, _I, _I, _P],
     "sfast_group_norm_apply_bf16": [_P] * 6 + [_I] * 4 + [_P],
-    "sfast_linear_geglu_bf16": [_P] * 4 + [_I] * 3 + [_P],
-    "sfast_flash_attention_int8": [_P] * 7 + [_I] * 6 + [_L] * 3 + [_I, _P],
+    "sfast_linear_geglu_bf16": [_P] * 3 + [_I, _P] + [_I] * 3 + [_P],
+    "sfast_quantize_qkv_int8": [_P] * 3 + [_I] * 5 + [_L] * 9 + [_F] + [_P] * 9,
+    "sfast_flash_attention_int8": [_P] * 8 + [_I] * 5 + [_L] * 3 + [_I, _P],
 }
 
 _lock = threading.Lock()

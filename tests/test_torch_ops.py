@@ -292,6 +292,6 @@ def test_cpu_calls_launch_nothing():
     group_norm(x, torch.ones(16), torch.zeros(16), groups=8, act="gelu", backend="kernel")
     linear_geglu_fused(torch.randn(4, 32), torch.randn(128, 32))
     assert cuda_build.launch_counts == {
-        "flash_attention": 0, "flash_attention_int8": 0, "conv3x3": 0,
+        "flash_attention": 0, "quantize_qkv": 0, "flash_attention_int8": 0, "conv3x3": 0,
         "group_norm_stats": 0, "group_norm_apply": 0, "linear_geglu": 0,
     }

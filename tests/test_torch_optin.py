@@ -17,6 +17,7 @@ Inputs come from seeded numpy.  Tolerances:
 import dataclasses
 import functools
 import importlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -35,11 +36,12 @@ from sfast_tpu_torch.models import layers as L
 from sfast_tpu_torch.models.unet_2d_condition import backends
 from sfast_tpu_torch.ops.attention import flash_ok
 from sfast_tpu_torch.ops.flash_attention_int8 import (
-    KV_TILE,
     flash_attention_int8,
     flash_attention_int8_ref,
     kernel_inputs,
     kernel_layout,
+    kv_tile,
+    permute_kv,
     quantize_qkv,
 )
 from sfast_tpu_torch.ops.geglu import geglu_ok, linear_geglu, linear_geglu_fused_ref
@@ -47,6 +49,7 @@ from sfast_tpu_torch.ops.group_norm import group_norm
 
 # the modules themselves: sfast_tpu.ops re-exports functions of the same names
 j_attention = importlib.import_module("sfast_tpu.ops.attention")
+j_flash = importlib.import_module("sfast_tpu.ops.flash_attention")
 j_geglu = importlib.import_module("sfast_tpu.ops.geglu")
 j_group_norm = importlib.import_module("sfast_tpu.ops.group_norm")
 t_attention = importlib.import_module("sfast_tpu_torch.ops.attention")
@@ -156,56 +159,107 @@ def test_flash_attention_int8_ref_matches_pallas(b, h, sq, sk, d, causal):
     # on CPU tensors the kernel wrapper is the plain version at K6's tile
     np.testing.assert_array_equal(
         flash_attention_int8(_t(q), _t(k), _t(v), causal=causal).numpy(),
-        flash_attention_int8_ref(_t(q), _t(k), _t(v), causal=causal, block_k=KV_TILE).numpy(),
+        flash_attention_int8_ref(_t(q), _t(k), _t(v), causal=causal, block_k=kv_tile(d)).numpy(),
     )
 
 
+def _jax_int8_kernel_inputs(monkeypatch, q, k, v):
+    """The operands JAX's flash_attention_int8 hands its Pallas kernel:
+    (q_i8, k_i8, v_i8, sqk, sv, corr), captured by a stand-in pallas_call."""
+    seen = []
+
+    def pallas_call(kernel, *, out_shape, **kw):
+        def run(*args):
+            seen.append([np.asarray(a) for a in args])
+            return jnp.zeros(out_shape.shape, out_shape.dtype)
+
+        return run
+
+    monkeypatch.setattr(j_flash, "pl", types.SimpleNamespace(
+        pallas_call=pallas_call, BlockSpec=j_flash.pl.BlockSpec))
+    j_flash_int8(*(jnp.asarray(a) for a in (q, k, v)), block_q=128, block_k=128)
+    return seen[0]
+
+
+def _codes_close(got, ref):
+    """int8 codes within one level, and off by one on at most 0.1% of them:
+    the two sides sum the means in another order, so a value on a rounding
+    boundary may land on its other side."""
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d", [(1, 2, 256, 256, 40), (2, 1, 200, 77, 32),
+                                         (1, 1, 64, 300, 80)])
+def test_flash_attention_int8_kernel_inputs_match_jax_quantization(monkeypatch, b, h, sq, sk, d):
+    """K6's input layout (rows zero-padded to KP, vᵀ in the permuted kv
+    order, corr zero past Sk), built by the plain kernel_inputs, holds
+    JAX's quantization of the same q, k, v."""
+    rng = np.random.default_rng(17)
+    q, k, v = _randn(rng, b, h, sq, d), _randn(rng, b, h, sk, d) + 0.7, _randn(rng, b, h, sk, d)
+    jq8, jk8, jv8, jsqk, jsv, jcorr = _jax_int8_kernel_inputs(monkeypatch, q, k, v)
+    got = kernel_inputs(_t(q), _t(k), _t(v), 1.0 / np.sqrt(d))
+    bh, kp, skp = b * h, -(-d // 32) * 32, -(-sk // 16) * 16
+    assert got.q8.shape == (bh, sq, kp) and got.k8.shape == (bh, sk, kp)
+    assert got.vt.shape == (bh, d, skp) and got.corr.shape == (bh, skp)
+    _codes_close(got.q8[:, :, :d].numpy(), jq8[:, :sq, :d])
+    _codes_close(got.k8[:, :, :d].numpy(), jk8[:, :sk, :d])
+    assert not got.q8[:, :, d:].any() and not got.k8[:, :, d:].any()
+    # vᵀ back in kv order: position 4a + 2b + c of a group holds kv 8b + 2a + c
+    order = permute_kv(torch.arange(skp)[None])[0]
+    vt = np.zeros((bh, d, skp), np.int8)
+    vt[:, :, order.numpy()] = got.vt.numpy()
+    _codes_close(vt[:, :, :sk], jv8[:, :sk, :d].transpose(0, 2, 1))
+    assert not vt[:, :, sk:].any() and not got.corr[:, sk:].any()
+    np.testing.assert_allclose(got.sqk.numpy(), jsqk.reshape(bh), rtol=1e-6)
+    np.testing.assert_allclose(got.sv.numpy(), jsv[:, 0, :d], rtol=1e-6)
+    np.testing.assert_allclose(got.corr[:, :sk].numpy(), jcorr[:, 0, :sk], rtol=0,
+                               atol=1e-6 * np.abs(jcorr).max())
+
+
 def test_flash_attention_int8_kernel_layout_gives_p_v():
-    """K6 builds the A fragments of p·v from the s32 C fragments of q·kᵀ that
-    a thread already holds, and the B fragments from 32-bit loads of the
-    wrapper's permuted vᵀ.  Emulate both, lane by lane, with the PTX
-    fragment layouts of mma.m16n8k16 (C) and mma.m16n8k32 (A, B), and check
-    that the products add up to p·v."""
+    """K6 builds the A registers of p·v (wgmma s8, mma.m16n8k32's A
+    fragment over a warp's 16 rows) from the s32 accumulator values of q·kᵀ
+    that a thread already holds, and reads B K-major from the vᵀ rows of the
+    layout.  Emulate both, lane by lane, over two of K6's kv tiles at
+    d = 40, and check that the products add up to p·v."""
     rng = np.random.default_rng(14)
-    rows, kv, d = 16, 2 * KV_TILE, 40
+    d = 40
+    tile = kv_tile(d)
+    rows, kv = 16, 2 * tile
     p = rng.integers(0, 128, (rows, kv)).astype(np.int64)
     v8 = torch.from_numpy(rng.integers(-127, 128, (1, kv - 5, d)).astype(np.int8))
-    vt, _ = kernel_layout(v8, torch.zeros(1, kv - 5))
-    vt = vt[0].numpy().astype(np.int64)  # (d, kv padded to a tile multiple)
+    vt = kernel_layout(torch.zeros(1, 1, d, dtype=torch.int8), torch.zeros(1, 1, d,
+                       dtype=torch.int8), v8, torch.ones(1), torch.ones(1, d),
+                       torch.zeros(1, kv - 5), torch.zeros(1, 1, d)).vt
+    vt = vt[0].numpy().astype(np.int64)  # (d, kv): K-major rows of B
     assert vt.shape == (d, kv)
     v = np.zeros((kv, d), np.int64)
     v[: kv - 5] = v8[0].numpy()
     out = np.zeros((rows, d), np.int64)
-    for tile0 in range(0, kv, KV_TILE):
-        for c in range(KV_TILE // 32):
+    for tile0 in range(0, kv, tile):
+        for c in range(tile // 32):
             a = np.zeros((16, 32), np.int64)  # the logical A of this k32 step
             for lane in range(32):
                 g, t = lane // 4, lane % 4
 
-                def held(r, j):  # the lane's C-fragment values of row r, n8 tile j
+                def held(r, j):  # the lane's accumulator values of row r, n8 block j
                     return [p[r, tile0 + j * 8 + 2 * t + e] for e in (0, 1)]
 
                 for r in (g, g + 8):
-                    # the kernel's pack4: registers a0/a1 (row g/g+8, cols
-                    # 4t..4t+3) from tiles 4c, 4c+1; a2/a3 (cols 16+4t..)
-                    # from tiles 4c+2, 4c+3
+                    # pack_p: a[0]/a[1] (row g/g+8, cols 4t..4t+3) from blocks
+                    # 4c, 4c+1; a[2]/a[3] (cols 16+4t..) from blocks 4c+2, 4c+3
                     a[r, 4 * t: 4 * t + 4] = held(r, 4 * c) + held(r, 4 * c + 1)
                     a[r, 16 + 4 * t: 20 + 4 * t] = held(r, 4 * c + 2) + held(r, 4 * c + 3)
-            for n in range(d // 8):
-                b = np.zeros((32, 8), np.int64)  # the logical B: (k, column)
-                for lane in range(32):
-                    g, t = lane // 4, lane % 4
-                    row = vt[n * 8 + g, tile0 + c * 32:]
-                    b[4 * t: 4 * t + 4, g] = row[4 * t: 4 * t + 4]
-                    b[16 + 4 * t: 20 + 4 * t, g] = row[16 + 4 * t: 20 + 4 * t]
-                out[:, n * 8: n * 8 + 8] += a @ b
+            b = vt[:, tile0 + 32 * c: tile0 + 32 * c + 32].T  # (k, n), K-major
+            out += a @ b
     np.testing.assert_array_equal(out, p @ v)
 
 
 @pytest.mark.parametrize("b,h", [(1, 2), (2, 3), (1, 1)])
 def test_flash_attention_int8_kernel_inputs_are_contiguous(b, h):
     """K6 indexes its inputs as contiguous arrays; with one batch the
-    head-split views reshape to (BH, S, D) without a copy, so the wrapper
+    head-split views reshape to (BH, S, D) without a copy, so the layout
     must ask for contiguity itself."""
     rng = np.random.default_rng(16)
     sq, sk, d = 40, 77, 16
@@ -216,11 +270,10 @@ def test_flash_attention_int8_kernel_inputs_are_contiguous(b, h):
     q, k, v = heads(sq), heads(sk), heads(sk)
     got = kernel_inputs(q, k, v, 0.25)
     assert all(t.is_contiguous() for t in got)
-    q8, k8, v8, sqk, sv, corr, vm = quantize_qkv(q, k, v, 0.25)
-    vt, corr_p = kernel_layout(v8, corr)
-    for a, r in zip(got, (q8, k8, vt, sqk, sv, corr_p, vm)):
+    for a, r in zip(got, kernel_layout(*quantize_qkv(q, k, v, 0.25))):
         np.testing.assert_array_equal(a.numpy(), r.numpy())
-    assert got[2].shape == (b * h, d, 2 * KV_TILE) and got[5].shape == (b * h, 2 * KV_TILE)
+    assert got.vt.shape == (b * h, d, 80) and got.corr.shape == (b * h, 80)
+    assert got.q8.shape == (b * h, sq, 32) and got.vm.shape == (b * h, d)
 
 
 # ---------------------------------------------------------------------------

@@ -94,7 +94,7 @@ def test_tiny_pipeline_matches_jax(pipes):
     assert np.abs(timg.astype(int) - jimg.astype(int)).max() <= 1
     # on CPU tensors no kernel launches
     assert cuda_build.launch_counts == {
-        "flash_attention": 0, "flash_attention_int8": 0, "conv3x3": 0,
+        "flash_attention": 0, "quantize_qkv": 0, "flash_attention_int8": 0, "conv3x3": 0,
         "group_norm_stats": 0, "group_norm_apply": 0, "linear_geglu": 0,
     }
 

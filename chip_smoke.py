@@ -16,7 +16,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (``library_ms``), and state its bound (``bound_ms``: operations over
    the peak rate against bytes over the memory rate) and the share of it
    reached.  K6 is timed whole and as its two parts, the pre-processing
-   (``quantize_qkv``) and the body, beside K1 at the same shape;
+   (``quantize_qkv``) and the body, beside K1 at the same shape; the fused
+   GroupNorm beside K3+K5 and the library GroupNorm at every UNet
+   GroupNorm shape, with both routes' sums over one UNet eval;
 4. run SD1.5 text2img at full width with seeded random weights — 512²,
    batch 1, DPM++ 50 steps, CFG 7.5 — through ``StableDiffusionPipeline``;
    count the kernel launches of one image, time 3 more, check the image,
@@ -26,7 +28,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    one UNet eval and one VAE decode against the plain route;
 5. the same pipeline under the opt-in kernel configuration
    (``enable_fused_group_norm``, ``enable_fused_linear_geglu``,
-   ``enable_int8_attention``), which takes K3+K5, K4 and K6 in the UNet:
+   ``enable_int8_attention``), which takes the fused GroupNorm (the
+   counterpart of K3′+K5), K4 and K6 in the UNet:
    the same launch count, timing, image and profile steps, and one UNet
    eval held against the plain route.
 
@@ -50,9 +53,10 @@ import time
 # expected; the bounds leave a factor of about 3 to 5.
 K1_RMS_REL = 1e-2
 K2_RMS_REL = 2e-2
-STATS_REL = 1e-3  # K2's Σy, Σy² and K3's mean, rstd: f32 sums, other order
-# K5 and K4 against f32 plain versions: the kernels round their output to
-# bf16 once (2^-9 relative), so rms errors of a few 1e-3 are expected.
+STATS_REL = 1e-3  # K2's Σy, Σy², K3's and the fused GroupNorm's mean, rstd: f32 sums, other order
+# K5, the fused GroupNorm and K4 against f32 plain versions: the kernels
+# round their output to bf16 once (2^-9 relative), so rms errors of a few
+# 1e-3 are expected.
 K5_RMS_REL = 1e-2
 K4_RMS_REL = 1e-2
 # K6 against its plain version at the kernel's kv tile: the same int8 math,
@@ -83,16 +87,17 @@ EXP2_PER_S = 16 * 132 * 1.98e9
 # launches of one image: 5 level-0 self-attentions x 50 steps; 9 fused VAE
 # resnets x 2 + 3 upsample convs; one K3 per fused resnet.  Opt-in: every
 # UNet GroupNorm (22 resnets x 2 + 16 transformers + conv_norm_out = 61 per
-# eval) is K3 + K5; 11 of the 16 GEGLUs pass the width rule (K = 320 fails
-# it); the 5 level-0 self-attentions take K6.
+# eval) is one fused GroupNorm; 11 of the 16 GEGLUs pass the width rule
+# (K = 320 fails it); the 5 level-0 self-attentions take K6.
 EXPECTED_LAUNCHES = {
     "flash_attention": 5 * STEPS, "quantize_qkv": 0, "flash_attention_int8": 0,
-    "conv3x3": 21, "group_norm_stats": 9, "group_norm_apply": 0, "linear_geglu": 0,
+    "conv3x3": 21, "group_norm_stats": 9, "group_norm_apply": 0, "group_norm_fused": 0,
+    "linear_geglu": 0,
 }
 EXPECTED_OPTIN_LAUNCHES = {
     "flash_attention": 0, "quantize_qkv": 5 * STEPS, "flash_attention_int8": 5 * STEPS,
-    "conv3x3": 21, "group_norm_stats": 61 * STEPS + 9, "group_norm_apply": 61 * STEPS,
-    "linear_geglu": 11 * STEPS,
+    "conv3x3": 21, "group_norm_stats": 9, "group_norm_apply": 0,
+    "group_norm_fused": 61 * STEPS, "linear_geglu": 11 * STEPS,
 }
 
 KERNELS = {
@@ -108,18 +113,22 @@ KERNELS = {
                          "sfast_tpu/ops/group_norm.py:76"),
     "group_norm_apply": ("sfast_tpu_torch/csrc/group_norm_apply.cu",
                          "sfast_tpu/ops/group_norm.py:105"),
+    # the pair _stats_kernel then _norm_apply_kernel of group_norm_pallas
+    "group_norm_fused": ("sfast_tpu_torch/csrc/group_norm_fused.cu",
+                         "sfast_tpu/ops/group_norm.py:76,105"),
     "linear_geglu": ("sfast_tpu_torch/csrc/geglu.cu", "sfast_tpu/ops/geglu.py:43"),
 }
 
 # Every distinct UNet GroupNorm of the opt-in path at 512² (batch 2):
-# (H = W, C, act); act None is a transformer's norm (eps 1e-6)
+# (H = W, C, act, times one UNet eval runs it: 61 in all); act None is a
+# transformer's norm (eps 1e-6)
 UNET_GN = [
-    (64, 320, "silu"), (64, 320, None), (64, 640, "silu"), (64, 960, "silu"),
-    (32, 320, "silu"), (32, 640, "silu"), (32, 640, None), (32, 960, "silu"),
-    (32, 1280, "silu"), (32, 1920, "silu"),
-    (16, 640, "silu"), (16, 1280, "silu"), (16, 1280, None), (16, 1920, "silu"),
-    (16, 2560, "silu"),
-    (8, 1280, "silu"), (8, 1280, None), (8, 2560, "silu"),
+    (64, 320, "silu", 8), (64, 320, None, 5), (64, 640, "silu", 2), (64, 960, "silu", 1),
+    (32, 320, "silu", 1), (32, 640, "silu", 6), (32, 640, None, 5), (32, 960, "silu", 1),
+    (32, 1280, "silu", 1), (32, 1920, "silu", 1),
+    (16, 640, "silu", 1), (16, 1280, "silu", 6), (16, 1280, None, 5), (16, 1920, "silu", 1),
+    (16, 2560, "silu", 2),
+    (8, 1280, "silu", 11), (8, 1280, None, 1), (8, 2560, "silu", 3),
 ]
 # K4's calls: (M, K, F) of the feed-forwards at levels 1, 2 and mid
 UNET_GEGLU = [(2048, 640, 2560), (512, 1280, 5120), (128, 1280, 5120)]
@@ -130,8 +139,9 @@ KERNEL_ROWS = {
     "quantize_qkv": ("::stats_kernel(", "::quantize_kernel("),
     "flash_attention_int8": ("flash_int8_kernel",),
     "conv3x3": ("conv3x3_kernel",),
-    "group_norm_stats": ("stats_partial_kernel", "stats_fold_kernel"),
+    "group_norm_stats": ("gn_stats_kernel",),
     "group_norm_apply": ("gn_apply_kernel",),
+    "group_norm_fused": ("gn_fused_kernel",),
     "linear_geglu": ("geglu_kernel",),
 }
 
@@ -363,8 +373,8 @@ def check_kernels(torch, dev):
         bnd = bound(0, 2 * x.numel())
         t = time_pair(lambda: group_norm_stats(x, groups=32, eps=1e-6),
                       lambda: group_norm_stats_ref(x, groups=32, eps=1e-6), bnd)
-        log(f"K3 group_norm_stats {hw}²·{c}: mean max_rel {em[1]:.3e} rstd max_rel "
-            f"{er[1]:.3e}  {timing_text(t)}")
+        log(f"K3 group_norm_stats {hw}²·{c}: mean max_rel {em[1]:.3e} rstd "
+            f"max_rel {er[1]:.3e}  {timing_text(t)}")
         if not max(em[1], er[1]) <= STATS_REL:
             raise AssertionError(f"K3 rel error {max(em[1], er[1])} > {STATS_REL}")
         xg = x.view(1, hw * hw, 32, c // 32)
@@ -376,9 +386,11 @@ def check_kernels(torch, dev):
 
 
 def check_optin_kernels(torch, dev, randn, out):
-    """Phase 3, the opt-in path's kernels: K3′+K5 at every UNet GroupNorm
-    shape, K4 at its three shapes, K6 and its pre-processing at the level-0
-    shape and a ragged kv."""
+    """Phase 3, the opt-in path's kernels: the fused GroupNorm, and K3 and
+    K5 alone, at every UNet GroupNorm shape, K4 at its three shapes, K6 and
+    its pre-processing at the level-0 shape and a ragged kv."""
+    import torch.nn.functional as F
+
     from sfast_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
     from sfast_tpu_torch.ops.flash_attention_int8 import (
         flash_attention_int8,
@@ -396,41 +408,72 @@ def check_optin_kernels(torch, dev, randn, out):
     from sfast_tpu_torch.ops.group_norm import (
         group_norm_apply,
         group_norm_apply_ref,
+        group_norm_fused,
+        group_norm_fused_ref,
         group_norm_stats,
         group_norm_stats_ref,
     )
 
     g = torch.Generator(device=dev).manual_seed(1)
-    for hw, c, act in UNET_GN:
+    per_eval = {"fused": 0.0, "K3+K5": 0.0, "library": 0.0}
+    for hw, c, act, count in UNET_GN:
         eps = 1e-5 if act else 1e-6
         x = randn(2, hw, hw, c) + 0.3
         gamma = torch.rand((c,), generator=g, device=dev) + 0.5
         beta = torch.randn((c,), generator=g, device=dev) * 0.2
+        kw = dict(groups=32, eps=eps, act=act)
+        y, fm, fr = group_norm_fused(x, gamma, beta, stats=True, **kw)
+        again = group_norm_fused(x, gamma, beta, **kw)
         mean, rstd = group_norm_stats(x, groups=32, eps=eps)
         got = group_norm_apply(x, mean, rstd, gamma, beta, act=act)
         torch.cuda.synchronize()
-        rm, rr = group_norm_stats_ref(x, groups=32, eps=eps)
+        if not torch.equal(y, again):
+            raise AssertionError(f"fused GroupNorm (2, {hw}², {c}): two calls differ")
+        ry, rm, rr = group_norm_fused_ref(x, gamma, beta, **kw)
+        f_stats = max(rel_errors(fm, rm)[1], rel_errors(fr, rr)[1])
+        f_abs, _, f_rms = rel_errors(y, ry)
         stats_err = max(rel_errors(mean, rm)[1], rel_errors(rstd, rr)[1])
         max_abs, max_rel, rms = rel_errors(got, group_norm_apply_ref(x, mean, rstd, gamma, beta,
                                                                       act=act))
         bnd, st_bnd = bound(0, 4 * x.numel()), bound(0, 2 * x.numel())
+        ft = time_pair(lambda: group_norm_fused(x, gamma, beta, **kw),
+                       lambda: group_norm_fused_ref(x, gamma, beta, **kw), bnd)
         t = time_pair(lambda: group_norm_apply(x, mean, rstd, gamma, beta, act=act),
                       lambda: group_norm_apply_ref(x, mean, rstd, gamma, beta, act=act), bnd)
         st = time_pair(lambda: group_norm_stats(x, groups=32, eps=eps),
                        lambda: group_norm_stats_ref(x, groups=32, eps=eps), st_bnd)
-        log(f"K3'+K5 group_norm (2, {hw}², {c}) act={act}: K5 max_rel {max_rel:.3e} "
-            f"rms_rel {rms:.3e}  {timing_text(t)}; K3' stats_rel {stats_err:.3e}  "
-            f"{timing_text(st)}")
-        if not rms <= K5_RMS_REL:
-            raise AssertionError(f"K5 rms rel error {rms} > {K5_RMS_REL}")
-        if not stats_err <= STATS_REL:
-            raise AssertionError(f"K3' rel error {stats_err} > {STATS_REL}")
+        # the library GroupNorm on the channels-last NCHW view, SiLU after it
+        xc, gb, bb = x.permute(0, 3, 1, 2), gamma.to(x.dtype), beta.to(x.dtype)
+
+        def library():
+            o = F.group_norm(xc, 32, gb, bb, eps)
+            return F.silu(o) if act == "silu" else o
+
+        lib_ms = device_ms(library, bnd[0])
+        pair_ms = st[2] + t[2]
+        for route, ms in (("fused", ft[2]), ("K3+K5", pair_ms), ("library", lib_ms)):
+            per_eval[route] += count * ms
+        log(f"group_norm (2, {hw}², {c}) act={act}: fused stats_rel {f_stats:.3e} rms_rel "
+            f"{f_rms:.3e}  {timing_text(ft)}; K3+K5 device {pair_ms:.4f} ms (K5 rms_rel "
+            f"{rms:.3e}  {timing_text(t)}; K3 stats_rel {stats_err:.3e}  {timing_text(st)}); "
+            f"library {lib_ms:.4f} ms")
+        if not (f_rms <= K5_RMS_REL and rms <= K5_RMS_REL):
+            raise AssertionError(f"GroupNorm rms rel error: fused {f_rms}, K5 {rms} > {K5_RMS_REL}")
+        if not (f_stats <= STATS_REL and stats_err <= STATS_REL):
+            raise AssertionError(f"GroupNorm stats rel error: fused {f_stats}, K3 {stats_err} "
+                                 f"> {STATS_REL}")
         case = f"(2, {hw}^2, {c}) {act or 'none'}"
+        record(out, "group_norm_fused", case, f_abs, ft, bnd,
+               (lib_ms, "F.group_norm" + (" + F.silu" if act == "silu" else "")),
+               stats_max_rel=f_stats, k3_k5_device_ms=pair_ms, per_eval=count)
         record(out, "group_norm_apply", case, max_abs, t, bnd)
         xg = x.view(2, hw * hw, 32, c // 32)
         stats_abs = max(rel_errors(mean, rm)[0], rel_errors(rstd, rr)[0])
-        record(out, "group_norm_stats", "K3' " + case, stats_abs, st, st_bnd,
+        record(out, "group_norm_stats", "K3 " + case, stats_abs, st, st_bnd,
                (device_ms(lambda: torch.var_mean(xg, dim=(1, 3)), st_bnd[0]), "torch.var_mean"))
+    log("GroupNorm device ms over one UNet eval's 61 GroupNorms: "
+        + ", ".join(f"{route} {ms:.4f}" for route, ms in per_eval.items()))
+    out["group_norm_per_eval_ms"] = per_eval
 
     for m, k, f in UNET_GEGLU:
         x = randn(m, k)
@@ -712,7 +755,8 @@ def main():
                 "device_ms", "plain_device_ms", "share_of_bound", "library")},
             "cases": measured[name],
         })
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels,
+                      "group_norm_per_eval_ms": measured["group_norm_per_eval_ms"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

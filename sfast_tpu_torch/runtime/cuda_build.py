@@ -43,6 +43,7 @@ launch_counts = {
     "conv3x3": 0,
     "group_norm_stats": 0,
     "group_norm_apply": 0,
+    "group_norm_fused": 0,
     "linear_geglu": 0,
 }
 
@@ -53,7 +54,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sfast_flash_attention_bf16": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "sfast_conv3x3_bf16": [_P] * 8 + [_I] * 5 + [_F, _P],
-    "sfast_group_norm_stats_bf16": [_P] * 4 + [_I] * 4 + [_F, _I, _I, _P],
+    "sfast_group_norm_stats_bf16": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    "sfast_group_norm_fused_bf16": [_P] * 6 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     "sfast_group_norm_apply_bf16": [_P] * 6 + [_I] * 4 + [_P],
     "sfast_linear_geglu_bf16": [_P] * 3 + [_I, _P] + [_I] * 3 + [_P],
     "sfast_quantize_qkv_int8": [_P] * 3 + [_I] * 5 + [_L] * 9 + [_F] + [_P] * 9,
@@ -141,19 +143,24 @@ def build(extra_flags=()) -> Path:
     return out
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """The kernel library at ``path``, its entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sfast_error_string.argtypes = [ctypes.c_int]
+    lib.sfast_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.sfast_error_string.argtypes = [ctypes.c_int]
-            lib.sfast_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 

@@ -11,7 +11,9 @@ without it run:
 Tolerances are those of ``chip_smoke.py``: relative rms 1e-2 for K1 and
 2e-2 for K2 outputs in bf16, 1e-3 relative for the f32 statistics (Σy
 against Σ|y|, since Σy may cancel); K5 and K4 within 1e-2 rms of their
-f32 plain versions (bf16 output rounding); K6 within 2e-2 rms of its plain
+f32 plain versions (bf16 output rounding), and the fused GroupNorm's y
+within 1e-2 and its statistics within 1e-3 of K3 then K5 in plain torch;
+K6 within 2e-2 rms of its plain
 version at the kernel's tile (the same math; exp2 and the order of sums
 flip a few int8 roundings of p) and 0.015 of exact attention; K6's
 pre-processing within one int8 level of its plain version on at most 0.1%
@@ -33,8 +35,12 @@ from sfast_tpu_torch.ops.flash_attention_int8 import (
 )
 from sfast_tpu_torch.ops.geglu import linear_geglu_fused, linear_geglu_fused_ref
 from sfast_tpu_torch.ops.group_norm import (
+    fused_plan,
+    group_norm,
     group_norm_apply,
     group_norm_apply_ref,
+    group_norm_fused,
+    group_norm_fused_ref,
     group_norm_stats,
     group_norm_stats_ref,
 )
@@ -250,6 +256,88 @@ def test_group_norm_apply_rejects_what_it_cannot_run(dev):
     with pytest.raises(ValueError, match="activation"):
         group_norm_apply(torch.zeros(1, 4, 4, 16, device=dev, dtype=BF16), *stats, one, zero,
                          act="relu")
+
+
+def test_group_norm_stats_one_launch_and_repeatable(dev):
+    """K3 is one CUDA kernel a call (its fold runs in the same launch) and
+    gives the same bits twice, at VAE maps (128²·512, 256²·256) and a
+    small UNet map."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for shape in [(1, 128, 128, 512), (2, 16, 16, 2560), (1, 256, 256, 256)]:
+        x = _randn(dev, *shape, seed=10) + 0.5
+        first = group_norm_stats(x, groups=32, eps=1e-6)
+        before = cuda_build.launch_counts["group_norm_stats"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = group_norm_stats(x, groups=32, eps=1e-6)
+            torch.cuda.synchronize()
+        assert cuda_build.launch_counts["group_norm_stats"] == before + 1
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        assert [e.count for e in kernels] == [1], [(e.key, e.count) for e in kernels]
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_group_norm_stats_on_two_streams_at_once(dev):
+    """K3's fold tickets belong to a stream: calls on two streams that run
+    at the same time each fold their own samples."""
+    xs = [_randn(dev, 2, 64, 64, 512, seed=s) + 0.5 * s for s in (14, 15)]
+    refs = [group_norm_stats_ref(x, groups=32, eps=1e-6) for x in xs]
+    streams = [torch.cuda.Stream(device=dev) for _ in xs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for x, st, out in zip(xs, streams, outs):
+            with torch.cuda.stream(st):
+                out.append(group_norm_stats(x, groups=32, eps=1e-6))
+    torch.cuda.synchronize()
+    for out, (rm, rr) in zip(outs, refs):
+        for mean, rstd in out:
+            assert _max_rel(mean, rm) <= 1e-3 and _max_rel(rstd, rr) <= 1e-3
+
+
+@pytest.mark.parametrize(
+    "n,h,w,c,groups,act,eps",
+    [(1, 9, 7, 320, 32, "silu", 1e-5), (3, 5, 3, 256, 32, "gelu", 1e-6),  # batch 3, C = 8·G
+     (2, 15, 17, 960, 32, None, 1e-6), (1, 1, 1, 64, 8, "silu", 1e-5),
+     (2, 8, 8, 2560, 32, "silu", 1e-5), (2, 64, 64, 960, 32, "silu", 1e-5),
+     (1, 128, 128, 512, 32, None, 1e-6), (2, 33, 31, 640, 16, "gelu", 1e-5)],
+)
+def test_group_norm_fused_matches_plain(dev, n, h, w, c, groups, act, eps):
+    x = _randn(dev, n, h, w, c, seed=11) + 0.3
+    g = torch.Generator(device=dev).manual_seed(12)
+    gamma = torch.rand((c,), generator=g, device=dev) + 0.5
+    beta = torch.randn((c,), generator=g, device=dev) * 0.2
+    assert fused_plan(n, h * w, c, groups) is not None
+    before = cuda_build.launch_counts["group_norm_fused"]
+    y, mean, rstd = group_norm_fused(x, gamma, beta, groups=groups, eps=eps, act=act, stats=True)
+    again = group_norm_fused(x, gamma, beta, groups=groups, eps=eps, act=act)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["group_norm_fused"] == before + 2
+    assert y.shape == x.shape and y.dtype == BF16 and torch.equal(y, again)
+    ry, rm, rr = group_norm_fused_ref(x, gamma, beta, groups=groups, eps=eps, act=act)
+    assert _max_rel(mean, rm) <= 1e-3 and _max_rel(rstd, rr) <= 1e-3
+    assert _rms_rel(y, ry) <= 1e-2
+
+
+def test_group_norm_kernel_route_is_one_fused_launch(dev):
+    x = _randn(dev, 2, 16, 16, 1280, seed=13)
+    one, zero = torch.ones(1280, device=dev), torch.zeros(1280, device=dev)
+    cuda_build.reset_launch_counts()
+    group_norm(x, one, zero, groups=32, act="silu", backend="kernel")
+    assert {k: v for k, v in cuda_build.launch_counts.items() if v} == {"group_norm_fused": 1}
+
+
+def test_group_norm_fused_rejects_what_it_cannot_run(dev):
+    one, zero = torch.ones(12, device=dev), torch.zeros(12, device=dev)
+    with pytest.raises(ValueError, match="C % 8"):
+        group_norm_fused(torch.zeros(1, 4, 4, 12, device=dev, dtype=BF16), one, zero, groups=4)
+    with pytest.raises(ValueError, match="bf16"):
+        group_norm_fused(torch.zeros(1, 4, 4, 16, device=dev), one[:8].repeat(2),
+                         zero[:8].repeat(2), groups=4)
+    with pytest.raises(ValueError, match="activation"):
+        group_norm_fused(torch.zeros(1, 4, 4, 16, device=dev, dtype=BF16), one[:8].repeat(2),
+                         zero[:8].repeat(2), groups=4, act="relu")
 
 
 @pytest.mark.parametrize("f", [64, 320, 2560])

@@ -37,6 +37,7 @@ from sfast_tpu_torch.ops.geglu import linear_geglu, linear_geglu_fused
 from sfast_tpu_torch.ops.group_norm import (
     group_norm,
     group_norm_apply,
+    group_norm_fused,
     group_norm_stats,
     group_norm_stats_ref,
 )
@@ -258,7 +259,7 @@ def test_gn_affine_and_affine_from_stats_match_jax():
 @pytest.mark.parametrize(
     "kernel",
     ["flash_attention", "conv3x3", "group_norm_stats", "group_norm_apply", "linear_geglu",
-     "flash_attention_int8"],
+     "flash_attention_int8", "group_norm_fused"],
 )
 def test_kernel_wrappers_raise_off_cpu_and_cuda(kernel):
     meta = dict(device="meta", dtype=torch.bfloat16)
@@ -276,6 +277,9 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda(kernel):
                              torch.empty(64, **meta), torch.empty(64, **meta))
         elif kernel == "linear_geglu":
             linear_geglu_fused(torch.empty(4, 128, **meta), torch.empty(256, 128, **meta))
+        elif kernel == "group_norm_fused":
+            group_norm_fused(torch.empty(1, 8, 8, 64, **meta), torch.empty(64, **meta),
+                             torch.empty(64, **meta), groups=8)
         else:
             q = torch.empty(1, 2, 64, 40, **meta)
             flash_attention_int8(q, q, q)
@@ -293,5 +297,5 @@ def test_cpu_calls_launch_nothing():
     linear_geglu_fused(torch.randn(4, 32), torch.randn(128, 32))
     assert cuda_build.launch_counts == {
         "flash_attention": 0, "quantize_qkv": 0, "flash_attention_int8": 0, "conv3x3": 0,
-        "group_norm_stats": 0, "group_norm_apply": 0, "linear_geglu": 0,
+        "group_norm_stats": 0, "group_norm_apply": 0, "group_norm_fused": 0, "linear_geglu": 0,
     }

@@ -45,7 +45,13 @@ from sfast_tpu_torch.ops.flash_attention_int8 import (
     quantize_qkv,
 )
 from sfast_tpu_torch.ops.geglu import geglu_ok, linear_geglu, linear_geglu_fused_ref
-from sfast_tpu_torch.ops.group_norm import group_norm
+from sfast_tpu_torch.ops.group_norm import (
+    fused_plan,
+    group_norm,
+    group_norm_fused,
+    group_norm_fused_ref,
+    stats_chunks,
+)
 
 # the modules themselves: sfast_tpu.ops re-exports functions of the same names
 j_attention = importlib.import_module("sfast_tpu.ops.attention")
@@ -83,27 +89,219 @@ def _rms_rel(got, ref):
 # ---------------------------------------------------------------------------
 
 
+def _gn_case(act, groups, eps, c):
+    # the first cases keep their original ids, from before C was a parameter
+    name = f"{act}-{groups}-{eps:g}" + ("" if c == 64 else f"-{c}")
+    return pytest.param(act, groups, eps, c, id=name)
+
+
 @pytest.mark.parametrize(
-    "act,groups,eps",
-    [(None, 8, 1e-5), ("silu", 8, 1e-6), ("gelu", 8, 1e-5),
-     (None, 32, 1e-6), ("silu", 32, 1e-5), ("gelu", 32, 1e-6)],
+    "act,groups,eps,c",
+    [_gn_case(*case) for case in [
+        (None, 8, 1e-5, 64), ("silu", 8, 1e-6, 64), ("gelu", 8, 1e-5, 64),
+        (None, 32, 1e-6, 64), ("silu", 32, 1e-5, 64), ("gelu", 32, 1e-6, 64),
+        # the UNet's widths at G = 32: 10, 30 and 80 channels a group
+        (None, 32, 1e-6, 320), ("silu", 32, 1e-5, 320), ("gelu", 32, 1e-5, 320),
+        (None, 32, 1e-6, 960), ("silu", 32, 1e-5, 960), ("gelu", 32, 1e-6, 960),
+        (None, 32, 1e-6, 2560), ("silu", 32, 1e-5, 2560), ("gelu", 32, 1e-6, 2560),
+    ]],
 )
 @pytest.mark.parametrize("backend", ["kernel", "hybrid"])
-def test_group_norm_kernel_routes_match_pallas(backend, act, groups, eps):
+def test_group_norm_kernel_routes_match_pallas(backend, act, groups, eps, c):
     rng = np.random.default_rng(11)
-    x = _randn(rng, 2, 6, 5, 64) + 0.4
-    g, b = _randn(rng, 64, scale=0.3) + 1.0, _randn(rng, 64, scale=0.2)
+    hw = (6, 5) if c == 64 else (3, 2)
+    x = _randn(rng, 2, *hw, c) + 0.4
+    g, b = _randn(rng, c, scale=0.3) + 1.0, _randn(rng, c, scale=0.2)
     jfn = j_group_norm.group_norm_pallas if backend == "kernel" else j_group_norm.group_norm_hybrid
     ref = jfn(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), groups=groups, eps=eps,
               act=act, interpret=True)
     got = group_norm(_t(x), _t(g), _t(b), groups=groups, eps=eps, act=act, backend=backend)
     _close(got, ref, F32_TOL)
+    # with 8 channels a group or more the route is the fused GroupNorm, its
+    # plain version here (fewer take K3 then K5)
+    assert (fused_plan(2, hw[0] * hw[1], c, groups) is not None) is (c // groups >= 8)
+    if backend == "kernel":
+        y, mean, rstd = group_norm_fused(_t(x), _t(g), _t(b), groups=groups, eps=eps, act=act,
+                                         stats=True)
+        np.testing.assert_array_equal(y.numpy(), got.numpy())
+        jm, jr = j_group_norm.group_norm_stats(jnp.asarray(x), groups=groups, eps=eps,
+                                              interpret=True)
+        _close(mean, jm, F32_TOL)
+        _close(rstd, jr, F32_TOL)
 
 
 def test_group_norm_rejects_unknown_backend():
     with pytest.raises(ValueError, match="backend"):
         group_norm(torch.zeros(1, 2, 2, 8), torch.ones(8), torch.zeros(8), groups=4,
                    backend="pallas")
+
+
+# Every distinct UNet GroupNorm of the opt-in path at 512² (batch 2):
+# (H = W, C, act), as chip_smoke.py's UNET_GN; and the VAE decoder's resnet
+# inputs (batch 1), which take K3 in fused_conv.gn_affine
+UNET_GN = [
+    (64, 320, "silu"), (64, 320, None), (64, 640, "silu"), (64, 960, "silu"),
+    (32, 320, "silu"), (32, 640, "silu"), (32, 640, None), (32, 960, "silu"),
+    (32, 1280, "silu"), (32, 1920, "silu"),
+    (16, 640, "silu"), (16, 1280, "silu"), (16, 1280, None), (16, 1920, "silu"),
+    (16, 2560, "silu"),
+    (8, 1280, "silu"), (8, 1280, None), (8, 2560, "silu"),
+]
+VAE_GN = [(128, 512), (256, 512), (256, 256), (512, 256), (512, 128)]
+SMEM_LIMIT = 232448  # the H100's shared memory a CTA can use
+
+
+def _route(monkeypatch, n, hw, c):
+    """Which kernels group_norm(backend='kernel') calls for an (n, hw, hw, c)
+    tensor, with the wrappers stubbed out (no compute)."""
+    seen = []
+    gn_mod = importlib.import_module("sfast_tpu_torch.ops.group_norm")
+    stats = torch.zeros(n, 1, 1, c)
+    monkeypatch.setattr(gn_mod, "group_norm_fused", lambda *a, **kw: seen.append("fused"))
+    monkeypatch.setattr(gn_mod, "group_norm_stats",
+                        lambda *a, **kw: seen.append("K3") or (stats, stats))
+    monkeypatch.setattr(gn_mod, "group_norm_apply", lambda *a, **kw: seen.append("K5"))
+    x = torch.empty(n, hw, hw, c, device="meta")
+    group_norm(x, torch.ones(c), torch.zeros(c), groups=32, backend="kernel")
+    return seen
+
+
+@pytest.mark.parametrize("hw,c,act", UNET_GN)
+def test_fused_rule_takes_every_unet_groupnorm(monkeypatch, hw, c, act):
+    plan = fused_plan(2, hw * hw, c, 32)
+    assert plan is not None and _route(monkeypatch, 2, hw, c) == ["fused"]
+    vb = plan.band_groups * (c // 32) // 8
+    assert 32 % plan.band_groups == 0 and plan.band_groups * (c // 32) % 8 == 0 and vb >= 4
+    assert plan.cluster in (2, 4, 8, 16) and (plan.cluster - 1) * plan.rows < hw * hw <= plan.cluster * plan.rows
+    assert plan.rp % 32 == 0 and plan.threads == plan.rp * vb <= 512 and plan.smem <= SMEM_LIMIT
+    # at least one CTA per SM of the card's 132, each of at most 512 rows,
+    # and two an SM where a tile is large
+    assert 2 * (32 // plan.band_groups) * plan.cluster >= 64 and plan.rows <= 512
+    assert plan.smem <= 116 * 1024
+
+
+@pytest.mark.parametrize("hw,c", VAE_GN)
+def test_fused_rule_at_vae_shapes(monkeypatch, hw, c):
+    """Beyond 128² a VAE map's band tile does not fit a cluster of 8 CTAs:
+    those calls take K3 then K5.  At 128²·512 (batch 1) the 16 CTAs of
+    each of 16 bands hold 1024 rows of 64 bytes (66 KB each): it fits, and
+    takes the fused kernel."""
+    plan = fused_plan(1, hw * hw, c, 32)
+    if hw == 128:
+        assert plan is not None and plan.smem <= SMEM_LIMIT
+        assert _route(monkeypatch, 1, hw, c) == ["fused"]
+    else:
+        assert plan is None and _route(monkeypatch, 1, hw, c) == ["K3", "K5"]
+
+
+@pytest.mark.parametrize("n,hw,c,cluster", [
+    (2, 64, 960, 16),     # the UNet's 64²·960: 8 CTAs would hold 124 KB each, 16 hold 62 KB
+    (1, 160, 512, 16),    # 16 CTAs of 101 KB
+    (1, 176, 512, None),  # 16 CTAs of 122 KB, one an SM; 8 do not fit at all
+    (1, 192, 512, None),
+])
+def test_fused_rule_takes_16_ctas_only_two_an_sm(monkeypatch, n, hw, c, cluster):
+    """Clusters of 16 CTAs (non-portable) only where each CTA fits two an
+    SM: at one an SM they would need 16 free SMs of one GPC.  A shape that
+    fits neither 8 CTAs nor 16 at two an SM takes K3 then K5."""
+    plan = fused_plan(n, hw * hw, c, 32)
+    if cluster is None:
+        assert plan is None and _route(monkeypatch, n, hw, c) == ["K3", "K5"]
+    else:
+        assert plan.cluster == cluster and plan.smem <= 116 * 1024
+        assert _route(monkeypatch, n, hw, c) == ["fused"]
+
+
+def _fused_emulation(x, plan, groups, eps):
+    """csrc/group_norm_fused.cu's partition and folds in f32 numpy: returns
+    how often each (sample, row, channel) was read by the statistics and
+    written by the apply, and the (n, c) mean and rstd that every CTA of a
+    cluster computes."""
+    n, hw, c = x.shape
+    cpg, bg = c // groups, plan.band_groups
+    bc = bg * cpg
+    vb, rp, nw = bc // 8, plan.rp, plan.threads // 32
+    m = nw // vb
+    read = np.zeros((n, hw, c), np.int32)
+    written = np.zeros((n, hw, c), np.int32)
+    mean, rstd = np.zeros((n, c), np.float32), np.zeros((n, c), np.float32)
+    t = np.arange(plan.threads)
+    v, rl = t % vb, t // vb  # the apply's threads
+    for s in range(n):
+        for band in range(groups // bg):
+            c0 = band * bc
+            gparts = []
+            for rank in range(plan.cluster):
+                r0 = rank * plan.rows
+                rows = max(0, min(plan.rows, hw - r0))
+                # warp w: vector w % vb, rows (w // vb) * 32 + lane, step 32 m
+                wred = np.zeros((nw, 4), np.float32)
+                for w in range(nw):
+                    wv = w % vb
+                    r = np.arange(rows)
+                    r = r[r // 32 % m == w // vb]
+                    ch = c0 + 8 * wv + np.arange(8)
+                    np.add.at(read[s], (r0 + r[:, None], ch), 1)
+                    xv = x[s, r0 + r[:, None], ch]
+                    s1, s2 = xv.sum(0, dtype=np.float32), (xv * xv).sum(0, dtype=np.float32)
+                    ga = wv * 8 // cpg
+                    jb = (ga + 1) * cpg - wv * 8
+                    wred[w] = [s1[:jb].sum(), s2[:jb].sum(), s1[jb:].sum(), s2[jb:].sum()]
+                gpart = np.zeros((2, bg), np.float32)
+                for stat in range(2):
+                    for g in range(bg):
+                        for b in range(m):
+                            for u in range(g * cpg // 8, ((g + 1) * cpg - 1) // 8 + 1):
+                                slot = 0 if u * 8 >= g * cpg else 2
+                                gpart[stat, g] += wred[b * vb + u, slot + stat]
+                gparts.append(gpart)
+                for k in range(-(-rows // rp)):
+                    r = rl + k * rp
+                    ok = r < rows
+                    np.add.at(written[s], (r0 + r[ok, None], c0 + 8 * v[ok, None] + np.arange(8)), 1)
+            tot = np.zeros((2, bg), np.float32)
+            for gpart in gparts:  # the cluster's sums, in rank order
+                tot += gpart
+            cnt = np.float32(hw * cpg)
+            mu = tot[0] / cnt
+            r = 1.0 / np.sqrt(tot[1] / cnt - mu * mu + np.float32(eps))
+            mean[s, c0:c0 + bc] = np.repeat(mu, cpg)
+            rstd[s, c0:c0 + bc] = np.repeat(r, cpg)
+    return read, written, mean, rstd
+
+
+@pytest.mark.parametrize("n,hw,c,groups", [
+    (2, 64 * 64, 320, 32), (2, 64 * 64, 960, 32), (2, 32 * 32, 1920, 32), (2, 16 * 16, 2560, 32),
+    (2, 8 * 8, 1280, 32), (1, 128 * 128, 512, 32),              # main-path and VAE shapes
+    (1, 15, 256, 32), (3, 63, 320, 32), (2, 30, 64, 8), (1, 1, 40, 4),  # odd H·W, C = 8·G
+])
+def test_fused_partition_covers_each_element_once(n, hw, c, groups):
+    """The bands tile the channels, the cluster's CTAs the rows, and the
+    warps (statistics) and threads (apply) each tile: every (sample, row,
+    channel) is summed and written exactly once, and the kernel's fold
+    order gives the plain statistics."""
+    plan = fused_plan(n, hw, c, groups)
+    assert plan is not None
+    rng = np.random.default_rng(18)
+    x = (rng.standard_normal((n, hw, c)) + 0.3).astype(np.float32)
+    read, written, mean, rstd = _fused_emulation(x, plan, groups, 1e-5)
+    assert (read == 1).all() and (written == 1).all()
+    rm, rr = (a.reshape(n, c).numpy() for a in group_norm_fused_ref(
+        _t(x).reshape(n, hw, 1, c), torch.ones(c), torch.zeros(c), groups=groups, eps=1e-5)[1:])
+    _close(mean, rm, F32_TOL)
+    _close(rstd, rr, F32_TOL)
+
+
+@pytest.mark.parametrize("n,hw,c", [(2, h * h, c) for h, c, _ in UNET_GN[:: 2]]
+                         + [(1, h * h, c) for h, c in VAE_GN])
+def test_stats_chunks_cover_rows_and_bound_partials(n, hw, c):
+    """K3's ticket route: its chunks cover every row once, give at most two
+    blocks an SM, sum at least 32 KB of x a block where the map has it, and
+    write partials of at most an eighth of x's bytes."""
+    rows, chunks = stats_chunks(n, hw, c, 32)
+    assert (chunks - 1) * rows < hw <= chunks * rows
+    assert n * chunks * 2 * 32 * 4 <= n * hw * c * 2 / 8
+    assert n * chunks <= 256 and (rows * c * 2 >= 32 * 1024 or n * chunks >= 255)
 
 
 # ---------------------------------------------------------------------------

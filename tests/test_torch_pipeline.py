@@ -95,14 +95,17 @@ def test_tiny_pipeline_matches_jax(pipes):
     # on CPU tensors no kernel launches
     assert cuda_build.launch_counts == {
         "flash_attention": 0, "quantize_qkv": 0, "flash_attention_int8": 0, "conv3x3": 0,
-        "group_norm_stats": 0, "group_norm_apply": 0, "linear_geglu": 0,
+        "group_norm_stats": 0, "group_norm_apply": 0, "group_norm_fused": 0, "linear_geglu": 0,
     }
 
 
 def test_tiny_pipeline_optin_matches_jax(pipes, monkeypatch):
     """The opt-in configuration end to end.  At these widths K4 (K < 128)
     and K6 (sequences below the length rule) do not fire on either side, so
-    this covers K3′+K5 in every UNet GroupNorm and the config plumbing;
+    this covers the kernel route of every UNet GroupNorm (the fused
+    GroupNorm where a group has 8 channels or more; K3 then K5 below, here
+    C = 32 at 8 groups and the transformers' 32 groups) and the config
+    plumbing;
     tests/test_torch_optin.py covers K4 and K6 at module level."""
     jpipe, tpipe = pipes
     gn_mod = sys.modules["sfast_tpu.ops.group_norm"]
@@ -114,10 +117,12 @@ def test_tiny_pipeline_optin_matches_jax(pipes, monkeypatch):
         return pallas_gn(*a, **{**kw, "interpret": True})
 
     monkeypatch.setattr(gn_mod, "group_norm_pallas", interpret_gn)
-    ours = []
-    apply_ref = t_group_norm.group_norm_apply
+    ours, pairs = [], []
+    fused, apply = t_group_norm.group_norm_fused, t_group_norm.group_norm_apply
+    monkeypatch.setattr(t_group_norm, "group_norm_fused",
+                        lambda x, *a, **kw: ours.append(x.shape) or fused(x, *a, **kw))
     monkeypatch.setattr(t_group_norm, "group_norm_apply",
-                        lambda x, *a, **kw: ours.append(x.shape) or apply_ref(x, *a, **kw))
+                        lambda x, *a, **kw: pairs.append(x.shape) or apply(x, *a, **kw))
     # JAX's stepwise pipeline calls its UNet bundle, which takes its config
     # from sfast_tpu's compile step
     monkeypatch.setattr(jpipe, "unet", compile_unet(
@@ -133,9 +138,10 @@ def test_tiny_pipeline_optin_matches_jax(pipes, monkeypatch):
         tlat = tpipe(prompt_ids=ids, latents=torch.from_numpy(lat), **kw).images
     finally:
         tpipe.set_compilation_config(CompilationConfig.Default())
-    # every UNet GroupNorm took K3′+K5 on both sides: JAX traced its UNet
+    # every UNet GroupNorm took the kernel route on both sides (K3′+K5 in
+    # JAX, the fused GroupNorm or K3 then K5 here): JAX traced its UNet
     # once, the port ran it STEPS times on the CFG batch
-    assert calls and len(ours) == STEPS * len(calls)
+    assert calls and ours and pairs and len(ours) + len(pairs) == STEPS * len(calls)
     np.testing.assert_allclose(tlat.numpy(), jlat, rtol=0, atol=2e-3 * np.abs(jlat).max())
 
 

@@ -20,18 +20,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    GroupNorm beside K3+K5 and the library GroupNorm at every UNet
    GroupNorm shape, with both routes' sums over one UNet eval;
 4. run SD1.5 text2img at full width with seeded random weights — 512²,
-   batch 1, DPM++ 50 steps, CFG 7.5 — through ``StableDiffusionPipeline``;
-   count the kernel launches of one image, time 3 more, check the image,
-   profile one more (device time, the device's idle share and the count
-   of CUDA kernels an image launches; a trace whose rows of the port's
-   kernels disagree with the counted launches is taken again), and hold
-   one UNet eval and one VAE decode against the plain route;
-5. the same pipeline under the opt-in kernel configuration
+   batch 1, DPM++ 50 steps, CFG 7.5 — through ``StableDiffusionPipeline``
+   after ``sfast_tpu_torch.compile``, twice: eager (``enable_cuda_graph``
+   off) and graphed (the default: a CUDA graph per signature for CLIP,
+   the UNet, the DPM++ step and the VAE decode).  Each run captures its
+   graphs in a first image and prints them with their capture and
+   instantiate seconds and the host time of one ``replay()``, then counts the kernel launches of one image, times 3 more, keeps the
+   latents and image of fixed initial latents, and profiles one more
+   (device time, the device's idle share and the count of CUDA kernels an
+   image launches; a trace whose rows of the port's kernels disagree with
+   the counted launches is taken again), with its peak memory and the
+   card's clocks, power and temperature during the timed images.  The
+   graphed image is held against the eager one (within 1 uint8 level), and
+   with the graphs in place one UNet eval and one VAE decode against the
+   plain route, which must launch no kernel;
+5. the same under the opt-in kernel configuration
    (``enable_fused_group_norm``, ``enable_fused_linear_geglu``,
    ``enable_int8_attention``), which takes the fused GroupNorm (the
-   counterpart of K3′+K5), K4 and K6 in the UNet:
-   the same launch count, timing, image and profile steps, and one UNet
-   eval held against the plain route.
+   counterpart of K3′+K5), K4 and K6 in the UNet;
+6. the default kernels with ``fuse_denoising_loop``: the 50 steps as one
+   graph, its node count and instantiate seconds, held against phase 4's
+   eager image.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches per image on each path, the main-path case's numbers and every
@@ -148,6 +157,34 @@ KERNEL_ROWS = {
 
 def log(*a):
     print(*a, flush=True)
+
+
+class CardSampler:
+    """Samples the card's SM and memory clocks, power draw and temperature
+    every 100 ms (``nvidia-smi -lms``) while the ``with`` block runs;
+    ``text()`` gives their medians and ranges."""
+
+    FIELDS = ("clocks.sm", "clocks.mem", "power.draw", "temperature.gpu")
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={','.join(self.FIELDS)}",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=10)
+        rows = [[float(v) for v in line.split(",")] for line in out.splitlines()
+                if line.count(",") == len(self.FIELDS) - 1 and "N/A" not in line]
+        self.samples = {f: [r[i] for r in rows] for i, f in enumerate(self.FIELDS)}
+        return False
+
+    def text(self):
+        return "; ".join(
+            f"{f} median {statistics.median(v):.0f} ({min(v):.0f}-{max(v):.0f})"
+            for f, v in self.samples.items() if v) or "no nvidia-smi samples"
 
 
 def rel_errors(got, ref):
@@ -588,15 +625,15 @@ def build_pipeline(torch, dev):
     return pipe
 
 
-def run_path(torch, dev, pipe, name, cfg, expected, model_bound):
-    """Phases 4 and 5: one path of the pipeline under ``cfg``.  Returns the
-    launch counts of one image."""
-    from sfast_tpu_torch import CompilationConfig
-    from sfast_tpu_torch.models import SD_VAE
+def run_mode(torch, dev, pipe, label, cfg, expected, lat):
+    """One run of the pipeline under ``cfg``: the first image (which
+    captures the graphs), the counted image, 3 timed, the latents and
+    image of the initial latents ``lat``, and a profiled image.  Returns
+    what the comparisons of phases 4 to 6 need."""
     from sfast_tpu_torch.runtime import cuda_build
+    from sfast_tpu_torch.runtime.executable_cache import global_executable_cache
     from sfast_tpu_torch.utils.image import denormalize_to_uint8
 
-    bf16 = torch.bfloat16
     pipe.set_compilation_config(cfg)
     prompt_ids = torch.randint(0, 49408, (1, 77), generator=torch.Generator().manual_seed(1))
     kw = dict(prompt_ids=prompt_ids, height=512, width=512,
@@ -609,59 +646,126 @@ def run_path(torch, dev, pipe, name, cfg, expected, model_bound):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t) * 1e3
 
-    # the counted main-path run (also the warm-up)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, first_ms = timed(seed=0)  # captures every graph of the path
+    cache = global_executable_cache()
+    graphs = {}
+    for name, n in cache.stats().items():
+        if n:
+            gs = cache.get(name).graphs()
+            graphs[name] = {"graphs": n, "nodes": sum(g.nodes for g in gs),
+                            "capture_s": sum(g.capture_seconds for g in gs),
+                            "instantiate_s": sum(g.instantiate_seconds for g in gs),
+                            "launch_host_ms": sum(launch_host_ms(torch, g.graph) for g in gs)}
+    log(f"[{label}] first image {first_ms:.1f} ms; graphs captured: "
+        + (", ".join(f"{k} {v['graphs']} ({v['nodes']} nodes, capture {v['capture_s']:.3f} s, "
+                     f"instantiate {v['instantiate_s']:.3f} s, replay() returns after "
+                     f"{v['launch_host_ms']:.3f} ms on the host)" for k, v in graphs.items())
+           or "none"))
+    if cfg.enable_cuda_graph and not graphs:
+        raise AssertionError(f"[{label}] no graph was captured")
+
+    # the counted main-path run
     cuda_build.reset_launch_counts()
-    out, warm_ms = timed(seed=0)
+    out, _ = timed(seed=0)
     counts = dict(cuda_build.launch_counts)
-    log(f"[{name}] launches per image: {counts} (first run {warm_ms:.1f} ms)")
+    log(f"[{label}] launches per image: {counts}")
     if counts != expected:
-        raise AssertionError(f"[{name}] launch counts {counts} != {expected}")
+        raise AssertionError(f"[{label}] launch counts {counts} != {expected}")
     img = out.images
     if img.shape != (1, 512, 512, 3) or str(img.dtype) != "uint8":
-        raise AssertionError(f"[{name}] image {img.shape} {img.dtype}")
+        raise AssertionError(f"[{label}] image {img.shape} {img.dtype}")
 
-    torch.cuda.reset_peak_memory_stats()
-    runs = [timed(seed=s)[1] for s in (1, 2, 3)]
-    log(f"[{name}] e2e ms: runs {[round(r, 3) for r in runs]} median "
-        f"{statistics.median(runs):.3f}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    with CardSampler() as card:
+        runs = [timed(seed=s)[1] for s in (1, 2, 3)]
+    e2e = statistics.median(runs)
+    log(f"[{label}] e2e ms: runs {[round(r, 3) for r in runs]} median {e2e:.3f}; card: "
+        f"{card.text()}")
 
-    lat = torch.randn((1, 64, 64, 4), generator=torch.Generator(device=dev).manual_seed(5),
-                      device=dev)
+    latents = pipe(**kw, latents=lat, output_type="latent").images
     image_f = pipe(**kw, latents=lat, output_type="float").images
     if not bool(torch.isfinite(image_f).all()) or image_f.float().std().item() == 0.0:
-        raise AssertionError(f"[{name}] decoded image is not finite or is constant")
-    u8_a = denormalize_to_uint8(image_f)
-    u8_b = pipe(**kw, latents=lat, output_type="pt").images
-    # the kernels are deterministic; one level allows for the libraries'
-    # (cuBLAS, cuDNN) choice of algorithm between calls
-    diff = (u8_a.int() - u8_b.int()).abs().max().item()
-    log(f"[{name}] same latents twice: max uint8 difference {diff}; image std "
-        f"{image_f.float().std().item():.4f}")
+        raise AssertionError(f"[{label}] decoded image is not finite or is constant")
+    prof = profile_image(torch, lambda: pipe(**kw, seed=4), label)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    log(f"[{label}] peak memory {peak:.2f} GiB allocated, {reserved:.2f} GiB reserved "
+        "(the graphs' pools included)")
+    return {"counts": counts, "latents": latents, "u8": denormalize_to_uint8(image_f),
+            "e2e_ms": e2e, "peak_gib": peak, "peak_reserved_gib": reserved, "graphs": graphs,
+            **prof}
+
+
+def launch_host_ms(torch, graph, tries=3):
+    """Median host milliseconds until ``graph.replay()`` returns, on an idle
+    card: the cost of submitting the graph, which the device waits for
+    unless earlier work keeps it busy.  The replay reruns the graph on its
+    static inputs, which changes no caller's tensor."""
+    times = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        graph.replay()
+        times.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def compare_runs(torch, label, ref, got):
+    """``got``'s latents and image against ``ref``'s, from the same
+    initial latents: the image within 1 uint8 level."""
+    _, _, rms = rel_errors(got["latents"], ref["latents"])
+    diff = (got["u8"].int() - ref["u8"].int()).abs().max().item()
+    log(f"[{label}] same latents: max uint8 difference {diff}, latents rms_rel {rms:.3e}")
     if diff > 1:
-        raise AssertionError(f"[{name}] two runs with the same latents differ by {diff} levels")
+        raise AssertionError(f"[{label}] images differ by {diff} uint8 levels")
+    return {"max_uint8_diff": diff, "latents_rms_rel": rms}
 
-    profile_image(torch, lambda: pipe(**kw, seed=4), name)
 
-    # kernel route vs plain route at full width
+def run_path(torch, dev, pipe, name, cfg, expected, model_bound, lat):
+    """Phases 4 and 5: one path of the pipeline, eager then graphed.
+    Returns both runs' results."""
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.models import SD_VAE
+    from sfast_tpu_torch.runtime import cuda_build
+
+    bf16 = torch.bfloat16
+    res = {"eager": run_mode(torch, dev, pipe, f"{name} eager",
+                             cfg.replace(enable_cuda_graph=False), expected, lat)}
+    res["graphed"] = run_mode(torch, dev, pipe, f"{name} graphed", cfg, expected, lat)
+    res["graphed_vs_eager"] = compare_runs(torch, f"{name} graphed vs eager", res["eager"],
+                                           res["graphed"])
+
+    # kernel route vs plain route at full width, with the path's graphs in
+    # place: the switch drops them, so the plain route launches no kernel
     gen = torch.Generator(device=dev).manual_seed(6)
     with torch.inference_mode():
-        ctx = pipe.encode_prompt(prompt_ids.to(dev))
+        ctx = pipe.encode_prompt(torch.randint(0, 49408, (1, 77), generator=gen, device=dev))
         x = torch.randn((2, 64, 64, 4), generator=gen, device=dev).to(bf16)
-        t = torch.full((2,), 801.0, device=dev)
+        t = torch.tensor(801.0, device=dev)
         z = torch.randn((1, 64, 64, 4), generator=gen, device=dev) / SD_VAE.scaling_factor
-        res = {}
+        out = {}
         for route, rcfg in (("kernels", cfg), ("plain", CompilationConfig(enable_kernels=False))):
-            pipe.set_compilation_config(rcfg)
-            res[route] = (pipe.unet(x, t, ctx), pipe.vae.decode(z))
+            if route == "plain":
+                pipe.set_compilation_config(rcfg)
+            cuda_build.reset_launch_counts()
+            out[route] = (pipe.unet(x, t, ctx), pipe.vae.decode(z))
+            torch.cuda.synchronize()
+            out[route + " launches"] = sum(cuda_build.launch_counts.values())
         pipe.set_compilation_config(CompilationConfig.Default())
+    log(f"[{name}] route check: kernel route launched {out['kernels launches']} kernels, "
+        f"plain route {out['plain launches']}")
+    if out["plain launches"] != 0 or out["kernels launches"] == 0:
+        raise AssertionError(f"[{name}] the plain route launched {out['plain launches']} "
+                             f"kernels, the kernel route {out['kernels launches']}")
     for i, what in enumerate(("UNet eps", "VAE image")):
-        _, max_rel, rms = rel_errors(res["kernels"][i], res["plain"][i])
+        _, max_rel, rms = rel_errors(out["kernels"][i], out["plain"][i])
         log(f"[{name}] {what}, kernel route vs plain route: max_rel {max_rel:.3e} "
             f"rms_rel {rms:.3e}")
-        if not rms <= model_bound:
-            raise AssertionError(f"[{name}] {what}: rms rel {rms} > {model_bound}")
-    return counts
+        if not 0 < rms <= model_bound:
+            raise AssertionError(f"[{name}] {what}: rms rel {rms} not in (0, {model_bound}]")
+    return res
 
 
 def profile_image(torch, run, name, tries=5):
@@ -678,15 +782,18 @@ def profile_image(torch, run, name, tries=5):
 
     run()  # an unprofiled image right before, for its wall time
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) * 1e3
+    with CardSampler() as card:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
     for _ in range(tries):
         cuda_build.reset_launch_counts()
+        t = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
         launches = dict(cuda_build.launch_counts)
         events = prof.key_averages()
         # the kernels' own rows: an operator's row repeats its kernels' time
@@ -704,8 +811,11 @@ def profile_image(torch, run, name, tries=5):
     n_kernels = sum(e.count for e in rows)
     log(f"[{name}] profile: device time {dev_ms:.1f} ms per image; unprofiled image "
         f"{wall_ms:.1f} ms -> device idle {100 * (1 - dev_ms / wall_ms):.1f}%; "
-        f"{n_kernels} CUDA kernels per image")
+        f"{n_kernels} CUDA kernels per image; the traced image took {traced_ms:.1f} ms; "
+        f"card during the unprofiled image: {card.text()}")
     log(events.table(sort_by="self_device_time_total", row_limit=15))
+    return {"device_ms": dev_ms, "idle": 1 - dev_ms / wall_ms, "cuda_kernels": n_kernels,
+            "profiled_wall_ms": wall_ms, "traced_wall_ms": traced_ms}
 
 
 def main():
@@ -736,27 +846,51 @@ def main():
 
     measured = check_kernels(torch, dev)
     pipe = build_pipeline(torch, dev)
+    lat = torch.randn((1, 64, 64, 4), generator=torch.Generator(device=dev).manual_seed(5),
+                      device=dev)
     default = run_path(torch, dev, pipe, "default", CompilationConfig.Default(),
-                       EXPECTED_LAUNCHES, MODEL_RMS_REL)
+                       EXPECTED_LAUNCHES, MODEL_RMS_REL, lat)
     optin_cfg = CompilationConfig(enable_fused_group_norm=True, enable_fused_linear_geglu=True,
                                   enable_int8_attention=True)
     optin = run_path(torch, dev, pipe, "opt-in", optin_cfg, EXPECTED_OPTIN_LAUNCHES,
-                     OPTIN_MODEL_RMS_REL)
+                     OPTIN_MODEL_RMS_REL, lat)
+    fused = run_mode(torch, dev, pipe, "fused loop", CompilationConfig(fuse_denoising_loop=True),
+                     EXPECTED_LAUNCHES, lat)
+    fused["vs_default_eager"] = compare_runs(torch, "fused loop vs default eager",
+                                             default["eager"], fused)
+    loop = fused["graphs"].get(f"denoise_loop_{STEPS}")
+    if loop is None:
+        raise AssertionError("fused loop: no denoise_loop graph was captured")
+    log(f"[fused loop] the loop's graph: {loop['nodes']} nodes, captured in "
+        f"{loop['capture_s']:.3f} s, instantiated in {loop['instantiate_s']:.3f} s")
+    pipe.set_compilation_config(CompilationConfig.Default())
 
+    paths = {}
+    for name, res in (("default", default), ("optin", optin)):
+        for mode in ("eager", "graphed"):
+            paths[f"{name} {mode}"] = res[mode]
+        paths[f"{name} graphed"]["vs_eager"] = res["graphed_vs_eager"]
+    paths["fused loop"] = fused
+    keep = ("e2e_ms", "device_ms", "idle", "cuda_kernels", "profiled_wall_ms", "traced_wall_ms",
+            "peak_gib", "peak_reserved_gib", "graphs", "vs_eager", "vs_default_eager")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         first = measured[name][0]
+        per_image = {"default": default["graphed"]["counts"][name],
+                     "optin": optin["graphed"]["counts"][name],
+                     "fused_loop": fused["counts"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": default[name] + optin[name],
-            "launches_per_image": {"default": default[name], "optin": optin[name]},
+            "launches": per_image["default"] + per_image["optin"],
+            "launches_per_image": per_image,
             **{key: first[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "device_ms", "plain_device_ms", "share_of_bound", "library")},
             "cases": measured[name],
         })
     print(json.dumps({"kernels": kernels,
-                      "group_norm_per_eval_ms": measured["group_norm_per_eval_ms"]}))
+                      "group_norm_per_eval_ms": measured["group_norm_per_eval_ms"],
+                      "paths": {k: {f: v[f] for f in keep if f in v} for k, v in paths.items()}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,9 @@ unchanged one loads the existing file.  Every C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on anything
 but 0.  Each kernel wrapper adds one to its entry of :data:`launch_counts`
 where it launches, which lets a run show that its main path went through
-the kernels.
+the kernels.  A CUDA graph's replay launches without passing through the
+wrappers, so ``runtime/tracing.py`` records the counts its capture made
+and adds them on each replay (:func:`add_launch_counts`).
 """
 
 import ctypes
@@ -70,6 +72,12 @@ build_seconds: Optional[float] = None  # wall time of the build this process ran
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def add_launch_counts(delta) -> None:
+    """Add a graph's captured launches (kernel name -> count) on a replay."""
+    for name, n in delta.items():
+        launch_counts[name] += n
 
 
 def _sources():

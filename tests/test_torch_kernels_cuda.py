@@ -268,12 +268,17 @@ def test_group_norm_stats_one_launch_and_repeatable(dev):
     for shape in [(1, 128, 128, 512), (2, 16, 16, 2560), (1, 256, 256, 256)]:
         x = _randn(dev, *shape, seed=10) + 0.5
         first = group_norm_stats(x, groups=32, eps=1e-6)
-        before = cuda_build.launch_counts["group_norm_stats"]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            again = group_norm_stats(x, groups=32, eps=1e-6)
-            torch.cuda.synchronize()
-        assert cuda_build.launch_counts["group_norm_stats"] == before + 1
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        # the profiler now and then returns a trace with no kernel row;
+        # such a trace is taken again
+        for _ in range(3):
+            before = cuda_build.launch_counts["group_norm_stats"]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                again = group_norm_stats(x, groups=32, eps=1e-6)
+                torch.cuda.synchronize()
+            assert cuda_build.launch_counts["group_norm_stats"] == before + 1
+            kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            if kernels:
+                break
         assert [e.count for e in kernels] == [1], [(e.key, e.count) for e in kernels]
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import sfast_tpu
 import sfast_tpu_torch
 from sfast_tpu.models.autoencoder_kl import TINY_TEST_VAE as J_TINY_VAE
 from sfast_tpu.models.autoencoder_kl import create_vae
@@ -171,6 +172,121 @@ def test_compile_applies_config(pipes):
 
 
 # ---------------------------------------------------------------------------
+# the fused denoising loop, step-count re-keying, scheduler swaps, buckets
+# ---------------------------------------------------------------------------
+
+
+def _latent_kw(seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 1000, (1, 77)).astype(np.int32)
+    lat = rng.standard_normal((1, HW // 2, HW // 2, 4)).astype(np.float32)
+    return ids, lat
+
+
+def test_fused_loop_matches_jax_fused_loop(pipes):
+    """The port's fuse_denoising_loop path (run eagerly here: CPU tensors
+    never capture) against JAX's fori_loop executable, same weights and
+    latents, and against the port's stepwise path."""
+    jpipe, tpipe = pipes
+    jfused = JaxPipeline(unet=jpipe.unet, vae=jpipe.vae, text_encoder=jpipe.text_encoder,
+                         scheduler=JaxDPM(), dtype=jnp.float32)
+    sfast_tpu.compile(jfused, JaxConfig(enable_pallas=False, fuse_denoising_loop=True))
+    ids, lat = _latent_kw(4)
+    kw = dict(height=HW, width=HW, num_inference_steps=STEPS, guidance_scale=7.5)
+    jlat = np.asarray(jfused(prompt_ids=jnp.asarray(ids), latents=jnp.asarray(lat),
+                             output_type="latent", **kw).images)
+    assert jfused._fused_loops  # JAX took its fused loop
+    jimg = np.asarray(j_denormalize(jfused.vae(jnp.asarray(jlat) / J_TINY_VAE.scaling_factor)))
+    stepwise = tpipe(prompt_ids=ids, latents=torch.from_numpy(lat), output_type="latent",
+                     **kw).images
+    try:
+        tpipe.set_compilation_config(CompilationConfig(fuse_denoising_loop=True))
+        tlat = tpipe(prompt_ids=ids, latents=torch.from_numpy(lat), output_type="latent",
+                     **kw).images
+        timg = tpipe(prompt_ids=ids, latents=torch.from_numpy(lat), **kw).images
+        assert list(tpipe._fused_loops) == [(STEPS, True)]
+    finally:
+        tpipe.set_compilation_config(CompilationConfig.Default())
+    np.testing.assert_allclose(tlat.numpy(), jlat, rtol=0, atol=2e-3 * np.abs(jlat).max())
+    assert np.abs(timg.astype(int) - jimg.astype(int)).max() <= 1
+    torch.testing.assert_close(tlat, stepwise, rtol=0, atol=1e-6 * stepwise.abs().max().item())
+
+
+def test_fused_loop_rekeys_on_step_count_change(pipes):
+    _, tpipe = pipes
+    ids, lat = _latent_kw(5)
+
+    def run(steps, fused):
+        tpipe.set_compilation_config(CompilationConfig(fuse_denoising_loop=fused))
+        return tpipe(prompt_ids=ids, latents=torch.from_numpy(lat), height=HW, width=HW,
+                     num_inference_steps=steps, output_type="latent").images
+
+    try:
+        fused3 = run(3, True)
+        fused2 = tpipe(prompt_ids=ids, latents=torch.from_numpy(lat), height=HW, width=HW,
+                       num_inference_steps=2, output_type="latent").images
+        assert sorted(tpipe._fused_loops) == [(2, True), (3, True)]
+        stepwise2, stepwise3 = run(2, False), run(3, False)
+    finally:
+        tpipe.set_compilation_config(CompilationConfig.Default())
+    assert not torch.allclose(fused2, fused3)
+    torch.testing.assert_close(fused2, stepwise2, rtol=0, atol=1e-6)
+    torch.testing.assert_close(fused3, stepwise3, rtol=0, atol=1e-6)
+
+
+def test_scheduler_swap_drops_fused_loops_and_cached_state(pipes):
+    """JAX ``tests/pipelines/test_stable_diffusion.py:298``: a first-order
+    DPM++ installed in place of the compiled default must run its own
+    trajectory, and swapping back must give the first result again."""
+    _, tpipe = pipes
+    ids, lat = _latent_kw(6)
+    kw = dict(prompt_ids=ids, latents=torch.from_numpy(lat), height=HW, width=HW,
+              num_inference_steps=3, output_type="latent")
+    original = tpipe.scheduler
+    try:
+        tpipe.set_compilation_config(CompilationConfig(fuse_denoising_loop=True))
+        a = tpipe(**kw).images
+        assert 3 in tpipe._sched_states and tpipe._fused_loops
+        tpipe.scheduler = DPMSolverMultistepScheduler(solver_order=1)
+        b = tpipe(**kw).images
+        assert tpipe._sched_obj is tpipe.scheduler
+        assert tpipe._sched_states[3][0]["table"].shape == (3, 5)
+        tpipe.scheduler = original
+        c = tpipe(**kw).images
+    finally:
+        tpipe.scheduler = original
+        tpipe.set_compilation_config(CompilationConfig.Default())
+    assert not torch.allclose(a, b)
+    torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("batch,buckets", [(1, (2,)), (3, (2, 4))])
+def test_batch_buckets_drop_padded_rows(pipes, batch, buckets):
+    """Padded to its bucket, a batch gives the unpadded run's rows: from
+    given latents (the decoded images) and from a seed (the latents)."""
+    _, tpipe = pipes
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, 1000, (batch, 77)).astype(np.int32)
+    lat = torch.from_numpy(rng.standard_normal((batch, HW // 2, HW // 2, 4)).astype(np.float32))
+    kw = dict(prompt_ids=ids, height=HW, width=HW, num_inference_steps=1)
+
+    def run():
+        return (tpipe(latents=lat, output_type="float", **kw).images,
+                tpipe(seed=9, output_type="latent", **kw).images)
+
+    plain, plain_seeded = run()
+    try:
+        tpipe.set_compilation_config(CompilationConfig(batch_buckets=buckets))
+        padded, padded_seeded = run()
+    finally:
+        tpipe.set_compilation_config(CompilationConfig.Default())
+    assert padded.shape == plain.shape == (batch, HW, HW, 3)
+    assert padded_seeded.shape == (batch, HW // 2, HW // 2, 4)
+    torch.testing.assert_close(padded, plain, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(padded_seeded, plain_seeded, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # routing rules at the SD1.5 512² shapes
 # ---------------------------------------------------------------------------
 
@@ -238,6 +354,8 @@ def test_port_imports_and_runs_without_jax():
         from sfast_tpu_torch.models import TINY_UNET, UNet2DConditionModel, init_weights_
         from sfast_tpu_torch.runtime import cuda_build
         import sfast_tpu_torch.interop.from_jax, sfast_tpu_torch.pipelines, sfast_tpu_torch.schedulers
+        import sfast_tpu_torch.compilers, sfast_tpu_torch.schedulers.compile
+        from sfast_tpu_torch.runtime import executable_cache, shape_bucket, signature, tracing
         unet = init_weights_(UNet2DConditionModel(TINY_UNET, device="cpu", dtype=torch.float32),
                              torch.Generator().manual_seed(0))
         with torch.inference_mode():

@@ -8,7 +8,9 @@ It imports ROOT's own ``sfast_tpu_torch`` and ``chip_smoke.py``, builds
 the pipeline as that ``chip_smoke.py`` does (full width, seeded random
 weights, 50 DPM++ steps, CFG 7.5), runs one image to warm up and then
 profiles three with that script's ``profile_image`` (device ms per image,
-the device's idle share, CUDA kernels per image).  To compare two commits
+the device's idle share, CUDA kernels per image).  Since the compile layer
+that configuration replays CUDA graphs (checkouts before it run eagerly).
+To compare two commits
 on one card, unpack the parent with ``git archive`` into a directory that
 ``.gitignore`` lists and run this in turns, parent, change, change,
 parent, in one call.

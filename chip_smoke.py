@@ -40,7 +40,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    counterpart of K3′+K5), K4 and K6 in the UNet;
 6. the default kernels with ``fuse_denoising_loop``: the 50 steps as one
    graph, its node count and instantiate seconds, held against phase 4's
-   eager image.
+   eager image;
+7. img2img and inpainting (right half repainted) of a seeded uint8 image at
+   strength 0.8, graphed (the VAE encode one more graph), each held against
+   one eager image; one VAE encode on the kernel route against the plain
+   route, which must launch no kernel.  Phase 3 holds K2 and K3 at the
+   encoder's shapes too (conv1 widening 128→256 at 256², 256→512 at 128²);
+8. a seeded rank-8 LoRA on every UNet attention projection, swapped into
+   the captured graphs (``lora.switch_lora``) on the stepwise path and the
+   fused loop: the image changes, no graph is captured, one UNet eval
+   equals the eager module's, and swapping back restores the base image bit
+   for bit;
+9. a prompt string through the CLIP tokenizer (a byte-level vocabulary
+   written to a temporary directory) to one graphed image.
+
+Each phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches per image on each path, the main-path case's numbers and every
@@ -78,9 +92,9 @@ K6_EXACT_RMS_REL = 0.015
 # level; the f32 outputs (scales, corr, v's mean) agree to 1e-6
 PREP_CODE_SHARE = 1e-3
 PREP_F32_REL = 1e-6
-# Full-model kernel route vs plain route: one UNet eval and one VAE
-# decode in bf16 at random weights, where tens of layers compound those
-# per-kernel errors.
+# Full-model kernel route vs plain route: one UNet eval, one VAE decode
+# and one VAE encode in bf16 at random weights, where tens of layers
+# compound those per-kernel errors.
 MODEL_RMS_REL = 5e-2
 # The opt-in route adds int8 attention (about 1e-2 at each level-0
 # attention output) and the tanh GELU of K4 against the plain erf GELU.
@@ -103,6 +117,12 @@ EXPECTED_LAUNCHES = {
     "conv3x3": 21, "group_norm_stats": 9, "group_norm_apply": 0, "group_norm_fused": 0,
     "linear_geglu": 0,
 }
+# img2img and inpainting at strength 0.8 run steps 10..49: 40 UNet evals;
+# the VAE encoder adds 6 fused resnets (12 K2, 6 K3) at 512², 256² and 128²
+EXPECTED_IMG2IMG_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=5 * 40, conv3x3=21 + 12,
+                                 group_norm_stats=9 + 6)
+STRENGTH = 0.8
+LORA_RANK = 8
 EXPECTED_OPTIN_LAUNCHES = {
     "flash_attention": 0, "quantize_qkv": 5 * STEPS, "flash_attention_int8": 5 * STEPS,
     "conv3x3": 21, "group_norm_stats": 9, "group_norm_apply": 0,
@@ -345,13 +365,15 @@ def check_kernels(torch, dev):
     # K2: every distinct call of the VAE decoder's main path — the fused
     # resnets' conv1 (GN in, per-batch bias, stats out) and conv2 (GN in,
     # bias, residual in), including the 512→256 and 256→128 channel
-    # changes, and the three upsample convs (no GN)
+    # changes, and the three upsample convs (no GN); then the two calls of
+    # the encoder that the decoder has not (conv1 widening the channels)
     cases = [
         (128, 512, 512, "conv1"), (128, 512, 512, "conv2"), (128, 512, 512, "upsample"),
         (256, 512, 256, "conv1"), (256, 256, 256, "conv1"), (256, 256, 256, "conv2"),
         (256, 512, 512, "upsample"),
         (512, 256, 128, "conv1"), (512, 128, 128, "conv1"), (512, 128, 128, "conv2"),
         (512, 256, 256, "upsample"),
+        (256, 128, 256, "encoder conv1"), (128, 256, 512, "encoder conv1"),
     ]
     for hw, c, f, kind in cases:
         x = randn(1, hw, hw, c)
@@ -362,7 +384,7 @@ def check_kernels(torch, dev):
         if kind != "upsample":
             kw["gn_scale"] = torch.rand((1, c), generator=g, device=dev) + 0.5
             kw["gn_shift"] = torch.randn((1, c), generator=g, device=dev) * 0.1
-        if kind == "conv1":
+        if kind.endswith("conv1"):
             kw.update(bias_batch=torch.randn((1, f), generator=g, device=dev), emit_stats=True)
         else:
             kw["bias"] = torch.randn((f,), generator=g, device=dev)
@@ -371,7 +393,7 @@ def check_kernels(torch, dev):
         got = conv3x3_block(x, w, **kw)
         torch.cuda.synchronize()
         ref = conv3x3_block_ref(x, w, **kw)
-        if kind == "conv1":
+        if kind.endswith("conv1"):
             again = conv3x3_block(x, w, **kw)
             got, s1, s2 = got
             ref, r1, r2 = ref
@@ -391,7 +413,7 @@ def check_kernels(torch, dev):
         xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
         bc = kw.get("bias", kw.get("bias_batch", torch.zeros(1, f, device=dev))).reshape(f).to(bf16)
         lib_ms = device_ms(lambda: F.conv2d(xc, wc, bc, padding=1), bound(flops, conv_bytes)[0])
-        extra = f" stats_rel {stats_err:.3e}" if kind == "conv1" else ""
+        extra = f" stats_rel {stats_err:.3e}" if kind.endswith("conv1") else ""
         log(f"K2 conv3x3 {kind} {hw}²·{c}→{f}: max_rel {max_rel:.3e} rms_rel {rms:.3e}"
             f"{extra}  {timing_text(t)}")
         if not rms <= K2_RMS_REL:
@@ -400,8 +422,10 @@ def check_kernels(torch, dev):
                (lib_ms, "F.conv2d + bias" + (", same function" if kind == "upsample"
                                              else ", without the GroupNorm: a lower floor")))
 
-    # K3: the fused-resnet entries' GroupNorm statistics (32 groups, eps 1e-6)
-    for hw, c in [(128, 512), (256, 512), (256, 256), (512, 256), (512, 128)]:
+    # K3: the fused-resnet entries' GroupNorm statistics (32 groups, eps
+    # 1e-6): the decoder's, then the two the encoder adds
+    for hw, c in [(128, 512), (256, 512), (256, 256), (512, 256), (512, 128),
+                  (256, 128), (128, 256)]:
         x = randn(1, hw, hw, c) + 0.5
         mean, rstd = group_norm_stats(x, groups=32, eps=1e-6)
         torch.cuda.synchronize()
@@ -615,7 +639,7 @@ def build_pipeline(torch, dev):
     vae = init_weights_(AutoencoderKL(SD_VAE, device=dev, dtype=bf16), gen)
     te = init_weights_(CLIPTextModel(SD15_TEXT_ENCODER, device=dev, dtype=bf16), gen)
     pipe = sfast_tpu_torch.compile(
-        StableDiffusionPipeline(unet, vae, te, DPMSolverMultistepScheduler(),
+        StableDiffusionPipeline(unet, vae, te, DPMSolverMultistepScheduler(), vae_encode=vae,
                                 device=dev, dtype=bf16),
         CompilationConfig.Default(),
     )
@@ -625,19 +649,27 @@ def build_pipeline(torch, dev):
     return pipe
 
 
-def run_mode(torch, dev, pipe, label, cfg, expected, lat):
-    """One run of the pipeline under ``cfg``: the first image (which
-    captures the graphs), the counted image, 3 timed, the latents and
-    image of the initial latents ``lat``, and a profiled image.  Returns
-    what the comparisons of phases 4 to 6 need."""
+def call_kwargs(torch, **extra):
+    """The pipeline's arguments of every image: seeded prompt ids, SD1.5
+    at 512², 50 steps, CFG 7.5, and ``extra``."""
+    prompt_ids = torch.randint(0, 49408, (1, 77), generator=torch.Generator().manual_seed(1))
+    return dict(prompt_ids=prompt_ids, height=512, width=512,
+                num_inference_steps=STEPS, guidance_scale=7.5, **extra)
+
+
+def run_mode(torch, dev, pipe, label, cfg, expected, lat, **extra):
+    """One run of the pipeline under ``cfg`` with the call arguments
+    ``extra``: the first image (which captures the graphs), the counted
+    image, 3 timed, the latents and image of the initial latents ``lat``
+    (of seed 5 where ``lat`` is None), and a profiled image.  Returns what
+    the comparisons of phases 4 to 7 need."""
     from sfast_tpu_torch.runtime import cuda_build
     from sfast_tpu_torch.runtime.executable_cache import global_executable_cache
     from sfast_tpu_torch.utils.image import denormalize_to_uint8
 
     pipe.set_compilation_config(cfg)
-    prompt_ids = torch.randint(0, 49408, (1, 77), generator=torch.Generator().manual_seed(1))
-    kw = dict(prompt_ids=prompt_ids, height=512, width=512,
-              num_inference_steps=STEPS, guidance_scale=7.5)
+    kw = call_kwargs(torch, **extra)
+    fixed = {"seed": 5} if lat is None else {"latents": lat}
 
     def timed(**extra):
         torch.cuda.synchronize()
@@ -674,7 +706,7 @@ def run_mode(torch, dev, pipe, label, cfg, expected, lat):
     if counts != expected:
         raise AssertionError(f"[{label}] launch counts {counts} != {expected}")
     img = out.images
-    if img.shape != (1, 512, 512, 3) or str(img.dtype) != "uint8":
+    if img.shape != (1, kw["height"], kw["width"], 3) or str(img.dtype) != "uint8":
         raise AssertionError(f"[{label}] image {img.shape} {img.dtype}")
 
     with CardSampler() as card:
@@ -683,8 +715,8 @@ def run_mode(torch, dev, pipe, label, cfg, expected, lat):
     log(f"[{label}] e2e ms: runs {[round(r, 3) for r in runs]} median {e2e:.3f}; card: "
         f"{card.text()}")
 
-    latents = pipe(**kw, latents=lat, output_type="latent").images
-    image_f = pipe(**kw, latents=lat, output_type="float").images
+    latents = pipe(**kw, **fixed, output_type="latent").images
+    image_f = pipe(**kw, **fixed, output_type="float").images
     if not bool(torch.isfinite(image_f).all()) or image_f.float().std().item() == 0.0:
         raise AssertionError(f"[{label}] decoded image is not finite or is constant")
     prof = profile_image(torch, lambda: pipe(**kw, seed=4), label)
@@ -818,6 +850,240 @@ def profile_image(torch, run, name, tries=5):
             "profiled_wall_ms": wall_ms, "traced_wall_ms": traced_ms}
 
 
+def synthetic_image():
+    """(a seeded uint8 512² RGB image, a mask whose right half is white:
+    repaint)."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    # smooth colour gradients plus noise, so the encoder sees structure
+    yy, xx = np.mgrid[0:512, 0:512] / 512.0
+    base = np.stack([yy, xx, 0.5 * (yy + xx)], axis=-1) * 200 + 20
+    image = np.clip(base + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)[None]
+    mask = np.zeros((512, 512), np.uint8)
+    mask[:, 256:] = 255
+    return image, mask
+
+
+def eager_once(torch, pipe, kw):
+    """One eager image of ``kw`` (seed 5): its latents and uint8 image."""
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.utils.image import denormalize_to_uint8
+
+    pipe.set_compilation_config(CompilationConfig(enable_cuda_graph=False))
+    latents = pipe(**kw, seed=5, output_type="latent").images
+    with torch.inference_mode():
+        image = pipe.vae.decode(latents / pipe.vae.config.scaling_factor)
+    pipe.set_compilation_config(CompilationConfig.Default())
+    return {"latents": latents, "u8": denormalize_to_uint8(image)}
+
+
+def run_img2img(torch, dev, pipe):
+    """Phase 7: img2img and inpainting graphed, each against one eager
+    image; then one VAE encode on the kernel route against the plain
+    route."""
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.runtime import cuda_build
+    from sfast_tpu_torch.utils.image import preprocess_image
+
+    image, mask = synthetic_image()
+    res = {}
+    for name, mask_image in (("img2img", None), ("inpaint", mask)):
+        extra = dict(image=image, strength=STRENGTH, mask_image=mask_image)
+        run = run_mode(torch, dev, pipe, name, CompilationConfig.Default(),
+                       EXPECTED_IMG2IMG_LAUNCHES, None, **extra)
+        enc = run["graphs"].get("vae_encode")
+        if enc is None:
+            raise AssertionError(f"[{name}] no vae_encode graph was captured")
+        log(f"[{name}] the encode's graph: {enc['nodes']} nodes, captured in "
+            f"{enc['capture_s']:.3f} s, instantiated in {enc['instantiate_s']:.3f} s")
+        run["vs_eager"] = compare_runs(torch, f"{name} graphed vs eager",
+                                       eager_once(torch, pipe, call_kwargs(torch, **extra)), run)
+        res[name] = run
+
+    img = preprocess_image(image, torch.bfloat16, dev)
+    out = {}
+    with torch.inference_mode():
+        for route, rcfg in (("kernels", CompilationConfig.Default()),
+                            ("plain", CompilationConfig(enable_kernels=False))):
+            pipe.set_compilation_config(rcfg)
+            pipe.vae_encode(img)  # the capture: three warm-up calls count as launches
+            cuda_build.reset_launch_counts()
+            out[route] = pipe.vae_encode(img)
+            torch.cuda.synchronize()
+            out[route + " launches"] = dict(cuda_build.launch_counts)
+            # CUDA events around one replay: the profiler's trace of a replayed
+            # encode drops a kernel record or two (counts not a multiple of the
+            # calls), and at ~5 ms the host's launch of one graph is negligible
+            res[f"encode_{route}_ms"] = cuda_ms(lambda: pipe.vae_encode(img))
+    log(f"[encode] one graphed encode of a 512² image (CUDA events): "
+        f"{res['encode_kernels_ms']:.3f} ms on the kernel route, "
+        f"{res['encode_plain_ms']:.3f} ms on the plain route")
+    pipe.set_compilation_config(CompilationConfig.Default())
+    launched = {k: n for k, n in out["kernels launches"].items() if n}
+    log(f"[encode] route check: kernel route launched {launched}, plain route "
+        f"{sum(out['plain launches'].values())} kernels")
+    if sum(out["plain launches"].values()) or launched != {"conv3x3": 12, "group_norm_stats": 6}:
+        raise AssertionError(f"[encode] launches: kernel route {launched}, plain route "
+                             f"{out['plain launches']}")
+    for i, what in enumerate(("mean", "logvar")):
+        _, max_rel, rms = rel_errors(out["kernels"][i], out["plain"][i])
+        log(f"[encode] {what}, kernel route vs plain route: max_rel {max_rel:.3e} "
+            f"rms_rel {rms:.3e}")
+        if not 0 < rms <= MODEL_RMS_REL:
+            raise AssertionError(f"[encode] {what}: rms rel {rms} not in (0, {MODEL_RMS_REL}]")
+        res[f"encode_{what}_rms_rel"] = rms
+    return res
+
+
+def graph_objects():
+    """Every captured graph of every registered function, by name."""
+    from sfast_tpu_torch.runtime.executable_cache import global_executable_cache
+
+    cache = global_executable_cache()
+    return {name: cache.get(name).graphs() for name, n in cache.stats().items() if n}
+
+
+def run_lora(torch, dev, pipe):
+    """Phase 8: a seeded rank-8 LoRA on every UNet attention projection,
+    swapped in on the stepwise graphs, then on the fused loop."""
+    from sfast_tpu_torch import CompilationConfig, lora
+    from sfast_tpu_torch.runtime import cuda_build
+
+    base = {k: v.clone() for k, v in pipe.unet.module.state_dict().items()}
+    lo = lora.init_lora_params(torch.Generator(device=dev).manual_seed(9), base, rank=LORA_RANK)
+    g = torch.Generator(device=dev).manual_seed(10)
+    for f in lo.values():
+        f["b"] = torch.randn(f["b"].shape, generator=g, device=dev) * 0.02
+    kw = call_kwargs(torch, seed=0, output_type="pt")
+    res = {"lora_modules": len(lo)}
+
+    def swap(scale):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lora.switch_lora(pipe.unet, base, lo, scale)
+        host_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        return host_ms, (time.perf_counter() - t) * 1e3
+
+    def image_diff(a, b):
+        return (a.int() - b.int()).abs().max().item()
+
+    for path, cfg in (("stepwise", CompilationConfig.Default()),
+                      ("fused loop", CompilationConfig(fuse_denoising_loop=True))):
+        pipe.set_compilation_config(cfg)
+        pipe(**kw)  # captures the path's graphs
+        base_img = pipe(**kw).images
+        graphs, sizes = graph_objects(), {n: len(v) for n, v in graph_objects().items()}
+        host_ms, done_ms = swap(1.0)
+        cuda_build.reset_launch_counts()
+        lora_img = pipe(**kw).images
+        if dict(cuda_build.launch_counts) != EXPECTED_LAUNCHES:
+            raise AssertionError(f"[lora {path}] launches after the swap "
+                                 f"{dict(cuda_build.launch_counts)} != {EXPECTED_LAUNCHES}")
+        if graph_objects() != graphs:
+            raise AssertionError(f"[lora {path}] the swap captured a graph: {sizes} -> "
+                                 f"{ {n: len(v) for n, v in graph_objects().items()} }")
+        changed = image_diff(lora_img, base_img)
+        row = {"swap_host_ms": host_ms, "swap_done_ms": done_ms, "image_max_uint8_change": changed}
+        if path == "stepwise":
+            gen = torch.Generator(device=dev).manual_seed(11)
+            with torch.inference_mode():
+                ctx = pipe.encode_prompt(kw["prompt_ids"].to(dev))
+                x = torch.randn((2, 64, 64, 4), generator=gen, device=dev).to(torch.bfloat16)
+                t = torch.tensor(801.0, device=dev)
+                graphed, eager = pipe.unet(x, t, ctx), pipe.unet.module(x, t, ctx)
+            _, _, rms = rel_errors(graphed, eager)
+            ug = pipe.unet._call.graphs()[0]
+            # the swap's two parts on the host, again with the same LoRA (the
+            # weights they write are those already in place)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            merged = lora.merge_lora(base, lo, 1.0)
+            t1 = time.perf_counter()
+            pipe.unet.update_params(merged)
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            row.update(merge_host_ms=(t1 - t0) * 1e3, update_params_host_ms=(t2 - t1) * 1e3)
+            log(f"[lora stepwise] of a swap on the host: merge_lora {row['merge_host_ms']:.2f} ms, "
+                f"update_params {row['update_params_host_ms']:.2f} ms")
+            row.update(unet_graphed_vs_eager_rms_rel=rms, unet_bit_equal=torch.equal(graphed, eager),
+                       unet_capture_s=ug.capture_seconds, unet_instantiate_s=ug.instantiate_seconds)
+            log(f"[lora stepwise] one UNet eval after the swap, graphed vs the eager module with "
+                f"the merged weights: rms_rel {rms:.3e}, bit equal {row['unet_bit_equal']}")
+            if not rms <= MODEL_RMS_REL:
+                raise AssertionError(f"[lora] graphed UNet vs eager: rms rel {rms}")
+            res["stepwise_lora_u8"] = lora_img
+        else:
+            row["vs_stepwise_max_uint8_diff"] = image_diff(lora_img, res["stepwise_lora_u8"])
+            if row["vs_stepwise_max_uint8_diff"] > 1:
+                raise AssertionError(f"[lora fused loop] differs from the stepwise LoRA image by "
+                                     f"{row['vs_stepwise_max_uint8_diff']} uint8 levels")
+        swap(0.0)
+        back = pipe(**kw).images
+        row["restored_bit_for_bit"] = torch.equal(back, base_img)
+        log(f"[lora {path}] {len(lo)} modules, rank {LORA_RANK}: swap {host_ms:.2f} ms on the "
+            f"host ({done_ms:.2f} ms to done); image changed by up to {changed} uint8 levels, "
+            f"launches as without LoRA; "
+            f"graphs {sizes} unchanged, none captured; swapped back: base image bit for bit "
+            f"{row['restored_bit_for_bit']}" + (
+                f"; the UNet graph took {row['unet_capture_s']:.3f} s to capture and "
+                f"{row['unet_instantiate_s']:.3f} s to instantiate" if path == "stepwise" else ""))
+        if changed == 0 or not row["restored_bit_for_bit"]:
+            raise AssertionError(f"[lora {path}] image change {changed}, restored "
+                                 f"{row['restored_bit_for_bit']}")
+        res[path] = row
+    del res["stepwise_lora_u8"]
+    pipe.set_compilation_config(CompilationConfig.Default())
+    return res
+
+
+def byte_level_vocab(root):
+    """A CLIP vocabulary with no merges in ``root``: the 256 byte tokens,
+    their word-final forms, BOS and EOS (ids below CLIP's 49,408)."""
+    from sfast_tpu_torch.text.clip_tokenizer import _bytes_to_unicode
+
+    chars = list(_bytes_to_unicode().values())
+    vocab = chars + [c + "</w>" for c in chars] + ["<|startoftext|>", "<|endoftext|>"]
+    with open(os.path.join(root, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(vocab)}, f, ensure_ascii=False)
+    with open(os.path.join(root, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+
+
+def run_prompt_string(torch, pipe):
+    """Phase 9: ``pipe("a photo of a cat")`` through the tokenizer: with no
+    merges, each letter is one token, the last of a word its word-final
+    form."""
+    import tempfile
+
+    from sfast_tpu_torch.text import CLIPTokenizer
+
+    prompt = "a photo of a cat"
+    with tempfile.TemporaryDirectory() as root:
+        byte_level_vocab(root)
+        tok = CLIPTokenizer.from_files(os.path.join(root, "vocab.json"),
+                                       os.path.join(root, "merges.txt"))
+    pipe.tokenizer = tok
+    try:
+        ids = pipe.tokenize(prompt)[0].tolist()
+        kw = call_kwargs(torch, seed=0, output_type="pt")
+        del kw["prompt_ids"]
+        out = pipe(prompt, **kw).images
+    finally:
+        pipe.tokenizer = None
+    content = ids[1:ids.index(tok.eos_token_id)]
+    log(f"[prompt] {prompt!r} -> ids {ids[:len(content) + 3]}... ({len(content)} content "
+        f"tokens); image {tuple(out.shape)} {out.dtype}, mean {out.float().mean().item():.2f}, "
+        f"std {out.float().std().item():.2f}")
+    if ids[0] != tok.bos_token_id or len(content) != len(prompt.replace(" ", "")):
+        raise AssertionError(f"[prompt] ids {ids}")
+    if out.shape != (1, kw["height"], kw["width"], 3) or out.dtype != torch.uint8 \
+            or out.float().std() == 0:
+        raise AssertionError(f"[prompt] image {tuple(out.shape)} {out.dtype}")
+    return {"ids": ids[:len(content) + 2], "content_tokens": len(content)}
+
+
 def main():
     import torch
 
@@ -836,26 +1102,35 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    t0 = time.perf_counter()
-    path = cuda_build.build()
-    cuda_build.library()
-    built = cuda_build.build_seconds
-    log(f"kernels: {path.name} "
-        + (f"built in {built:.1f} s" if built is not None else "already built")
-        + f", loaded after {time.perf_counter() - t0:.1f} s")
+    phase_s = {}
 
-    measured = check_kernels(torch, dev)
+    def phase(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    def build():
+        path = cuda_build.build()
+        cuda_build.library()
+        built = cuda_build.build_seconds
+        log(f"kernels: {path.name} "
+            + (f"built in {built:.1f} s" if built is not None else "already built"))
+
+    phase("2 build", build)
+    measured = phase("3 kernels", check_kernels, torch, dev)
     pipe = build_pipeline(torch, dev)
     lat = torch.randn((1, 64, 64, 4), generator=torch.Generator(device=dev).manual_seed(5),
                       device=dev)
-    default = run_path(torch, dev, pipe, "default", CompilationConfig.Default(),
-                       EXPECTED_LAUNCHES, MODEL_RMS_REL, lat)
+    default = phase("4 default", run_path, torch, dev, pipe, "default",
+                    CompilationConfig.Default(), EXPECTED_LAUNCHES, MODEL_RMS_REL, lat)
     optin_cfg = CompilationConfig(enable_fused_group_norm=True, enable_fused_linear_geglu=True,
                                   enable_int8_attention=True)
-    optin = run_path(torch, dev, pipe, "opt-in", optin_cfg, EXPECTED_OPTIN_LAUNCHES,
-                     OPTIN_MODEL_RMS_REL, lat)
-    fused = run_mode(torch, dev, pipe, "fused loop", CompilationConfig(fuse_denoising_loop=True),
-                     EXPECTED_LAUNCHES, lat)
+    optin = phase("5 opt-in", run_path, torch, dev, pipe, "opt-in", optin_cfg,
+                  EXPECTED_OPTIN_LAUNCHES, OPTIN_MODEL_RMS_REL, lat)
+    fused = phase("6 fused loop", run_mode, torch, dev, pipe, "fused loop",
+                  CompilationConfig(fuse_denoising_loop=True), EXPECTED_LAUNCHES, lat)
     fused["vs_default_eager"] = compare_runs(torch, "fused loop vs default eager",
                                              default["eager"], fused)
     loop = fused["graphs"].get(f"denoise_loop_{STEPS}")
@@ -864,6 +1139,9 @@ def main():
     log(f"[fused loop] the loop's graph: {loop['nodes']} nodes, captured in "
         f"{loop['capture_s']:.3f} s, instantiated in {loop['instantiate_s']:.3f} s")
     pipe.set_compilation_config(CompilationConfig.Default())
+    img2img = phase("7 img2img", run_img2img, torch, dev, pipe)
+    lora_res = phase("8 lora", run_lora, torch, dev, pipe)
+    prompt_res = phase("9 prompt string", run_prompt_string, torch, pipe)
 
     paths = {}
     for name, res in (("default", default), ("optin", optin)):
@@ -871,6 +1149,7 @@ def main():
             paths[f"{name} {mode}"] = res[mode]
         paths[f"{name} graphed"]["vs_eager"] = res["graphed_vs_eager"]
     paths["fused loop"] = fused
+    paths["img2img"], paths["inpaint"] = img2img["img2img"], img2img["inpaint"]
     keep = ("e2e_ms", "device_ms", "idle", "cuda_kernels", "profiled_wall_ms", "traced_wall_ms",
             "peak_gib", "peak_reserved_gib", "graphs", "vs_eager", "vs_default_eager")
     kernels = []
@@ -878,10 +1157,12 @@ def main():
         first = measured[name][0]
         per_image = {"default": default["graphed"]["counts"][name],
                      "optin": optin["graphed"]["counts"][name],
-                     "fused_loop": fused["counts"][name]}
+                     "fused_loop": fused["counts"][name],
+                     "img2img": img2img["img2img"]["counts"][name],
+                     "inpaint": img2img["inpaint"]["counts"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": per_image["default"] + per_image["optin"],
+            "launches": sum(per_image[p] for p in ("default", "optin", "img2img", "inpaint")),
             "launches_per_image": per_image,
             **{key: first[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -890,7 +1171,9 @@ def main():
         })
     print(json.dumps({"kernels": kernels,
                       "group_norm_per_eval_ms": measured["group_norm_per_eval_ms"],
-                      "paths": {k: {f: v[f] for f in keep if f in v} for k, v in paths.items()}}))
+                      "paths": {k: {f: v[f] for f in keep if f in v} for k, v in paths.items()},
+                      "encode": {k: v for k, v in img2img.items() if k.startswith("encode_")},
+                      "lora": lora_res, "prompt": prompt_res, "phase_s": phase_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 ``sfast_tpu/compilers/diffusion_pipeline_compiler.py`` (``:51-337``).
 
 ``compile`` wraps the callable the pipeline uses of each submodel (the
-UNet's ``forward``, the VAE's ``decode``, CLIP's ``forward``) in a
+UNet's ``forward``, the VAE's ``decode``, its ``encode`` in the
+``vae_encode`` slot, CLIP's ``forward``) in a
 :class:`CompiledModel`, which replays one CUDA graph per input signature
 (``runtime/tracing.py``), and the scheduler's step in a
 ``CompiledScheduler`` when ``trace_scheduler`` is on; then it applies the
@@ -90,8 +91,8 @@ class CompiledModel:
             if tuple(state_dict[key].shape) != tuple(t.shape):
                 raise ValueError(f"{self.name}: {key} has shape {tuple(state_dict[key].shape)}, "
                                  f"the module's is {tuple(t.shape)}")
-        for key, t in own.items():
-            t.copy_(state_dict[key])
+        # one call for all the copies: a LoRA swap copies ~700 UNet tensors
+        torch._foreach_copy_(list(own.values()), [state_dict[k] for k in own])
 
     @property
     def cache_size(self) -> int:
@@ -114,6 +115,10 @@ def compile_vae(vae, config=None) -> CompiledModel:
     return compile_model(vae, config, name="vae", method="decode")
 
 
+# The method the pipeline calls of a slot's module, where it is not forward
+_SLOT_METHODS = {"vae": "decode", "vae_encode": "encode"}
+
+
 def _is_module(m) -> bool:
     return hasattr(m, "state_dict") and hasattr(m, "named_parameters")
 
@@ -121,7 +126,8 @@ def _is_module(m) -> bool:
 def compile(pipeline: Any, config: Optional[CompilationConfig] = None):
     """Compile a pipeline in place and return it.  Idempotent and
     duck-typed: every ``_SUBMODEL_ATTRS`` slot holding a module is
-    wrapped once (the VAE by its ``decode``), the scheduler's step when
+    wrapped once (the VAE by its ``decode``, ``vae_encode`` — which may be
+    the same module — by its ``encode``), the scheduler's step when
     ``trace_scheduler`` is on; then the pipeline's
     ``set_compilation_config`` applies ``config`` and drops every graph."""
     config = config or CompilationConfig.Default()
@@ -129,7 +135,9 @@ def compile(pipeline: Any, config: Optional[CompilationConfig] = None):
         sub = getattr(pipeline, attr, None)
         if sub is None or isinstance(sub, CompiledModel) or not _is_module(sub):
             continue
-        method = "decode" if attr == "vae" and hasattr(sub, "decode") else "forward"
+        method = _SLOT_METHODS.get(attr, "forward")
+        if not hasattr(sub, method):
+            method = "forward"
         setattr(pipeline, attr, compile_model(sub, config, name=attr, method=method))
         logger.info("sfast_tpu_torch: compiled %s", attr)
 

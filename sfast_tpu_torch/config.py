@@ -27,9 +27,10 @@ The compile layer (``compilers/``, ``runtime/tracing.py``):
 reference knob                  here (JAX's knob)
 ==============================  ==========================================
 enable_cuda_graph               ``enable_cuda_graph`` (≙ ``enable_jit`` and
-                                ``enable_aot_cache``): the UNet, the VAE
-                                decoder and CLIP replay one CUDA graph per
-                                input signature.  False runs them eagerly.
+                                ``enable_aot_cache``): the UNet, the VAE's
+                                decode and encode and CLIP replay one CUDA
+                                graph per input signature.  False runs them
+                                eagerly.
 trace_scheduler                 ``trace_scheduler``: the DPM++ step replays
                                 a graph too, one graph for all the steps
                                 (its index and coefficients are device

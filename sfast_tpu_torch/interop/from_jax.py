@@ -5,7 +5,8 @@ The JAX package keeps its weights as nested dicts of arrays (linear
 functions turn such a tree — numpy arrays, or JAX arrays, which numpy
 reads without importing JAX — into f32 state dicts for
 ``UNet2DConditionModel``, ``AutoencoderKL`` (decoder) and
-``CLIPTextModel``, whose ``load_state_dict`` casts to the model's dtype.
+``CLIPTextModel``, whose ``load_state_dict`` casts to the model's dtype,
+and LoRA trees into the port's LoRA layout (``sfast_tpu_torch/lora.py``).
 
 UNet and VAE follow ``sfast_tpu/interop/export_unet.py:16-126`` and
 ``export_vae.py:16-63``; CLIP is the inverse of ``convert_clip.py:28-88``.
@@ -99,17 +100,33 @@ def unet_state_dict(params) -> StateDict:
     return sd
 
 
-def vae_decoder_state_dict(params) -> StateDict:
-    """``init_vae_params`` tree → ``AutoencoderKL`` (decoder) state dict."""
+def _put_vae_mid(sd: StateDict, pre: str, mid) -> None:
+    _put_resnet(sd, pre + "resnets.0.", mid["resnet1"])
+    _put_attention(sd, pre + "attentions.0.", mid["attn"])
+    _put_norm(sd, pre + "attentions.0.group_norm", mid["attn"]["group_norm"])
+    _put_resnet(sd, pre + "resnets.1.", mid["resnet2"])
+
+
+def vae_state_dict(params) -> StateDict:
+    """``init_vae_params`` tree → ``AutoencoderKL`` state dict, both halves."""
     sd: StateDict = {}
+    enc = params["encoder"]
+    _put_conv(sd, "encoder.conv_in", enc["conv_in"])
+    for i, blk in enumerate(enc["down_blocks"]):
+        pre = f"encoder.down_blocks.{i}."
+        for j, rn in enumerate(blk["resnets"]):
+            _put_resnet(sd, f"{pre}resnets.{j}.", rn)
+        if "downsample" in blk:
+            _put_conv(sd, f"{pre}downsamplers.0.conv", blk["downsample"]["conv"])
+    _put_vae_mid(sd, "encoder.mid_block.", enc["mid"])
+    _put_norm(sd, "encoder.conv_norm_out", enc["norm_out"])
+    _put_conv(sd, "encoder.conv_out", enc["conv_out"])
+    _put_conv(sd, "quant_conv", params["quant_conv"])
+
     dec = params["decoder"]
     _put_conv(sd, "post_quant_conv", params["post_quant_conv"])
     _put_conv(sd, "decoder.conv_in", dec["conv_in"])
-    mid = dec["mid"]
-    _put_resnet(sd, "decoder.mid_block.resnets.0.", mid["resnet1"])
-    _put_attention(sd, "decoder.mid_block.attentions.0.", mid["attn"])
-    _put_norm(sd, "decoder.mid_block.attentions.0.group_norm", mid["attn"]["group_norm"])
-    _put_resnet(sd, "decoder.mid_block.resnets.1.", mid["resnet2"])
+    _put_vae_mid(sd, "decoder.mid_block.", dec["mid"])
     for i, blk in enumerate(dec["up_blocks"]):
         pre = f"decoder.up_blocks.{i}."
         for j, rn in enumerate(blk["resnets"]):
@@ -140,3 +157,19 @@ def clip_text_state_dict(params) -> StateDict:
         _put_lin(sd, lp + "mlp.fc1", lyr["fc1"])
         _put_lin(sd, lp + "mlp.fc2", lyr["fc2"])
     return sd
+
+
+def _lora_module_name(path) -> str:
+    """A JAX LoRA path, ``("down_blocks", 0, "attentions", 0, "blocks", 0,
+    "attn1", "to_out", "w")``, → the port's module name,
+    ``down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_out.0``."""
+    names = {"blocks": "transformer_blocks", "to_out": "to_out.0"}
+    return ".".join(names.get(p, str(p)) for p in path[:-1])
+
+
+def lora_params(lora) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX LoRA tree (``sfast_tpu.lora.init_lora_params`` or
+    ``convert_diffusers_lora``: {path: {"a": (in, r), "b": (r, out)}}) →
+    the port's, keyed by module name with the same orientation."""
+    return {_lora_module_name(path): {"a": _t(f["a"]), "b": _t(f["b"])}
+            for path, f in lora.items()}

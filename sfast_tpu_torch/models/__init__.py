@@ -1,4 +1,4 @@
-"""The SD1.5 models of the port: CLIP text encoder, UNet, VAE decoder."""
+"""The SD1.5 models of the port: CLIP text encoder, UNet, VAE."""
 
 from sfast_tpu_torch.models.autoencoder_kl import SD_VAE, TINY_TEST_VAE, AutoencoderKL, VAEConfig
 from sfast_tpu_torch.models.clip_text import (

@@ -40,7 +40,12 @@ _MAX_CLUSTER = 16  # the kernel's most; above 8 needs the non-portable attribute
 _PORTABLE_CLUSTER = 8
 _TWO_CTA_SMEM = 116 * 1024  # the most a CTA may hold with two CTAs an SM
 _FUSED_THREADS = 512
-_tickets = {}  # (device, stream) -> K3's per-sample counters (zero between calls)
+# (device, stream) -> K3's per-sample counters (zero between calls).  Every
+# graph is captured on one side stream per device, so every graph that holds
+# K3 bakes in the same counters: the VAE encode's and the decode's.  That is
+# safe while their replays run in turn on one stream, as one pipeline call
+# runs them; two replays at once on two streams would share the counters.
+_tickets = {}
 
 
 class FusedPlan(NamedTuple):

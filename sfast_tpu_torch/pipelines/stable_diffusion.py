@@ -1,11 +1,18 @@
-"""Stable Diffusion text2img pipeline with classifier-free guidance.
+"""Stable Diffusion text2img, img2img and inpainting with classifier-free
+guidance.
 
 Counterpart of ``sfast_tpu/pipelines/stable_diffusion.py`` (``:80-215``,
-``:353-464``, ``:678-967``): CLIP encode of [uncond; cond], then per step
-the UNet on the CFG batch, the guidance combine and the scheduler step,
-then the VAE decode of ``latents / scaling_factor`` and the uint8
-conversion.  Prompts come as token ids (``prompt_ids``); the tokenizer is
-a later slice.
+``:230-276``, ``:353-464``, ``:649-967``): CLIP encode of [uncond; cond],
+then per step the UNet on the CFG batch, the guidance combine and the
+scheduler step, then the VAE decode of ``latents / scaling_factor`` and
+the uint8 conversion.  Prompts come as strings through a CLIP tokenizer
+(``text/clip_tokenizer.py``) or as token ids (``prompt_ids``).
+
+img2img (``image=``, ``strength=``) encodes the image with ``vae_encode``
+(the VAE's ``encode``), samples the posterior, forward-noises it to step
+``N − int(N·strength)`` and runs the steps from there; inpainting
+(``mask_image=``, white = repaint) also blends the kept region back after
+each step, at the noise level of the next step and clean after the last.
 
 Two ways through the denoising loop, as in JAX:
 
@@ -16,14 +23,16 @@ Two ways through the denoising loop, as in JAX:
 - **fused** (``fuse_denoising_loop``): the N steps (CFG concat, UNet,
   guidance combine, step) are one CUDA graph, keyed by the step count and
   CFG (JAX's ``lkey``, ``:899-902``) and by the latents' shape and dtype.
+  img2img entering after step 0 and inpainting take the stepwise loop, as
+  in JAX (``:820-825``).
 
 JAX's single-dispatch fused pipeline (``:466-647``) is three graphs here:
-CLIP, the loop and the VAE decode; the initial latents are drawn eagerly
-before them (torch's Philox is not JAX's threefry, so images from a seed
-differ between the packages in any case).
+CLIP, the loop and the VAE decode; the initial latents and img2img's two
+noise draws are drawn eagerly before them (torch's Philox is not JAX's
+threefry, so images from a seed differ between the packages in any case).
 """
 
-from typing import Optional
+from typing import List, Optional, Union
 
 import torch
 
@@ -31,7 +40,13 @@ from sfast_tpu_torch.config import CompilationConfig
 from sfast_tpu_torch.runtime.executable_cache import global_executable_cache
 from sfast_tpu_torch.runtime.shape_bucket import pad_batch, unpad_batch
 from sfast_tpu_torch.runtime.tracing import LazyCompiledFunction
-from sfast_tpu_torch.utils.image import denormalize_to_uint8
+from sfast_tpu_torch.schedulers import common
+from sfast_tpu_torch.text.clip_tokenizer import CLIPTokenizer, find_vocab_files
+from sfast_tpu_torch.utils.image import (
+    denormalize_to_uint8,
+    preprocess_image,
+    preprocess_mask_image,
+)
 
 
 class PipelineOutput:
@@ -47,12 +62,19 @@ class StableDiffusionPipeline:
         text_encoder,
         scheduler,
         *,
+        vae_encode=None,
+        tokenizer=None,
         device=None,
         dtype: torch.dtype = torch.bfloat16,
     ):
+        """``vae_encode`` is what img2img encodes with: the VAE module itself
+        (its ``encode``), which ``sfast_tpu_torch.compile`` wraps as a model
+        of its own beside the decode."""
         self.unet = unet
         self.vae = vae
+        self.vae_encode = vae_encode
         self.text_encoder = text_encoder
+        self.tokenizer = tokenizer
         self.scheduler = scheduler
         self.device = torch.device(device) if device is not None else unet.conv_in.weight.device
         self.dtype = dtype
@@ -69,7 +91,9 @@ class StableDiffusionPipeline:
         kernel routes it was captured with."""
         self._ccfg = ccfg
         self._drop_fused_loops()
-        for m in (self.unet, self.vae, self.text_encoder, self.scheduler):
+        for m in (self.unet, self.vae, self.vae_encode, self.text_encoder, self.scheduler):
+            if m is None:
+                continue
             if hasattr(m, "set_compilation_config"):
                 m.set_compilation_config(ccfg)
             elif m is not self.scheduler:
@@ -123,9 +147,33 @@ class StableDiffusionPipeline:
     def vae_scale_factor(self) -> int:
         return 2 ** (len(self.vae.config.block_out_channels) - 1)
 
+    def tokenize(self, prompt: Union[str, List[str]]) -> torch.Tensor:
+        """Prompt strings → (B, 77) token ids on the pipeline's device.
+        Without a tokenizer, one is built from the CLIP vocabulary that
+        ``find_vocab_files`` finds; raises when there is none."""
+        if prompt is None:
+            raise ValueError("pass a prompt or prompt_ids")
+        if self.tokenizer is None:
+            found = find_vocab_files(None)
+            if found is not None:
+                self.tokenizer = CLIPTokenizer.from_files(*found)
+        if self.tokenizer is None:
+            raise ValueError(
+                "no tokenizer attached and no CLIP vocab files found; pass prompt_ids, "
+                "construct the pipeline with tokenizer=, or provide vocab.json + merges.txt "
+                "via SFAST_TPU_CLIP_VOCAB or sfast_tpu_torch/text/data/")
+        if isinstance(prompt, str):
+            prompt = [prompt]
+        enc = self.tokenizer(prompt, padding="max_length",
+                             max_length=self.tokenizer.model_max_length, truncation=True,
+                             return_tensors="pt")
+        return torch.as_tensor(enc.input_ids, device=self.device).long()
+
     def _empty_prompt_ids(self, prompt_ids: torch.Tensor) -> torch.Tensor:
-        """Ids of the empty prompt "" without a tokenizer: [BOS, EOS, pad...]
-        (JAX ``stable_diffusion.py:261-276``)."""
+        """Ids of the empty prompt "" (JAX ``stable_diffusion.py:261-276``):
+        the tokenizer's when one is attached, else [BOS, EOS, pad...]."""
+        if self.tokenizer is not None:
+            return self.tokenize([""] * prompt_ids.shape[0])
         cfg = self.text_encoder.config
         ids = torch.full_like(prompt_ids, cfg.pad_token_id)
         ids[:, 0] = prompt_ids[:, 0]  # BOS, copied from the prompt
@@ -178,11 +226,37 @@ class StableDiffusionPipeline:
             self._fused_loops[key] = loop
         return loop
 
+    def _add_noise(self, state, original, noise, i):
+        """The scheduler's forward diffusion to step ``i``, or the VP one of
+        ``schedulers/common.py`` for a scheduler without its own."""
+        add = getattr(self.scheduler, "add_noise", None) or common.add_noise
+        return add(state, original, noise, i)
+
+    def _img2img_noise(self, shape, seed: int):
+        """img2img's two draws, f32 on the device from one generator seeded
+        with ``seed``: the posterior sample's noise, then the forward
+        noise."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return tuple(torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
+                     for _ in range(2))
+
+    def _inpaint_blend(self, state, latents, keep_mask, init, noise, steps, i, num_steps):
+        """After step ``i``, the kept region (``keep_mask`` 1) is the
+        encoded image forward-noised to step ``i + 1``, the noise level the
+        next UNet eval expects, and clean after the last step; the repaint
+        region keeps the denoised latents (JAX ``:649-676``, the blend
+        diffusers applies with a 4-channel UNet).  The step index is read
+        on the device, so the blend waits on no host sync."""
+        init_at = self._add_noise(state, init, noise, steps[i + 1]) if i < num_steps - 1 else init
+        out = keep_mask * init_at + (1.0 - keep_mask) * latents.float()
+        return out.to(latents.dtype)
+
     @torch.inference_mode()
     def __call__(
         self,
+        prompt: Optional[Union[str, List[str]]] = None,
         *,
-        prompt_ids,
+        prompt_ids=None,
         negative_prompt_ids=None,
         height: int = 512,
         width: int = 512,
@@ -190,11 +264,16 @@ class StableDiffusionPipeline:
         guidance_scale: float = 7.5,
         seed: int = 0,
         latents: Optional[torch.Tensor] = None,
+        image=None,
+        strength: float = 0.8,
+        mask_image=None,
         output_type: str = "np",  # 'np' | 'pt' (uint8) | 'float' | 'latent'
     ) -> PipelineOutput:
         self._sched_guard()
         dev = self.device
         buckets = self._ccfg.batch_buckets
+        if prompt_ids is None:
+            prompt_ids = self.tokenize(prompt)
         prompt_ids = torch.as_tensor(prompt_ids, device=dev).long()
         real_b = prompt_ids.shape[0]
         if buckets:  # pad the batch to its bucket; padded rows are dropped
@@ -210,7 +289,26 @@ class StableDiffusionPipeline:
 
         sched = self.scheduler
         state, steps = self._scheduler_state(num_inference_steps)
-        if latents is None:  # drawn at the real batch, so padding changes no row
+        start_index, keep_mask = 0, None
+        # drawn at the real batch, so padding changes no row
+        if image is not None:
+            if self.vae_encode is None:
+                raise ValueError("pipeline has no vae_encode model for img2img")
+            mean, logvar = self.vae_encode.encode(preprocess_image(image, self.dtype, dev))
+            n_enc, noise = self._img2img_noise(mean.shape, seed)
+            z = mean + torch.exp(0.5 * logvar) * n_enc.to(mean.dtype)
+            init = (z * self.vae.config.scaling_factor).float()
+            start_index = max(num_inference_steps - int(num_inference_steps * strength), 0)
+            latents = self._add_noise(state, init, noise, start_index)
+            if mask_image is not None:
+                keep_mask = preprocess_mask_image(mask_image, *init.shape[1:3], dev)
+                if buckets:
+                    keep_mask = keep_mask.expand(init.shape[0], -1, -1, -1)
+                    keep_mask, init, noise = (pad_batch(t, buckets)[0]
+                                              for t in (keep_mask, init, noise))
+        elif mask_image is not None:
+            raise ValueError("inpainting requires `image` with `mask_image`")
+        elif latents is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
             latents = torch.randn(lat_shape, generator=gen, device=dev, dtype=torch.float32)
             latents = latents * sched.init_noise_sigma
@@ -220,12 +318,15 @@ class StableDiffusionPipeline:
         state = sched.prepare_state(state, latents)
         gs = self._dev_scalar(guidance_scale)
 
-        if self._ccfg.fuse_denoising_loop:
+        if self._ccfg.fuse_denoising_loop and start_index == 0 and keep_mask is None:
             latents = self._fused_loop(num_inference_steps, use_cfg)(latents, context, state, gs)
         else:
-            for i in range(num_inference_steps):
+            for i in range(start_index, num_inference_steps):
                 eps = self._unet_eps(self.unet, sched, state, i, latents, context, gs, use_cfg)
                 latents, state = sched.step(state, eps, steps[i], latents)
+                if keep_mask is not None:
+                    latents = self._inpaint_blend(state, latents, keep_mask, init, noise, steps,
+                                                  i, num_inference_steps)
 
         if output_type == "latent":
             return PipelineOutput(unpad_batch(latents, real_b))

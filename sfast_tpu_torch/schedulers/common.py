@@ -2,12 +2,15 @@
 Karras respacing.
 
 Counterpart of ``sfast_tpu/schedulers/common.py``; these are host-side
-numpy tables computed once per ``set_timesteps``, identical to JAX's.
+numpy tables computed once per ``set_timesteps``, identical to JAX's, and
+the forward diffusion of img2img's entry for schedulers whose state holds
+VP ``alpha_t`` / ``sigma_t`` tables.
 """
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,3 +65,21 @@ def karras_respace(sigmas: np.ndarray, num_steps: int, rho: float = 7.0) -> np.n
     ramp = np.linspace(0, 1, num_steps)
     inv_rho = 1.0 / rho
     return (smax**inv_rho + ramp * (smin**inv_rho - smax**inv_rho)) ** rho
+
+
+def table_at(table, i, like: torch.Tensor) -> torch.Tensor:
+    """``table[i]`` as a 0-d f32 tensor on ``like``'s device.  ``i`` is an
+    int or a 0-d integer tensor on that device, read there by a gather, so
+    that a device index costs no host sync."""
+    table = torch.as_tensor(table, dtype=torch.float32, device=like.device)
+    if torch.is_tensor(i):
+        return table.index_select(0, i.reshape(1).to(like.device))[0]
+    return table[i]
+
+
+def add_noise(state, original: torch.Tensor, noise: torch.Tensor, timestep_index):
+    """Forward-diffuse clean samples to inference step ``timestep_index``
+    (img2img's entry): ``alpha_t·original + sigma_t·noise``."""
+    a = table_at(state["alpha_t"], timestep_index, original)
+    s = table_at(state["sigma_t"], timestep_index, original)
+    return a * original + s * noise

@@ -22,6 +22,7 @@ from sfast_tpu_torch.schedulers.common import (
     alphas_cumprod,
     karras_respace,
     select_timesteps,
+    table_at,
 )
 
 _SIGMA_FLOOR = 1e-10
@@ -104,6 +105,16 @@ class DPMSolverMultistepScheduler:
 
     def scale_model_input(self, state: Dict, sample: torch.Tensor, i) -> torch.Tensor:
         return sample  # VP-space latents: identity, as init_noise_sigma == 1
+
+    def add_noise(self, state: Dict, original: torch.Tensor, noise: torch.Tensor, i):
+        """Forward-diffuse to step ``i`` for img2img's entry (JAX
+        ``dpm.py:67-77``, diffusers' ``add_noise``): the latents are
+        VP-space, ``alpha·original + sigma·noise`` with (alpha, sigma) from
+        the kd sigma of step ``i``.  ``i`` is an int or a 0-d integer
+        tensor on the samples' device."""
+        kd = table_at(state["sigmas"], i, original)
+        alpha = 1.0 / torch.sqrt(1.0 + kd * kd)
+        return alpha * original + (kd * alpha) * noise
 
     def _pred_x0(self, model_output, sample, s, a):
         pt = self.config.prediction_type

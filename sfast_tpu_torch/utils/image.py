@@ -1,5 +1,7 @@
-"""Image postprocessing: counterpart of ``sfast_tpu/utils/image.py``."""
+"""Image pre- and postprocessing: counterpart of ``sfast_tpu/utils/image.py``
+(``:69-119``, ``denormalize_to_uint8``)."""
 
+import numpy as np
 import torch
 
 
@@ -7,3 +9,43 @@ def denormalize_to_uint8(image: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) in [-1, 1] → uint8, on the image's device."""
     img = torch.clamp(image.float() / 2 + 0.5, 0.0, 1.0)
     return torch.round(img * 255.0).to(torch.uint8)
+
+
+def preprocess_image(img, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """PIL image, list of them, or uint8 / float array (B, H, W, 3) or
+    (H, W, 3) → (B, H, W, 3) in [-1, 1] (uint8 scaled, floats as given)."""
+    if isinstance(img, (list, tuple)):
+        img = np.stack([np.asarray(i) for i in img])
+    else:
+        img = np.asarray(img)
+        if img.ndim == 3:
+            img = img[None]
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 127.5 - 1.0
+    return torch.as_tensor(img).to(device=device, dtype=dtype)
+
+
+def preprocess_mask_image(mask, lh: int, lw: int, device=None) -> torch.Tensor:
+    """Inpainting mask → keep-mask at latent resolution, (B, lh, lw, 1) f32.
+
+    diffusers' convention: white is repaint, black is keep.  Takes PIL,
+    (H, W), (H, W, C) or (B, H, W[, C]) uint8 or float arrays; any channel
+    marked counts as repaint, and an RGBA mask's alpha is dropped first
+    (it is opacity: an opaque mask would otherwise repaint everything).
+    Nearest-sampled down to the latent grid, binarized at 0.5, then
+    inverted, so that 1 keeps the original, as the pipeline's blend reads
+    it."""
+    arr = np.asarray(mask)
+    if arr.ndim == 2:
+        arr = arr[None, :, :, None]
+    elif arr.ndim == 3:
+        arr = arr[None] if arr.shape[-1] in (1, 3, 4) else arr[..., None]
+    arr = arr.astype(np.float32) / 255.0 if arr.dtype == np.uint8 else arr.astype(np.float32)
+    if arr.shape[-1] == 4:
+        arr = arr[..., :3]
+    arr = arr.max(axis=-1, keepdims=True)
+    _, h, w, _ = arr.shape
+    ys = (np.arange(lh) * h) // lh
+    xs = (np.arange(lw) * w) // lw
+    inpaint = (arr[:, ys][:, :, xs] >= 0.5).astype(np.float32)
+    return torch.from_numpy(1.0 - inpaint).to(device)

@@ -7,16 +7,19 @@ GroupNorm at C = 320 and 640, K4 at K = 640), in bf16 with seeded random
 weights.  A replay runs the kernels the capture recorded on the same
 buffers, so graphed outputs must equal the eager ones bit for bit; the
 fused loop and the stepwise graphs run the same kernels in the same
-order, and are held to 1e-3 relative rms.  Every test skips without a
+order, and are held to 1e-3 relative rms.  The VAE encode is graphed like
+the decode, and a LoRA swap reaches every graph that reads the UNet's
+weights without a new capture.  Every test skips without a
 CUDA card.  The file imports no JAX, so on a machine without it run:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graphs_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
-from sfast_tpu_torch import CompilationConfig
+from sfast_tpu_torch import CompilationConfig, lora
 from sfast_tpu_torch.compilers import compile as compile_pipeline
 from sfast_tpu_torch.compilers import compile_unet
 from sfast_tpu_torch.models import (
@@ -151,7 +154,8 @@ def pipe(dev):
     vae = init_weights_(AutoencoderKL(TINY_TEST_VAE, device=dev, dtype=BF16), g)
     te = init_weights_(CLIPTextModel(TINY_TEXT_ENCODER, device=dev, dtype=BF16), g)
     return compile_pipeline(StableDiffusionPipeline(
-        _unet(dev), vae, te, DPMSolverMultistepScheduler(), device=dev, dtype=BF16))
+        _unet(dev), vae, te, DPMSolverMultistepScheduler(), vae_encode=vae, device=dev,
+        dtype=BF16))
 
 
 def _rms_rel(got, ref):
@@ -185,4 +189,80 @@ def test_fused_loop_matches_the_stepwise_graphs(pipe, dev):
     assert _launched() == stepwise_launches
     (loop,) = pipe._fused_loops.values()
     assert loop.cache_size == 1 and loop.graphs()[0].nodes > 0
+    assert _rms_rel(fused, stepwise) <= LOOP_RMS_REL
+
+
+def test_encode_graph_is_eager_bit_for_bit(pipe, dev):
+    """At a 256² image the tiny encoder's resnets take K2 and K3 (256² and
+    128² maps)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    img = torch.rand((1, 256, 256, 3), generator=g, device=dev).to(BF16) * 2 - 1
+    with torch.inference_mode():
+        cuda_build.reset_launch_counts()
+        eager = pipe.vae_encode.module.encode(img)
+        launched = _launched()
+        graphed = [pipe.vae_encode(img) for _ in range(2)]
+    assert {"conv3x3", "group_norm_stats"} <= set(launched)
+    assert pipe.vae_encode.cache_size == 1
+    for mean, logvar in graphed:
+        assert torch.equal(mean, eager[0]) and torch.equal(logvar, eager[1])
+
+
+@pytest.mark.parametrize("inpaint", [False, True], ids=["img2img", "inpaint"])
+def test_graphed_img2img_is_eager_bit_for_bit(pipe, dev, inpaint):
+    rng = np.random.default_rng(6)
+    mask = np.zeros((64, 64), np.uint8)
+    mask[:, 32:] = 255
+    kw = dict(prompt_ids=torch.ones((1, 77), dtype=torch.long), height=64, width=64,
+              num_inference_steps=4, strength=0.5, seed=3, output_type="latent",
+              image=rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8),
+              mask_image=mask if inpaint else None)
+    graphed = pipe(**kw).images
+    assert pipe.vae_encode.cache_size == 1 and pipe.unet.cache_size == 1
+    pipe.set_compilation_config(CompilationConfig(enable_cuda_graph=False))
+    assert torch.equal(graphed, pipe(**kw).images)
+
+
+def _seeded_lora(state, dev):
+    lo = lora.init_lora_params(torch.Generator(device=dev).manual_seed(7), state, rank=8)
+    g = torch.Generator(device=dev).manual_seed(8)
+    for f in lo.values():
+        f["b"] = torch.randn(f["b"].shape, generator=g, device=dev) * 0.02
+    return lo
+
+
+def test_switch_lora_changes_the_graphed_output_without_a_capture(dev):
+    cm = compile_unet(_unet(dev))
+    x, t, ctx = _inputs(dev)
+    base = {k: v.clone() for k, v in cm.module.state_dict().items()}
+    lo = _seeded_lora(base, dev)
+    with torch.inference_mode():
+        before = cm(x, t, ctx)
+        graphs = cm._call.graphs()
+        lora.switch_lora(cm, base, lo)
+        after = cm(x, t, ctx)
+        eager = cm.module(x, t, ctx)
+        lora.switch_lora(cm, base, lo, scale=0.0)
+        back = cm(x, t, ctx)
+    assert cm._call.graphs() == graphs  # the same graph object: nothing captured
+    assert not torch.equal(before, after) and torch.equal(after, eager)
+    assert torch.equal(back, before)
+
+
+def test_fused_loop_sees_a_lora_swap(pipe, dev):
+    kw = dict(prompt_ids=torch.ones((1, 77), dtype=torch.long), height=64, width=64,
+              num_inference_steps=4, seed=3, output_type="latent")
+    base = {k: v.clone() for k, v in pipe.unet.module.state_dict().items()}
+    lo = _seeded_lora(base, dev)
+    lora.switch_lora(pipe.unet, base, lo)
+    stepwise = pipe(**kw).images
+    lora.switch_lora(pipe.unet, base, lo, scale=0.0)
+    pipe.set_compilation_config(CompilationConfig(fuse_denoising_loop=True))
+    fused_base = pipe(**kw).images  # captures the loop with the base weights
+    (loop,) = pipe._fused_loops.values()
+    graphs = loop.graphs()
+    lora.switch_lora(pipe.unet, base, lo)
+    fused = pipe(**kw).images
+    assert loop.graphs() == graphs
+    assert _rms_rel(fused, fused_base) > 10 * LOOP_RMS_REL
     assert _rms_rel(fused, stepwise) <= LOOP_RMS_REL

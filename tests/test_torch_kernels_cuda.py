@@ -225,6 +225,48 @@ def test_group_norm_stats_matches_plain(dev, n, h, w, c, groups):
     assert _max_rel(mean, rm) <= 1e-3 and _max_rel(rstd, rr) <= 1e-3
 
 
+# The VAE encoder's fused resnets widen the channels in conv1, which no
+# decoder call does: K2 at 256²·128→256 and 128²·256→512, K3 on their inputs
+@pytest.mark.parametrize("hw,c,f", [(256, 128, 256), (128, 256, 512)])
+def test_encoder_conv1_matches_plain(dev, hw, c, f):
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = _randn(dev, 1, hw, hw, c, seed=11)
+    wt = (torch.randn((f, 3, 3, c), generator=g, device=dev) / (9 * c) ** 0.5).to(BF16)
+    wt = wt.permute(1, 2, 3, 0)
+    kw = dict(gn_scale=torch.rand((1, c), generator=g, device=dev) + 0.5,
+              gn_shift=torch.randn((1, c), generator=g, device=dev) * 0.1,
+              bias_batch=torch.randn((1, f), generator=g, device=dev), emit_stats=True)
+    got, s1, s2 = fused_conv.conv3x3_block(x, wt, **kw)
+    torch.cuda.synchronize()
+    ref, r1, r2 = fused_conv.conv3x3_block_ref(x, wt, **kw)
+    assert got.shape == (1, hw, hw, f)
+    assert _rms_rel(got, ref) <= 2e-2
+    assert _max_rel(s1, r1) <= 1e-3 and _max_rel(s2, r2) <= 1e-3
+
+
+@pytest.mark.parametrize("hw,c", [(256, 128), (128, 256)])
+def test_encoder_group_norm_stats_matches_plain(dev, hw, c):
+    x = _randn(dev, 1, hw, hw, c, seed=12) + 0.5
+    mean, rstd = group_norm_stats(x, groups=32, eps=1e-6)
+    torch.cuda.synchronize()
+    rm, rr = group_norm_stats_ref(x, groups=32, eps=1e-6)
+    assert _max_rel(mean, rm) <= 1e-3 and _max_rel(rstd, rr) <= 1e-3
+
+
+def test_widening_resnet_kernel_route_matches_plain(dev):
+    """The whole fused resnet at the encoder's 256²·128→256: K3, conv1, and
+    conv2 with the 1×1 shortcut's output as its residual."""
+    from sfast_tpu_torch.models.layers import ResnetBlock2D, init_weights_
+
+    rn = init_weights_(ResnetBlock2D(128, 256, None, groups=32, eps=1e-6, device=dev,
+                                     dtype=BF16), torch.Generator(device=dev).manual_seed(13))
+    x = _randn(dev, 1, 256, 256, 128, seed=14)
+    with torch.no_grad():
+        got, ref = rn(x), rn(x, conv_backend="plain")
+    assert rn.conv_shortcut is not None and got.shape == (1, 256, 256, 256)
+    assert _rms_rel(got, ref) <= 2e-2
+
+
 def test_group_norm_stats_rejects_f32(dev):
     with pytest.raises(ValueError, match="bf16"):
         group_norm_stats(torch.zeros(1, 4, 4, 64, device=dev), groups=8)

@@ -231,7 +231,7 @@ def test_tiny_unet_matches_jax():
 def test_tiny_vae_decoder_matches_jax():
     p = jvae.init_vae_params(1, jvae.TINY_TEST_VAE)
     m = AutoencoderKL(TINY_TEST_VAE, **F32)
-    m.load_state_dict(from_jax.vae_decoder_state_dict(p))
+    m.load_state_dict(from_jax.vae_state_dict(p))
     z = _randn(4, 1, 8, 8, 4)
     ref = jvae.vae_decode_fwd(jvae.TINY_TEST_VAE, JaxConfig(), _j(p), jnp.asarray(z))
     with torch.no_grad():

@@ -58,24 +58,31 @@ OPTIN_KNOBS = dict(enable_fused_group_norm=True, enable_fused_linear_geglu=True,
 OPTIN = CompilationConfig(**OPTIN_KNOBS)
 
 
-@pytest.fixture(scope="module")
-def pipes():
+def tiny_pipes(tokenizers=(None, None)):
+    """(JAX pipeline, the port's compiled pipeline) over one set of tiny
+    f32 weights, the VAE as both decoder and encoder; ``tokenizers`` are
+    the two packages' tokenizers, if any."""
     unet = create_unet(J_UNET64, jax.random.key(1))
     dec, enc = create_vae(J_TINY_VAE, jax.random.key(0))
     te = create_text_encoder(J_TINY_TE, jax.random.key(2))
     jpipe = JaxPipeline(unet=unet, vae=dec, vae_encode=enc, text_encoder=te,
-                        scheduler=JaxDPM(), dtype=jnp.float32)
+                        scheduler=JaxDPM(), tokenizer=tokenizers[0], dtype=jnp.float32)
     f32 = dict(device="cpu", dtype=torch.float32)
     tu = UNet2DConditionModel(UNET64, **f32)
     tu.load_state_dict(from_jax.unet_state_dict(unet.params))
     tv = AutoencoderKL(TINY_TEST_VAE, **f32)
-    tv.load_state_dict(from_jax.vae_decoder_state_dict(dec.params))
+    tv.load_state_dict(from_jax.vae_state_dict(dec.params))
     tt = CLIPTextModel(TINY_TEXT_ENCODER, **f32)
     tt.load_state_dict(from_jax.clip_text_state_dict(te.params))
     tpipe = sfast_tpu_torch.compile(StableDiffusionPipeline(
-        tu, tv, tt, DPMSolverMultistepScheduler(), device="cpu", dtype=torch.float32
-    ))
+        tu, tv, tt, DPMSolverMultistepScheduler(), vae_encode=tv, tokenizer=tokenizers[1],
+        device="cpu", dtype=torch.float32))
     return jpipe, tpipe
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    return tiny_pipes()
 
 
 def test_tiny_pipeline_matches_jax(pipes):
@@ -356,6 +363,7 @@ def test_port_imports_and_runs_without_jax():
         import sfast_tpu_torch.interop.from_jax, sfast_tpu_torch.pipelines, sfast_tpu_torch.schedulers
         import sfast_tpu_torch.compilers, sfast_tpu_torch.schedulers.compile
         from sfast_tpu_torch.runtime import executable_cache, shape_bucket, signature, tracing
+        import sfast_tpu_torch.lora, sfast_tpu_torch.text.clip_tokenizer, sfast_tpu_torch.utils.image
         unet = init_weights_(UNet2DConditionModel(TINY_UNET, device="cpu", dtype=torch.float32),
                              torch.Generator().manual_seed(0))
         with torch.inference_mode():

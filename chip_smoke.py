@@ -25,7 +25,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    off) and graphed (the default: a CUDA graph per signature for CLIP,
    the UNet, the DPM++ step and the VAE decode).  Each run captures its
    graphs in a first image and prints them with their capture and
-   instantiate seconds and the host time of one ``replay()``, then counts the kernel launches of one image, times 3 more, keeps the
+   instantiate seconds and the host time of one ``replay()``, then counts
+   the kernel launches of one image, times 3 more (1 eager), keeps the
    latents and image of fixed initial latents, and profiles one more
    (device time, the device's idle share and the count of CUDA kernels an
    image launches; a trace whose rows of the port's kernels disagree with
@@ -52,9 +53,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    equals the eager module's, and swapping back restores the base image bit
    for bit;
 9. a prompt string through the CLIP tokenizer (a byte-level vocabulary
-   written to a temporary directory) to one graphed image.
+   written to a temporary directory) to one graphed image;
+10. SDXL at full width with seeded random weights — UNet 320/640/1280 at
+    transformer depth 1/2/10, CLIP ViT-L and OpenCLIP ViT-bigG, the VAE
+    at 1024² — through ``StableDiffusionXLPipeline``: 1024², batch 1,
+    Euler 30 steps, CFG 5.0.  One eager image, then graphed as phase 4
+    (capture, count, 3 timed, profiled), the fused loop against the
+    stepwise graphs, one UNet eval and one VAE decode on the kernel route
+    against the plain route, img2img at strength 0.8 graphed against
+    eager, and the plain routes this path keeps (the cross-attention at 77
+    keys, the VAE's 16,384-token mid-block attention) timed alone.  Phase 3
+    holds K1 at head dim 64 and K2 and K3 at the 1024² VAE shapes;
+11. the other schedulers on phase 4's SD1.5 pipeline: LCM 4 steps at
+    guidance 1 (its noise drawn before the loop), graphed and as the fused
+    loop, each bit for bit against eager, and two seeds apart; an
+    LCM-distilled UNet (``time_cond_proj_dim=256``) at guidance 8, graphed
+    against eager; ancestral Euler and DDIM at 50 steps, graphed against
+    eager.
 
-Each phase prints its seconds.
+Each phase prints its seconds and the graphs its pipeline holds, with
+their nodes, capture and instantiate seconds, and the peak memory.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches per image on each path, the main-path case's numbers and every
@@ -123,6 +141,26 @@ EXPECTED_IMG2IMG_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=5 * 40, conv
                                  group_norm_stats=9 + 6)
 STRENGTH = 0.8
 LORA_RANK = 8
+# SDXL 1024², Euler 30 steps, CFG 5: 70 self-attentions an eval take K1 at
+# head dim 64 (levels 1 and 2: 2 + 3 transformers of depth 2 at 4096
+# tokens, 5 of depth 10 and the mid block's at 1024); the decoder's 14
+# resnets (from 128², the mid block's two now above the K2 threshold) take
+# K2 twice and K3 once, its 3 upsample convs K2.  img2img at strength 0.8
+# runs 24 steps and the encoder's 10 resnets (1024² to 128², mid block).
+SDXL_STEPS = 30
+SDXL_HW = 1024
+SDXL_GUIDANCE = 5.0
+SDXL_ATTN_PER_EVAL = 70
+EXPECTED_SDXL_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=SDXL_ATTN_PER_EVAL * SDXL_STEPS,
+                              conv3x3=31, group_norm_stats=14)
+SDXL_IMG2IMG_STEPS = int(SDXL_STEPS * STRENGTH)  # the steps img2img runs
+EXPECTED_SDXL_IMG2IMG_LAUNCHES = dict(
+    EXPECTED_SDXL_LAUNCHES, flash_attention=SDXL_ATTN_PER_EVAL * SDXL_IMG2IMG_STEPS,
+    conv3x3=31 + 20, group_norm_stats=14 + 10)
+# LCM 4 steps at guidance 1: no CFG, K1 at batch 1
+LCM_STEPS = 4
+EXPECTED_LCM_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=5 * LCM_STEPS)
+LCM_COND_DIM = 256  # the time_cond_proj_dim of SimianLuo/LCM_Dreamshaper_v7
 EXPECTED_OPTIN_LAUNCHES = {
     "flash_attention": 0, "quantize_qkv": 5 * STEPS, "flash_attention_int8": 5 * STEPS,
     "conv3x3": 21, "group_norm_stats": 9, "group_norm_apply": 0,
@@ -238,6 +276,24 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
+def events_ms(fn, calls=20):
+    """Mean ms of one call over ``calls`` calls in a row between two CUDA
+    events: device time where the calls keep the device busy (a call of
+    several kernels, each far longer than its launch)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / calls
+
+
 def device_ms(fn, floor_ms, iters=10, names=False, tries=5):
     """Mean device milliseconds of one call: the kernel rows of a
     torch.profiler trace.  CUDA events around one call also time the host's
@@ -336,8 +392,10 @@ def check_kernels(torch, dev):
 
     out = {}
     # K1: UNet level-0 self-attention, q/k/v as head-split views of the
-    # (B, S, H·D) projections; then a ragged kv tail (1000 = 7·128 + 104)
-    for b, h, sq, sk, d in [(2, 8, 4096, 4096, 40), (2, 8, 4096, 1000, 40)]:
+    # (B, S, H·D) projections; then a ragged kv tail (1000 = 7·128 + 104);
+    # then SDXL's self-attentions at head dim 64 (64² and 32² levels)
+    for b, h, sq, sk, d in [(2, 8, 4096, 4096, 40), (2, 8, 4096, 1000, 40),
+                            (2, 10, 4096, 4096, 64), (2, 20, 1024, 1024, 64)]:
         q = randn(b, sq, h * d).view(b, sq, h, d).transpose(1, 2)
         k = randn(b, sk, h * d).view(b, sk, h, d).transpose(1, 2)
         v = randn(b, sk, h * d).view(b, sk, h, d).transpose(1, 2)
@@ -366,7 +424,10 @@ def check_kernels(torch, dev):
     # resnets' conv1 (GN in, per-batch bias, stats out) and conv2 (GN in,
     # bias, residual in), including the 512→256 and 256→128 channel
     # changes, and the three upsample convs (no GN); then the two calls of
-    # the encoder that the decoder has not (conv1 widening the channels)
+    # the encoder that the decoder has not (conv1 widening the channels);
+    # then SDXL's decoder and encoder at 1024²: the 128→128 resnet convs,
+    # conv1 narrowing 256→128, the upsample conv at 256 channels, and the
+    # encoder's widening conv1s at 512² and 256²
     cases = [
         (128, 512, 512, "conv1"), (128, 512, 512, "conv2"), (128, 512, 512, "upsample"),
         (256, 512, 256, "conv1"), (256, 256, 256, "conv1"), (256, 256, 256, "conv2"),
@@ -374,6 +435,9 @@ def check_kernels(torch, dev):
         (512, 256, 128, "conv1"), (512, 128, 128, "conv1"), (512, 128, 128, "conv2"),
         (512, 256, 256, "upsample"),
         (256, 128, 256, "encoder conv1"), (128, 256, 512, "encoder conv1"),
+        (1024, 128, 128, "conv1"), (1024, 128, 128, "conv2"), (1024, 256, 128, "conv1"),
+        (1024, 256, 256, "upsample"),
+        (512, 128, 256, "encoder conv1"), (256, 256, 512, "encoder conv1"),
     ]
     for hw, c, f, kind in cases:
         x = randn(1, hw, hw, c)
@@ -423,9 +487,9 @@ def check_kernels(torch, dev):
                                              else ", without the GroupNorm: a lower floor")))
 
     # K3: the fused-resnet entries' GroupNorm statistics (32 groups, eps
-    # 1e-6): the decoder's, then the two the encoder adds
+    # 1e-6): the decoder's, then the two the encoder adds, then SDXL's 1024²
     for hw, c in [(128, 512), (256, 512), (256, 256), (512, 256), (512, 128),
-                  (256, 128), (128, 256)]:
+                  (256, 128), (128, 256), (1024, 128), (1024, 256)]:
         x = randn(1, hw, hw, c) + 0.5
         mean, rstd = group_norm_stats(x, groups=32, eps=1e-6)
         torch.cuda.synchronize()
@@ -651,24 +715,25 @@ def build_pipeline(torch, dev):
 
 def call_kwargs(torch, **extra):
     """The pipeline's arguments of every image: seeded prompt ids, SD1.5
-    at 512², 50 steps, CFG 7.5, and ``extra``."""
+    at 512², 50 steps, CFG 7.5, each unless ``extra`` gives another."""
     prompt_ids = torch.randint(0, 49408, (1, 77), generator=torch.Generator().manual_seed(1))
-    return dict(prompt_ids=prompt_ids, height=512, width=512,
-                num_inference_steps=STEPS, guidance_scale=7.5, **extra)
+    return {**dict(prompt_ids=prompt_ids, height=512, width=512, num_inference_steps=STEPS,
+                   guidance_scale=7.5), **extra}
 
 
-def run_mode(torch, dev, pipe, label, cfg, expected, lat, **extra):
+def run_mode(torch, dev, pipe, label, cfg, expected, lat, base=None, timed_images=3, **extra):
     """One run of the pipeline under ``cfg`` with the call arguments
-    ``extra``: the first image (which captures the graphs), the counted
-    image, 3 timed, the latents and image of the initial latents ``lat``
-    (of seed 5 where ``lat`` is None), and a profiled image.  Returns what
-    the comparisons of phases 4 to 7 need."""
+    ``base`` (SD1.5's, ``call_kwargs``, where None) and ``extra``: the first
+    image (which captures the graphs), the counted image, ``timed_images``
+    timed, the
+    latents and image of the initial latents ``lat`` (of seed 5 where
+    ``lat`` is None), and a profiled image.  Returns what the comparisons
+    of phases 4 to 7 and 10 need."""
     from sfast_tpu_torch.runtime import cuda_build
-    from sfast_tpu_torch.runtime.executable_cache import global_executable_cache
     from sfast_tpu_torch.utils.image import denormalize_to_uint8
 
     pipe.set_compilation_config(cfg)
-    kw = call_kwargs(torch, **extra)
+    kw = dict(base or call_kwargs(torch), **extra)
     fixed = {"seed": 5} if lat is None else {"latents": lat}
 
     def timed(**extra):
@@ -681,20 +746,8 @@ def run_mode(torch, dev, pipe, label, cfg, expected, lat, **extra):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _, first_ms = timed(seed=0)  # captures every graph of the path
-    cache = global_executable_cache()
-    graphs = {}
-    for name, n in cache.stats().items():
-        if n:
-            gs = cache.get(name).graphs()
-            graphs[name] = {"graphs": n, "nodes": sum(g.nodes for g in gs),
-                            "capture_s": sum(g.capture_seconds for g in gs),
-                            "instantiate_s": sum(g.instantiate_seconds for g in gs),
-                            "launch_host_ms": sum(launch_host_ms(torch, g.graph) for g in gs)}
-    log(f"[{label}] first image {first_ms:.1f} ms; graphs captured: "
-        + (", ".join(f"{k} {v['graphs']} ({v['nodes']} nodes, capture {v['capture_s']:.3f} s, "
-                     f"instantiate {v['instantiate_s']:.3f} s, replay() returns after "
-                     f"{v['launch_host_ms']:.3f} ms on the host)" for k, v in graphs.items())
-           or "none"))
+    graphs = graph_summary(torch, pipe)
+    log(f"[{label}] first image {first_ms:.1f} ms; graphs captured: {graphs_text(graphs)}")
     if cfg.enable_cuda_graph and not graphs:
         raise AssertionError(f"[{label}] no graph was captured")
 
@@ -710,7 +763,7 @@ def run_mode(torch, dev, pipe, label, cfg, expected, lat, **extra):
         raise AssertionError(f"[{label}] image {img.shape} {img.dtype}")
 
     with CardSampler() as card:
-        runs = [timed(seed=s)[1] for s in (1, 2, 3)]
+        runs = [timed(seed=s)[1] for s in range(1, timed_images + 1)]
     e2e = statistics.median(runs)
     log(f"[{label}] e2e ms: runs {[round(r, 3) for r in runs]} median {e2e:.3f}; card: "
         f"{card.text()}")
@@ -727,6 +780,54 @@ def run_mode(torch, dev, pipe, label, cfg, expected, lat, **extra):
     return {"counts": counts, "latents": latents, "u8": denormalize_to_uint8(image_f),
             "e2e_ms": e2e, "peak_gib": peak, "peak_reserved_gib": reserved, "graphs": graphs,
             **prof}
+
+
+def pipe_graphs(pipe):
+    """Every graph ``pipe`` holds, by the name of what holds it: its
+    compiled models, its compiled scheduler's step and its fused loops."""
+    out = {}
+    for attr in ("text_encoder", "text_encoder_2", "unet", "vae", "vae_encode"):
+        call = getattr(getattr(pipe, attr, None), "_call", None)
+        if call is not None and call.cache_size:
+            out[attr] = call.graphs()
+    step = getattr(pipe.scheduler, "_step", None)
+    if step is not None and step.cache_size:
+        out["scheduler.step"] = step.graphs()
+    for loop in pipe._fused_loops.values():
+        if getattr(loop, "cache_size", 0):
+            out[loop.name] = loop.graphs()
+    return out
+
+
+def graph_summary(torch, pipe, replay=True):
+    """Per holder of ``pipe``'s graphs: how many, their nodes, capture and
+    instantiate seconds and (``replay``) the host ms until a ``replay()``
+    returns; each graph has a memory pool of its own."""
+    out = {}
+    for name, gs in pipe_graphs(pipe).items():
+        out[name] = {"graphs": len(gs), "nodes": sum(g.nodes for g in gs),
+                     "capture_s": sum(g.capture_seconds for g in gs),
+                     "instantiate_s": sum(g.instantiate_seconds for g in gs)}
+        if replay:  # a loop of 100k nodes and more replays once: seconds a replay
+            out[name]["launch_host_ms"] = sum(
+                launch_host_ms(torch, g.graph, tries=1 if g.nodes > 100000 else 3) for g in gs)
+    return out
+
+
+def graphs_text(graphs):
+    return ", ".join(
+        f"{k} {v['graphs']} ({v['nodes']} nodes, capture {v['capture_s']:.3f} s, "
+        f"instantiate {v['instantiate_s']:.3f} s"
+        + (f", replay() returns after {v['launch_host_ms']:.3f} ms on the host"
+           if "launch_host_ms" in v else "") + ")" for k, v in graphs.items()) or "none"
+
+
+def log_pools(torch, pipe, label):
+    """The graphs ``pipe`` holds at the end of a phase (one memory pool
+    each) and the peak memory so far."""
+    log(f"[{label}] graphs held: {graphs_text(graph_summary(torch, pipe, replay=False))}; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved")
 
 
 def launch_host_ms(torch, graph, tries=3):
@@ -758,31 +859,41 @@ def compare_runs(torch, label, ref, got):
 def run_path(torch, dev, pipe, name, cfg, expected, model_bound, lat):
     """Phases 4 and 5: one path of the pipeline, eager then graphed.
     Returns both runs' results."""
-    from sfast_tpu_torch import CompilationConfig
     from sfast_tpu_torch.models import SD_VAE
-    from sfast_tpu_torch.runtime import cuda_build
 
     bf16 = torch.bfloat16
+    # one timed eager image: an eager image follows the shared host
     res = {"eager": run_mode(torch, dev, pipe, f"{name} eager",
-                             cfg.replace(enable_cuda_graph=False), expected, lat)}
+                             cfg.replace(enable_cuda_graph=False), expected, lat,
+                             timed_images=1)}
     res["graphed"] = run_mode(torch, dev, pipe, f"{name} graphed", cfg, expected, lat)
     res["graphed_vs_eager"] = compare_runs(torch, f"{name} graphed vs eager", res["eager"],
                                            res["graphed"])
 
-    # kernel route vs plain route at full width, with the path's graphs in
-    # place: the switch drops them, so the plain route launches no kernel
     gen = torch.Generator(device=dev).manual_seed(6)
     with torch.inference_mode():
         ctx = pipe.encode_prompt(torch.randint(0, 49408, (1, 77), generator=gen, device=dev))
         x = torch.randn((2, 64, 64, 4), generator=gen, device=dev).to(bf16)
-        t = torch.tensor(801.0, device=dev)
         z = torch.randn((1, 64, 64, 4), generator=gen, device=dev) / SD_VAE.scaling_factor
-        out = {}
+    res["route"] = route_check(torch, dev, pipe, name, cfg, model_bound,
+                               (x, torch.tensor(801.0, device=dev), ctx), {}, z)
+    return res
+
+
+def route_check(torch, dev, pipe, name, cfg, model_bound, unet_args, unet_kw, z):
+    """Kernel route against plain route at full width: one UNet eval and
+    one VAE decode of ``z``, with the path's graphs in place; the switch
+    drops them, so the plain route must launch no kernel."""
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.runtime import cuda_build
+
+    out = {}
+    with torch.inference_mode():
         for route, rcfg in (("kernels", cfg), ("plain", CompilationConfig(enable_kernels=False))):
             if route == "plain":
                 pipe.set_compilation_config(rcfg)
             cuda_build.reset_launch_counts()
-            out[route] = (pipe.unet(x, t, ctx), pipe.vae.decode(z))
+            out[route] = (pipe.unet(*unet_args, **unet_kw), pipe.vae.decode(z))
             torch.cuda.synchronize()
             out[route + " launches"] = sum(cuda_build.launch_counts.values())
         pipe.set_compilation_config(CompilationConfig.Default())
@@ -797,7 +908,8 @@ def run_path(torch, dev, pipe, name, cfg, expected, model_bound, lat):
             f"rms_rel {rms:.3e}")
         if not 0 < rms <= model_bound:
             raise AssertionError(f"[{name}] {what}: rms rel {rms} not in (0, {model_bound}]")
-    return res
+        out[what + " rms_rel"] = rms
+    return {k: v for k, v in out.items() if k.endswith(("launches", "rms_rel"))}
 
 
 def profile_image(torch, run, name, tries=5):
@@ -850,18 +962,18 @@ def profile_image(torch, run, name, tries=5):
             "profiled_wall_ms": wall_ms, "traced_wall_ms": traced_ms}
 
 
-def synthetic_image():
-    """(a seeded uint8 512² RGB image, a mask whose right half is white:
+def synthetic_image(hw=512):
+    """(a seeded uint8 hw² RGB image, a mask whose right half is white:
     repaint)."""
     import numpy as np
 
     rng = np.random.default_rng(7)
     # smooth colour gradients plus noise, so the encoder sees structure
-    yy, xx = np.mgrid[0:512, 0:512] / 512.0
+    yy, xx = np.mgrid[0:hw, 0:hw] / hw
     base = np.stack([yy, xx, 0.5 * (yy + xx)], axis=-1) * 200 + 20
     image = np.clip(base + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)[None]
-    mask = np.zeros((512, 512), np.uint8)
-    mask[:, 256:] = 255
+    mask = np.zeros((hw, hw), np.uint8)
+    mask[:, hw // 2:] = 255
     return image, mask
 
 
@@ -883,7 +995,6 @@ def run_img2img(torch, dev, pipe):
     image; then one VAE encode on the kernel route against the plain
     route."""
     from sfast_tpu_torch import CompilationConfig
-    from sfast_tpu_torch.runtime import cuda_build
     from sfast_tpu_torch.utils.image import preprocess_image
 
     image, mask = synthetic_image()
@@ -901,8 +1012,19 @@ def run_img2img(torch, dev, pipe):
                                        eager_once(torch, pipe, call_kwargs(torch, **extra)), run)
         res[name] = run
 
-    img = preprocess_image(image, torch.bfloat16, dev)
-    out = {}
+    res.update(encode_route_check(torch, pipe, preprocess_image(image, torch.bfloat16, dev),
+                                  "encode", {"conv3x3": 12, "group_norm_stats": 6}))
+    return res
+
+
+def encode_route_check(torch, pipe, img, label, expected):
+    """One graphed VAE encode of ``img`` on the kernel route against the
+    plain route: the kernel route launches ``expected``, the plain route
+    nothing, and mean and logvar agree within MODEL_RMS_REL."""
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.runtime import cuda_build
+
+    res, out = {}, {}
     with torch.inference_mode():
         for route, rcfg in (("kernels", CompilationConfig.Default()),
                             ("plain", CompilationConfig(enable_kernels=False))):
@@ -914,34 +1036,28 @@ def run_img2img(torch, dev, pipe):
             out[route + " launches"] = dict(cuda_build.launch_counts)
             # CUDA events around one replay: the profiler's trace of a replayed
             # encode drops a kernel record or two (counts not a multiple of the
-            # calls), and at ~5 ms the host's launch of one graph is negligible
+            # calls), and beside a replay of milliseconds the host's launch of one
+            # graph is negligible
             res[f"encode_{route}_ms"] = cuda_ms(lambda: pipe.vae_encode(img))
-    log(f"[encode] one graphed encode of a 512² image (CUDA events): "
+    hw = img.shape[1]
+    log(f"[{label}] one graphed encode of a {hw}² image (CUDA events): "
         f"{res['encode_kernels_ms']:.3f} ms on the kernel route, "
         f"{res['encode_plain_ms']:.3f} ms on the plain route")
     pipe.set_compilation_config(CompilationConfig.Default())
     launched = {k: n for k, n in out["kernels launches"].items() if n}
-    log(f"[encode] route check: kernel route launched {launched}, plain route "
+    log(f"[{label}] route check: kernel route launched {launched}, plain route "
         f"{sum(out['plain launches'].values())} kernels")
-    if sum(out["plain launches"].values()) or launched != {"conv3x3": 12, "group_norm_stats": 6}:
-        raise AssertionError(f"[encode] launches: kernel route {launched}, plain route "
-                             f"{out['plain launches']}")
+    if sum(out["plain launches"].values()) or launched != expected:
+        raise AssertionError(f"[{label}] launches: kernel route {launched} (expected "
+                             f"{expected}), plain route {out['plain launches']}")
     for i, what in enumerate(("mean", "logvar")):
         _, max_rel, rms = rel_errors(out["kernels"][i], out["plain"][i])
-        log(f"[encode] {what}, kernel route vs plain route: max_rel {max_rel:.3e} "
+        log(f"[{label}] {what}, kernel route vs plain route: max_rel {max_rel:.3e} "
             f"rms_rel {rms:.3e}")
         if not 0 < rms <= MODEL_RMS_REL:
-            raise AssertionError(f"[encode] {what}: rms rel {rms} not in (0, {MODEL_RMS_REL}]")
+            raise AssertionError(f"[{label}] {what}: rms rel {rms} not in (0, {MODEL_RMS_REL}]")
         res[f"encode_{what}_rms_rel"] = rms
     return res
-
-
-def graph_objects():
-    """Every captured graph of every registered function, by name."""
-    from sfast_tpu_torch.runtime.executable_cache import global_executable_cache
-
-    cache = global_executable_cache()
-    return {name: cache.get(name).graphs() for name, n in cache.stats().items() if n}
 
 
 def run_lora(torch, dev, pipe):
@@ -974,16 +1090,17 @@ def run_lora(torch, dev, pipe):
         pipe.set_compilation_config(cfg)
         pipe(**kw)  # captures the path's graphs
         base_img = pipe(**kw).images
-        graphs, sizes = graph_objects(), {n: len(v) for n, v in graph_objects().items()}
+        graphs = pipe_graphs(pipe)
+        sizes = {n: len(v) for n, v in graphs.items()}
         host_ms, done_ms = swap(1.0)
         cuda_build.reset_launch_counts()
         lora_img = pipe(**kw).images
         if dict(cuda_build.launch_counts) != EXPECTED_LAUNCHES:
             raise AssertionError(f"[lora {path}] launches after the swap "
                                  f"{dict(cuda_build.launch_counts)} != {EXPECTED_LAUNCHES}")
-        if graph_objects() != graphs:
+        if pipe_graphs(pipe) != graphs:
             raise AssertionError(f"[lora {path}] the swap captured a graph: {sizes} -> "
-                                 f"{ {n: len(v) for n, v in graph_objects().items()} }")
+                                 f"{ {n: len(v) for n, v in pipe_graphs(pipe).items()} }")
         changed = image_diff(lora_img, base_img)
         row = {"swap_host_ms": host_ms, "swap_done_ms": done_ms, "image_max_uint8_change": changed}
         if path == "stepwise":
@@ -1084,6 +1201,312 @@ def run_prompt_string(torch, pipe):
     return {"ids": ids[:len(content) + 2], "content_tokens": len(content)}
 
 
+def sdxl_prompt_ids(torch):
+    """Seeded ids as a CLIP tokenizer gives them: BOS, 12 tokens, EOS, EOS
+    padding (the second encoder's ids pad with 0 after the first EOS)."""
+    g = torch.Generator().manual_seed(21)
+    ids = torch.full((1, 77), 49407, dtype=torch.long)
+    ids[0, 0] = 49406
+    ids[0, 1:13] = torch.randint(0, 49406, (12,), generator=g)
+    return ids
+
+
+def sdxl_kwargs(torch, **extra):
+    """The SDXL image of JAX's tracked configuration
+    (``benchmarks/bench_extra_configs.py:79-125``): 1024², 30 Euler steps,
+    CFG 5.0."""
+    return {**dict(prompt_ids=sdxl_prompt_ids(torch), height=SDXL_HW, width=SDXL_HW,
+                   num_inference_steps=SDXL_STEPS, guidance_scale=SDXL_GUIDANCE), **extra}
+
+
+def build_sdxl_pipeline(torch, dev):
+    """SDXL at full width with seeded random weights, through the entry
+    points a user calls."""
+    import sfast_tpu_torch
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.models import (
+        SD15_TEXT_ENCODER, SDXL_TEXT_ENCODER_2, SDXL_UNET, SDXL_VAE, AutoencoderKL,
+        CLIPTextModel, UNet2DConditionModel, init_weights_,
+    )
+    from sfast_tpu_torch.pipelines import StableDiffusionXLPipeline
+    from sfast_tpu_torch.schedulers import EulerDiscreteScheduler
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    unet = init_weights_(UNet2DConditionModel(SDXL_UNET, device=dev, dtype=bf16), gen)
+    vae = init_weights_(AutoencoderKL(SDXL_VAE, device=dev, dtype=bf16), gen)
+    te = init_weights_(CLIPTextModel(SD15_TEXT_ENCODER, device=dev, dtype=bf16), gen)
+    te2 = init_weights_(CLIPTextModel(SDXL_TEXT_ENCODER_2, device=dev, dtype=bf16), gen)
+    pipe = sfast_tpu_torch.compile(
+        StableDiffusionXLPipeline(unet, vae, te, te2, EulerDiscreteScheduler(), vae_encode=vae,
+                                  device=dev, dtype=bf16),
+        CompilationConfig.Default(),
+    )
+    torch.cuda.synchronize()
+    n_params = {k: sum(p.numel() for p in m.parameters()) / 1e6
+                for k, m in (("unet", unet), ("vae", vae), ("te", te), ("te2", te2))}
+    log(f"SDXL models built: {n_params} M params in {time.perf_counter() - t0:.1f} s")
+    return pipe
+
+
+def plain_routes_sdxl(torch, dev, pipe):
+    """The plain routes the SDXL path keeps, timed alone with their memory
+    (CUDA events over 20 calls in a row: each call is several kernels, and
+    the profiler's rows of them do not come in whole calls): the
+    cross-attention at 77 keys (f32 scores, the f32 GEMM of PERF.md §5),
+    beside SDPA, and the VAE's mid-block attention, 16,384 tokens of one
+    512-wide head."""
+    import torch.nn.functional as F
+
+    from sfast_tpu_torch.ops.flash_attention import flash_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    out = {}
+    with torch.inference_mode():
+        for b, h, sq, per_eval in [(2, 10, 4096, 10), (2, 20, 1024, 60)]:
+            d = 64
+            q = torch.randn((b, sq, h * d), generator=g, device=dev).to(torch.bfloat16)
+            kv = torch.randn((b, 77, h * d), generator=g, device=dev).to(torch.bfloat16)
+            q = q.view(b, sq, h, d).transpose(1, 2)
+            k = v = kv.view(b, 77, h, d).transpose(1, 2)
+            bnd = bound(4 * b * h * sq * 77 * d, 2 * b * h * d * (2 * sq + 2 * 77))
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            plain = events_ms(lambda: flash_attention_ref(q, k, v))
+            mem = (torch.cuda.max_memory_allocated() - base) / 2**20
+            sdpa = events_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            key = f"cross-attention ({b}, {h}, {sq}x77, {d})"
+            out[key] = {"plain_ms": plain, "sdpa_ms": sdpa, "bound_ms": bnd[0],
+                        "per_image": per_eval * SDXL_STEPS, "peak_extra_mib": mem}
+            log(f"[sdxl] {key}, plain route: {plain:.4f} ms, {mem:.0f} MiB above its "
+                f"inputs; SDPA {sdpa:.4f} ms; bound {bnd[0]:.4f} ms; "
+                f"{per_eval * SDXL_STEPS} calls an image")
+        attn = pipe.vae.module.decoder.mid_block.attentions[0]
+        c, hw = pipe.vae.config.block_out_channels[-1], SDXL_HW // pipe.vae_scale_factor
+        x = torch.randn((1, hw, hw, c), generator=g, device=dev).to(torch.bfloat16)
+        n = hw * hw
+        bnd = bound(4 * n * n * c, 2 * 2 * n * c)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = events_ms(lambda: attn(x), calls=5)
+        mem = (torch.cuda.max_memory_allocated() - base) / 2**30
+        out["vae mid-block attention"] = {"ms": ms, "bound_ms": bnd[0],
+                                          "peak_extra_gib": mem, "tokens": n}
+        log(f"[sdxl] VAE mid-block attention at {n} tokens, plain route (one decode and one "
+            f"encode an img2img image): {ms:.3f} ms, {mem:.2f} GiB above its input; "
+            f"bound {bnd[0]:.3f} ms")
+    return out
+
+
+def run_sdxl(torch, dev):
+    """Phase 10: SDXL 1024² text2img eager once, graphed, as the fused loop,
+    the route check, the plain routes it keeps, img2img, and the encode's
+    route check."""
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.models import SDXL_VAE
+    from sfast_tpu_torch.utils.image import preprocess_image
+
+    pipe = build_sdxl_pipeline(torch, dev)
+    kw = sdxl_kwargs(torch)
+    res = {}
+    t = time.perf_counter()
+    eager = eager_once(torch, pipe, kw)
+    res["eager_image_s"] = time.perf_counter() - t
+    log(f"[sdxl eager] one image of seed 5 and its decode: {res['eager_image_s']:.1f} s")
+    res["graphed"] = run_mode(torch, dev, pipe, "sdxl graphed", CompilationConfig.Default(),
+                              EXPECTED_SDXL_LAUNCHES, None, base=kw)
+    res["graphed"]["vs_eager"] = compare_runs(torch, "sdxl graphed vs eager", eager,
+                                              res["graphed"])
+    res["fused"] = run_mode(torch, dev, pipe, "sdxl fused loop",
+                            CompilationConfig(fuse_denoising_loop=True), EXPECTED_SDXL_LAUNCHES,
+                            None, base=kw)
+    res["fused"]["vs_stepwise"] = compare_runs(torch, "sdxl fused loop vs stepwise graphs",
+                                               res["graphed"], res["fused"])
+    loop = res["fused"]["graphs"].get(f"denoise_loop_{SDXL_STEPS}")
+    if loop is None:
+        raise AssertionError("sdxl fused loop: no denoise_loop graph was captured")
+    log(f"[sdxl fused loop] the loop's graph: {loop['nodes']} nodes, captured in "
+        f"{loop['capture_s']:.3f} s, instantiated in {loop['instantiate_s']:.3f} s")
+    log_pools(torch, pipe, "sdxl after the fused loop")
+
+    pipe.set_compilation_config(CompilationConfig.Default())
+    pipe(**kw, seed=0, output_type="latent")  # the stepwise graphs again
+    gen = torch.Generator(device=dev).manual_seed(23)
+    with torch.inference_mode():
+        ids = kw["prompt_ids"].to(dev)
+        cond, pooled = pipe.encode_prompt_xl(ids, pipe._ids_for_encoder_2(None, ids))
+        ctx = torch.cat([torch.zeros_like(cond), cond])
+        added = {"text_embeds": torch.cat([torch.zeros_like(pooled), pooled]),
+                 "time_ids": pipe._time_ids((SDXL_HW, SDXL_HW), (0, 0), (SDXL_HW, SDXL_HW), 1)}
+        x = torch.randn((2, SDXL_HW // 8, SDXL_HW // 8, 4), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        z = torch.randn((1, SDXL_HW // 8, SDXL_HW // 8, 4), generator=gen,
+                        device=dev) / SDXL_VAE.scaling_factor
+    res["route"] = route_check(torch, dev, pipe, "sdxl", CompilationConfig.Default(),
+                               MODEL_RMS_REL, (x, torch.tensor(801.0, device=dev), ctx),
+                               {"added_cond_kwargs": added}, z)
+    res["plain_routes"] = plain_routes_sdxl(torch, dev, pipe)
+
+    image, _ = synthetic_image(SDXL_HW)
+    extra = dict(image=image, strength=STRENGTH)
+    res["img2img"] = run_mode(torch, dev, pipe, "sdxl img2img", CompilationConfig.Default(),
+                              EXPECTED_SDXL_IMG2IMG_LAUNCHES, None, base=kw, **extra)
+    res["img2img"]["vs_eager"] = compare_runs(torch, "sdxl img2img graphed vs eager",
+                                              eager_once(torch, pipe, dict(kw, **extra)),
+                                              res["img2img"])
+    log_pools(torch, pipe, "sdxl")
+    res["encode"] = encode_route_check(
+        torch, pipe, preprocess_image(image, torch.bfloat16, dev), "sdxl encode",
+        {"conv3x3": 20, "group_norm_stats": 10})
+    pipe.set_compilation_config(CompilationConfig.Default())  # drops every graph
+    del pipe
+    torch.cuda.empty_cache()
+    return res
+
+
+def graphed_check(torch, pipe, label, cfg, expected, kw, eager, bit=False):
+    """One path of phase 11: the capture, the counted image (its e2e), the
+    latents and image of seed 5 against ``eager``'s (bit for bit where
+    ``bit``)."""
+    from sfast_tpu_torch.runtime import cuda_build
+    from sfast_tpu_torch.utils.image import denormalize_to_uint8
+
+    pipe.set_compilation_config(cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pipe(**kw, seed=0, output_type="pt")  # captures the path's graphs
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    cuda_build.reset_launch_counts()
+    t = time.perf_counter()
+    img = pipe(**kw, seed=0, output_type="pt").images
+    torch.cuda.synchronize()
+    e2e = (time.perf_counter() - t) * 1e3
+    counts = dict(cuda_build.launch_counts)
+    log(f"[{label}] first image {first_ms:.1f} ms, then {e2e:.1f} ms; launches per image: "
+        f"{counts}")
+    if counts != expected:
+        raise AssertionError(f"[{label}] launch counts {counts} != {expected}")
+    if img.shape != (1, kw["height"], kw["width"], 3) or img.float().std() == 0:
+        raise AssertionError(f"[{label}] image {tuple(img.shape)} is constant or misshapen")
+    latents = pipe(**kw, seed=5, output_type="latent").images
+    with torch.inference_mode():
+        u8 = denormalize_to_uint8(pipe.vae.decode(latents / pipe.vae.config.scaling_factor))
+    got = {"latents": latents, "u8": u8}
+    vs = compare_runs(torch, f"{label} vs eager", eager, got)
+    vs["latents_equal"] = torch.equal(latents, eager["latents"])
+    if bit and not (vs["latents_equal"] and vs["max_uint8_diff"] == 0):
+        raise AssertionError(f"[{label}] not bit for bit against eager: {vs}")
+    return {"counts": counts, "first_ms": first_ms, "e2e_ms": e2e, "vs_eager": vs,
+            "graphs": graph_summary(torch, pipe, replay=False), "latents": latents}
+
+
+def run_schedulers(torch, dev, pipe):
+    """Phase 11: LCM (graphed, fused, seeds), an LCM-distilled UNet, and
+    ancestral Euler and DDIM on phase 4's SD1.5 pipeline."""
+    import dataclasses
+
+    import sfast_tpu_torch
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.models import SD15_UNET, UNet2DConditionModel, init_weights_
+    from sfast_tpu_torch.pipelines import StableDiffusionPipeline
+    from sfast_tpu_torch.schedulers import (
+        DDIMScheduler, EulerAncestralDiscreteScheduler, LCMScheduler, compile_scheduler,
+    )
+
+    res = {}
+    original = pipe.scheduler
+    pipe.scheduler = compile_scheduler(LCMScheduler())
+    kw = call_kwargs(torch, num_inference_steps=LCM_STEPS, guidance_scale=1.0)
+    eager = eager_once(torch, pipe, kw)
+    res["lcm"] = graphed_check(torch, pipe, "lcm graphed", CompilationConfig.Default(),
+                               EXPECTED_LCM_LAUNCHES, kw, eager, bit=True)
+    res["lcm_fused_loop"] = graphed_check(
+        torch, pipe, "lcm fused loop", CompilationConfig(fuse_denoising_loop=True),
+        EXPECTED_LCM_LAUNCHES, kw, eager, bit=True)
+    other = pipe(**kw, seed=6, output_type="latent").images
+    res["lcm"]["seed_6_differs"] = not torch.equal(other, res["lcm_fused_loop"]["latents"])
+    log(f"[lcm] seeds 5 and 6 give different latents: {res['lcm']['seed_6_differs']}")
+    if not res["lcm"]["seed_6_differs"]:
+        raise AssertionError("[lcm] two seeds gave the same latents")
+    for name, sched in (("euler_ancestral", EulerAncestralDiscreteScheduler()),
+                        ("ddim", DDIMScheduler())):
+        pipe.scheduler = compile_scheduler(sched)
+        kw = call_kwargs(torch)
+        res[name] = graphed_check(torch, pipe, f"{name} graphed", CompilationConfig.Default(),
+                                  EXPECTED_LAUNCHES, kw, eager_once(torch, pipe, kw))
+    log_pools(torch, pipe, "sd1.5 schedulers")
+    pipe.scheduler = original
+    pipe.set_compilation_config(CompilationConfig.Default())
+
+    bf16 = torch.bfloat16
+    unet = init_weights_(UNet2DConditionModel(
+        dataclasses.replace(SD15_UNET, time_cond_proj_dim=LCM_COND_DIM), device=dev, dtype=bf16),
+        torch.Generator(device=dev).manual_seed(24))
+    lpipe = sfast_tpu_torch.compile(StableDiffusionPipeline(
+        unet, pipe.vae.module, pipe.text_encoder.module, LCMScheduler(), device=dev, dtype=bf16))
+    kw = call_kwargs(torch, num_inference_steps=LCM_STEPS, guidance_scale=8.0)
+    res["lcm_distilled"] = graphed_check(
+        torch, lpipe, "lcm-distilled unet graphed", CompilationConfig.Default(),
+        EXPECTED_LCM_LAUNCHES, kw, eager_once(torch, lpipe, kw))
+    log_pools(torch, lpipe, "lcm-distilled unet")
+    lpipe.set_compilation_config(CompilationConfig.Default())
+    for r in res.values():
+        r.pop("latents")
+    return res
+
+
+def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_res,
+                 prompt_res, phase_s):
+    """The ``{"kernels": [...]}`` line: per kernel its launches per image on
+    each path (``launches``: the stepwise paths' sum) and the main-path
+    case's numbers, every case under ``cases``; then each path's numbers."""
+    paths = {}
+    for name, res in (("default", default), ("optin", optin)):
+        for mode in ("eager", "graphed"):
+            paths[f"{name} {mode}"] = res[mode]
+        paths[f"{name} graphed"]["vs_eager"] = res["graphed_vs_eager"]
+    paths["fused loop"] = fused
+    paths["img2img"], paths["inpaint"] = img2img["img2img"], img2img["inpaint"]
+    paths["sdxl graphed"], paths["sdxl fused loop"] = sdxl["graphed"], sdxl["fused"]
+    paths["sdxl img2img"] = sdxl["img2img"]
+    for name, r in scheds.items():
+        paths[name.replace("_", " ")] = r
+    keep = ("e2e_ms", "device_ms", "idle", "cuda_kernels", "profiled_wall_ms", "traced_wall_ms",
+            "peak_gib", "peak_reserved_gib", "graphs", "vs_eager", "vs_default_eager",
+            "vs_stepwise", "first_ms", "seed_6_differs")
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        first = measured[name][0]
+        per_image = {"default": default["graphed"]["counts"][name],
+                     "optin": optin["graphed"]["counts"][name],
+                     "fused_loop": fused["counts"][name],
+                     "img2img": img2img["img2img"]["counts"][name],
+                     "inpaint": img2img["inpaint"]["counts"][name],
+                     "sdxl": sdxl["graphed"]["counts"][name],
+                     "sdxl_fused_loop": sdxl["fused"]["counts"][name],
+                     "sdxl_img2img": sdxl["img2img"]["counts"][name],
+                     **{k: r["counts"][name] for k, r in scheds.items()}}
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(n for p, n in per_image.items() if "fused_loop" not in p),
+            "launches_per_image": per_image,
+            **{key: first[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "plain_device_ms", "share_of_bound", "library")},
+            "cases": measured[name],
+        })
+    return json.dumps({"kernels": kernels,
+                       "group_norm_per_eval_ms": measured["group_norm_per_eval_ms"],
+                       "paths": {k: {f: v[f] for f in keep if f in v} for k, v in paths.items()},
+                       "encode": {k: v for k, v in img2img.items() if k.startswith("encode_")},
+                       "lora": lora_res, "prompt": prompt_res,
+                       "sdxl": {"eager_image_s": sdxl["eager_image_s"], "route": sdxl["route"],
+                                "plain_routes": sdxl["plain_routes"], "encode": sdxl["encode"]},
+                       "phase_s": phase_s})
+
+
 def main():
     import torch
 
@@ -1142,38 +1565,12 @@ def main():
     img2img = phase("7 img2img", run_img2img, torch, dev, pipe)
     lora_res = phase("8 lora", run_lora, torch, dev, pipe)
     prompt_res = phase("9 prompt string", run_prompt_string, torch, pipe)
+    log_pools(torch, pipe, "sd1.5 phases 4 to 9")
+    sdxl = phase("10 sdxl", run_sdxl, torch, dev)
+    scheds = phase("11 schedulers", run_schedulers, torch, dev, pipe)
 
-    paths = {}
-    for name, res in (("default", default), ("optin", optin)):
-        for mode in ("eager", "graphed"):
-            paths[f"{name} {mode}"] = res[mode]
-        paths[f"{name} graphed"]["vs_eager"] = res["graphed_vs_eager"]
-    paths["fused loop"] = fused
-    paths["img2img"], paths["inpaint"] = img2img["img2img"], img2img["inpaint"]
-    keep = ("e2e_ms", "device_ms", "idle", "cuda_kernels", "profiled_wall_ms", "traced_wall_ms",
-            "peak_gib", "peak_reserved_gib", "graphs", "vs_eager", "vs_default_eager")
-    kernels = []
-    for name, (source, replaces) in KERNELS.items():
-        first = measured[name][0]
-        per_image = {"default": default["graphed"]["counts"][name],
-                     "optin": optin["graphed"]["counts"][name],
-                     "fused_loop": fused["counts"][name],
-                     "img2img": img2img["img2img"]["counts"][name],
-                     "inpaint": img2img["inpaint"]["counts"][name]}
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(per_image[p] for p in ("default", "optin", "img2img", "inpaint")),
-            "launches_per_image": per_image,
-            **{key: first[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "device_ms", "plain_device_ms", "share_of_bound", "library")},
-            "cases": measured[name],
-        })
-    print(json.dumps({"kernels": kernels,
-                      "group_norm_per_eval_ms": measured["group_norm_per_eval_ms"],
-                      "paths": {k: {f: v[f] for f in keep if f in v} for k, v in paths.items()},
-                      "encode": {k: v for k, v in img2img.items() if k.startswith("encode_")},
-                      "lora": lora_res, "prompt": prompt_res, "phase_s": phase_s}))
+    print(kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_res,
+                       prompt_res, phase_s))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """sfast_tpu_torch — the PyTorch / CUDA port of sfast_tpu.
 
 The JAX package ``sfast_tpu`` stays the reference.  This package runs
-SD1.5 text2img, img2img and inpainting (prompt strings through
-``text/clip_tokenizer.py``, LoRA hot-swap through ``lora.py``) on an
-NVIDIA H100 with PyTorch, through CUDA kernels
-written by hand for Hopper, eight sources in ``csrc/``: flash attention
+SD1.5 and SDXL text2img, img2img and inpainting (prompt strings through
+``text/clip_tokenizer.py``, LoRA hot-swap through ``lora.py``; DPM++,
+Euler, Euler ancestral, DDIM, EDM Euler and LCM, an LCM-distilled UNet
+included) on an NVIDIA H100 with PyTorch, through CUDA kernels written by
+hand for Hopper, eight sources in ``csrc/``: flash attention
 (K1), the fused GroupNorm+SiLU→3×3 conv (K2), GroupNorm statistics (K3),
 GroupNorm apply (K5), the fused GroupNorm (K3′ and K5 in one launch),
 linear + GEGLU (K4), and int8 flash attention (K6) with its quantization

@@ -1,6 +1,6 @@
 """Compilation configuration of the PyTorch port.
 
-The fields the SD1.5 text2img slice reads, with the same defaults as
+The fields the port reads, with the same defaults as
 ``sfast_tpu.config.CompilationConfig``.  Kernel routes:
 
 - ``enable_flash_attention``: long self-attention goes to the hand-written
@@ -31,10 +31,10 @@ enable_cuda_graph               ``enable_cuda_graph`` (≙ ``enable_jit`` and
                                 decode and encode and CLIP replay one CUDA
                                 graph per input signature.  False runs them
                                 eagerly.
-trace_scheduler                 ``trace_scheduler``: the DPM++ step replays
-                                a graph too, one graph for all the steps
-                                (its index and coefficients are device
-                                tensors).
+trace_scheduler                 ``trace_scheduler``: the scheduler's step
+                                replays a graph too, one graph for all the
+                                steps (its index and tables are device
+                                tensors, its noise an input).
 (new in JAX)                    ``fuse_denoising_loop``: the whole N-step
                                 loop (CFG concat, UNet, guidance, step) is
                                 one graph (JAX: one ``fori_loop``

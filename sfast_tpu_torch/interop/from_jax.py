@@ -4,9 +4,11 @@ The JAX package keeps its weights as nested dicts of arrays (linear
 ``w`` as (in, out), conv ``w`` as HWIO, norms as ``scale``/``bias``).  These
 functions turn such a tree — numpy arrays, or JAX arrays, which numpy
 reads without importing JAX — into f32 state dicts for
-``UNet2DConditionModel``, ``AutoencoderKL`` (decoder) and
-``CLIPTextModel``, whose ``load_state_dict`` casts to the model's dtype,
-and LoRA trees into the port's LoRA layout (``sfast_tpu_torch/lora.py``).
+``UNet2DConditionModel`` (SDXL's ``add_embedding`` and an LCM UNet's
+``time_embedding.cond_proj`` included), ``AutoencoderKL`` (both halves)
+and ``CLIPTextModel`` (with ``text_projection``), whose
+``load_state_dict`` casts to the model's dtype, and LoRA trees into the
+port's LoRA layout (``sfast_tpu_torch/lora.py``).
 
 UNet and VAE follow ``sfast_tpu/interop/export_unet.py:16-126`` and
 ``export_vae.py:16-63``; CLIP is the inverse of ``convert_clip.py:28-88``.
@@ -78,8 +80,10 @@ def unet_state_dict(params) -> StateDict:
     """``init_unet_params`` tree → ``UNet2DConditionModel`` state dict."""
     sd: StateDict = {}
     _put_conv(sd, "conv_in", params["conv_in"])
-    _put_lin(sd, "time_embedding.linear_1", params["time_embedding"]["linear_1"])
-    _put_lin(sd, "time_embedding.linear_2", params["time_embedding"]["linear_2"])
+    for name, p in params["time_embedding"].items():  # linear_1, linear_2, LCM's cond_proj
+        _put_lin(sd, f"time_embedding.{name}", p)
+    for name, p in params.get("add_embedding", {}).items():  # SDXL's text_time MLP
+        _put_lin(sd, f"add_embedding.{name}", p)
     for part in ("down_blocks", "up_blocks"):
         for i, blk in enumerate(params[part]):
             pre = f"{part}.{i}."
@@ -156,6 +160,8 @@ def clip_text_state_dict(params) -> StateDict:
         _put_norm(sd, lp + "layer_norm2", lyr["layer_norm2"])
         _put_lin(sd, lp + "mlp.fc1", lyr["fc1"])
         _put_lin(sd, lp + "mlp.fc2", lyr["fc2"])
+    if "text_projection" in params:  # CLIPTextModelWithProjection: top level
+        _put_lin(sd, "text_projection", params["text_projection"])
     return sd
 
 

@@ -1,8 +1,17 @@
-"""The SD1.5 models of the port: CLIP text encoder, UNet, VAE."""
+"""The models of the port: CLIP text encoders, UNet, VAE (SD1.5, SD2.x,
+SDXL)."""
 
-from sfast_tpu_torch.models.autoencoder_kl import SD_VAE, TINY_TEST_VAE, AutoencoderKL, VAEConfig
+from sfast_tpu_torch.models.autoencoder_kl import (
+    SD_VAE,
+    SDXL_VAE,
+    TINY_TEST_VAE,
+    AutoencoderKL,
+    VAEConfig,
+)
 from sfast_tpu_torch.models.clip_text import (
     SD15_TEXT_ENCODER,
+    SD21_TEXT_ENCODER,
+    SDXL_TEXT_ENCODER_2,
     TINY_TEXT_ENCODER,
     CLIPTextConfig,
     CLIPTextModel,
@@ -10,13 +19,16 @@ from sfast_tpu_torch.models.clip_text import (
 from sfast_tpu_torch.models.layers import init_weights_
 from sfast_tpu_torch.models.unet_2d_condition import (
     SD15_UNET,
+    SD21_UNET,
+    SDXL_UNET,
     TINY_UNET,
     UNet2DConditionModel,
     UNetConfig,
 )
 
 __all__ = [
-    "AutoencoderKL", "CLIPTextConfig", "CLIPTextModel", "SD15_TEXT_ENCODER",
-    "SD15_UNET", "SD_VAE", "TINY_TEST_VAE", "TINY_TEXT_ENCODER", "TINY_UNET",
-    "UNet2DConditionModel", "UNetConfig", "VAEConfig", "init_weights_",
+    "AutoencoderKL", "CLIPTextConfig", "CLIPTextModel", "SD15_TEXT_ENCODER", "SD15_UNET",
+    "SD21_TEXT_ENCODER", "SD21_UNET", "SDXL_TEXT_ENCODER_2", "SDXL_UNET", "SDXL_VAE", "SD_VAE",
+    "TINY_TEST_VAE", "TINY_TEXT_ENCODER", "TINY_UNET", "UNet2DConditionModel", "UNetConfig",
+    "VAEConfig", "init_weights_",
 ]

@@ -41,6 +41,7 @@ class VAEConfig:
 
 
 SD_VAE = VAEConfig()
+SDXL_VAE = VAEConfig(scaling_factor=0.13025)
 TINY_TEST_VAE = VAEConfig(block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8)
 
 

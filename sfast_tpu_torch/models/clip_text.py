@@ -1,16 +1,29 @@
-"""CLIP text encoder — transformers' ``CLIPTextModel``, last hidden state.
+"""CLIP text encoders — transformers' ``CLIPTextModel`` and
+``CLIPTextModelWithProjection``.
 
-Counterpart of ``sfast_tpu/models/clip_text.py`` for SD1.5's encoder
-(CLIP ViT-L/14: quick_gelu, causal self-attention, final LayerNorm).  The
-module carries transformers' state-dict names (``text_model.encoder.
-layers.{i}.self_attn.q_proj``...).  Attention runs on the plain path
-(seq 77), as JAX forces it (``clip_text.py:128``).
+Counterpart of ``sfast_tpu/models/clip_text.py``: SD1.5's encoder (CLIP
+ViT-L/14: quick_gelu, last hidden state), SD2.x's (OpenCLIP ViT-H: exact
+gelu) and SDXL's two (ViT-L and OpenCLIP ViT-bigG with its projection).
+The module carries transformers' state-dict names (``text_model.encoder.
+layers.{i}.self_attn.q_proj``..., the projection's ``text_projection``
+at the top level).  Attention runs on the plain path (seq 77), as JAX
+forces it (``clip_text.py:128``).
+
+``forward(ids, output=...)`` returns what a pipeline reads and no more:
+``'last'``, the last hidden state (SD1.5); ``'penultimate'``, the output
+of layer L−1 before the final LayerNorm (JAX's ``hidden_states[-2]``;
+SD2.x and SDXL's first encoder), which runs L−1 layers; or
+``'penultimate_pooled'``, that and the projected pooled output (JAX's
+``text_embeds``, the final LayerNorm's output at the first EOS; SDXL's
+second encoder).  A captured graph is keyed by the mode.
 """
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from sfast_tpu_torch.models.layers import LayerNorm, Linear
 from sfast_tpu_torch.ops.attention import dot_product_attention
@@ -25,13 +38,25 @@ class CLIPTextConfig:
     num_layers: int = 12
     num_heads: int = 12
     max_position_embeddings: int = 77
+    hidden_act: str = "quick_gelu"  # 'quick_gelu' (ViT-L) | 'gelu' (OpenCLIP, exact erf)
+    projection_dim: Optional[int] = None  # set for CLIPTextModelWithProjection
+    # the pooled output sits at the first EOS
     eos_token_id: int = 49407
-    # what SD1.5's tokenizer pads with (EOS), used to synthesize the
-    # empty-prompt ids when no tokenizer is attached
+    # what the paired tokenizer pads with: EOS for SD1.5's, 0 ('!') for
+    # SD2.x's and SDXL's second; used to synthesize the empty-prompt ids
+    # when no tokenizer is attached
     pad_token_id: int = 49407
 
 
 SD15_TEXT_ENCODER = CLIPTextConfig()
+SD21_TEXT_ENCODER = CLIPTextConfig(
+    hidden_size=1024, intermediate_size=4096, num_layers=23, num_heads=16, hidden_act="gelu",
+    pad_token_id=0,
+)
+SDXL_TEXT_ENCODER_2 = CLIPTextConfig(
+    hidden_size=1280, intermediate_size=5120, num_layers=32, num_heads=20, hidden_act="gelu",
+    projection_dim=1280, pad_token_id=0,
+)
 # JAX's tiny config keeps SD1.5's EOS id 49407, past its 1000-token vocab;
 # JAX clamps the lookup to row 999, which this config names outright.
 TINY_TEXT_ENCODER = CLIPTextConfig(
@@ -64,14 +89,18 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPMLP(nn.Module):
-    def __init__(self, dim: int, inner: int, *, device=None, dtype=None):
+    def __init__(self, dim: int, inner: int, act: str = "quick_gelu", *, device=None,
+                 dtype=None):
         super().__init__()
+        if act not in ("quick_gelu", "gelu"):
+            raise ValueError(f"hidden_act {act!r}")
+        self.act = act
         self.fc1 = Linear(dim, inner, device=device, dtype=dtype)
         self.fc2 = Linear(inner, dim, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(x).float()
-        h = h * torch.sigmoid(1.702 * h)  # quick_gelu
+        h = h * torch.sigmoid(1.702 * h) if self.act == "quick_gelu" else F.gelu(h)
         return self.fc2(h.to(x.dtype))
 
 
@@ -83,7 +112,7 @@ class CLIPEncoderLayer(nn.Module):
         self.layer_norm1 = LayerNorm(cfg.hidden_size, **f32)
         self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads, **mk)
         self.layer_norm2 = LayerNorm(cfg.hidden_size, **f32)
-        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, **mk)
+        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act, **mk)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         h = h + self.self_attn(self.layer_norm1(h))
@@ -120,17 +149,41 @@ class CLIPTextTransformer(nn.Module):
         self.final_layer_norm = LayerNorm(cfg.hidden_size, device=device, dtype=torch.float32)
 
 
+_OUTPUTS = ("last", "penultimate", "penultimate_pooled")
+
+
 class CLIPTextModel(nn.Module):
-    """``forward(input_ids (B, S) int) → last_hidden_state (B, S, D)``."""
+    """``forward(input_ids (B, S) int, output='last')``: see the module
+    docstring for the modes.  With ``projection_dim`` the module holds
+    transformers' ``CLIPTextModelWithProjection`` weights."""
 
     def __init__(self, cfg: CLIPTextConfig = SD15_TEXT_ENCODER, *, device=None, dtype=None):
         super().__init__()
         self.config = cfg
-        self.text_model = CLIPTextTransformer(cfg, device=resolve_device(device), dtype=dtype)
+        device = resolve_device(device)
+        self.text_model = CLIPTextTransformer(cfg, device=device, dtype=dtype)
+        self.text_projection = (
+            Linear(cfg.hidden_size, cfg.projection_dim, bias=False, device=device, dtype=dtype)
+            if cfg.projection_dim is not None else None
+        )
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, output: str = "last"):
+        if output not in _OUTPUTS:
+            raise ValueError(f"output {output!r}: one of {_OUTPUTS}")
+        if output == "penultimate_pooled" and self.text_projection is None:
+            raise ValueError("'penultimate_pooled' needs a text_projection (projection_dim)")
         tm = self.text_model
+        layers = tm.encoder.layers
         h = tm.embeddings(input_ids)
-        for layer in tm.encoder.layers:
+        for layer in layers[:-1]:
             h = layer(h)
-        return tm.final_layer_norm(h)
+        if output == "penultimate":
+            return h
+        penultimate = h
+        last = tm.final_layer_norm(layers[-1](h))
+        if output == "last":
+            return last
+        # the pooled output: the final LayerNorm's output at the first EOS
+        eos_pos = (input_ids == self.config.eos_token_id).int().argmax(dim=-1)
+        pooled = last[torch.arange(last.shape[0], device=last.device), eos_pos]
+        return penultimate, self.text_projection(pooled)

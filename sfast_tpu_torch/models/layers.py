@@ -130,13 +130,50 @@ def timestep_embedding(
 
 
 class TimestepEmbedding(nn.Module):
-    def __init__(self, cin: int, time_dim: int, *, device=None, dtype=None):
-        super().__init__()
-        self.linear_1 = Linear(cin, time_dim, device=device, dtype=dtype)
-        self.linear_2 = Linear(time_dim, time_dim, device=device, dtype=dtype)
+    """diffusers TimestepEmbedding; with ``cond_proj_dim``, the bias-free
+    ``cond_proj`` of an LCM-distilled UNet, which adds the projected
+    guidance embedding to the timestep embedding (JAX ``layers.py:293-320``)."""
 
-    def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
+    def __init__(self, cin: int, time_dim: int, *, cond_proj_dim: Optional[int] = None,
+                 device=None, dtype=None):
+        super().__init__()
+        mk = dict(device=device, dtype=dtype)
+        self.linear_1 = Linear(cin, time_dim, **mk)
+        self.linear_2 = Linear(time_dim, time_dim, **mk)
+        self.cond_proj = (Linear(cond_proj_dim, cin, bias=False, **mk)
+                          if cond_proj_dim is not None else None)
+
+    def forward(self, t_emb: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if cond is not None and self.cond_proj is not None:
+            t_emb = t_emb + self.cond_proj(cond.to(t_emb.dtype))
         return self.linear_2(self.linear_1(t_emb, act="silu"))
+
+
+def guidance_scale_embedding(w, dim: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Sinusoidal embedding of a guidance weight (diffusers'
+    ``LatentConsistencyModelPipeline.get_guidance_scale_embedding``, JAX
+    ``layers.py:323-342``): ``w`` times 1000 over log-spaced frequencies,
+    the sin half then the cos half.  The caller passes ``w = gs − 1``;
+    ``w`` is a scalar or (B,), the result (B, dim)."""
+    w = torch.atleast_1d(torch.as_tensor(w)).float() * 1000.0
+    half = dim // 2
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=w.device)
+                      * (-math.log(10000.0) / (half - 1)))
+    emb = w[:, None] * freqs[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb.to(dtype)
+
+
+def lcm_timestep_cond(guidance_scale, tcond_dim: Optional[int], batch: int):
+    """The LCM ``timestep_cond`` input (B, tcond_dim) from the guidance
+    scale (``w = gs − 1``), or None for a UNet without ``cond_proj``: the
+    one site of the convention, for the stepwise and the fused paths of
+    both pipelines (JAX ``layers.py:345-357``)."""
+    if tcond_dim is None:
+        return None
+    return guidance_scale_embedding(guidance_scale - 1.0, tcond_dim).expand(batch, tcond_dim)
 
 
 # ---------------------------------------------------------------------------

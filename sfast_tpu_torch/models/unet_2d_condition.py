@@ -1,15 +1,18 @@
-"""UNet2DConditionModel for SD1.5, NHWC, as an ``nn.Module`` with
-diffusers' state-dict names.
+"""UNet2DConditionModel for SD1.5, SD2.x and SDXL, NHWC, as an
+``nn.Module`` with diffusers' state-dict names.
 
-Counterpart of ``sfast_tpu/models/unet_2d_condition.py`` without the
-parts the text2img slice does not run (ControlNet residuals, IP-Adapter,
-LCM ``cond_proj``, SDXL ``text_time``, weight stacking).  Head counts
-follow diffusers' legacy SD1.5 reading of ``attention_head_dim`` as the
-number of heads (8 → head dim 40 / 80 / 160).
+Counterpart of ``sfast_tpu/models/unet_2d_condition.py``, with SDXL's
+``text_time`` addition embedding (the pooled text embeds and the six
+micro-conditioning ids, ``add_embedding``) and an LCM-distilled UNet's
+``time_embedding.cond_proj`` (``timestep_cond``, the embedded guidance
+scale); without the parts no ported pipeline runs yet (ControlNet
+residuals, IP-Adapter, weight stacking).  Head counts follow diffusers'
+legacy SD1.5 reading of ``attention_head_dim`` as the number of heads (8 →
+head dim 40 / 80 / 160); SDXL's 5 / 10 / 20 heads are of dim 64.
 """
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -51,9 +54,15 @@ class UNetConfig:
     num_heads: Tuple[int, ...] = (8, 8, 8, 8)
     cross_attention_dim: int = 768
     use_linear_projection: bool = False
+    addition_embed_type: Optional[str] = None  # None | 'text_time' (SDXL)
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: Optional[int] = None  # SDXL: 1280 + 6·256
     norm_num_groups: int = 32
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
+    # an LCM-distilled UNet (e.g. SimianLuo/LCM_Dreamshaper_v7: 256): the
+    # width of the guidance embedding that time_embedding.cond_proj takes
+    time_cond_proj_dim: Optional[int] = None
 
     @property
     def time_embed_dim(self) -> int:
@@ -61,6 +70,21 @@ class UNetConfig:
 
 
 SD15_UNET = UNetConfig()
+SD21_UNET = dataclasses.replace(
+    SD15_UNET, cross_attention_dim=1024, num_heads=(5, 10, 20, 20), use_linear_projection=True,
+)
+SDXL_UNET = UNetConfig(
+    sample_size=128,
+    block_out_channels=(320, 640, 1280),
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+    transformer_layers_per_block=(1, 2, 10),
+    num_heads=(5, 10, 20),
+    cross_attention_dim=2048,
+    use_linear_projection=True,
+    addition_embed_type="text_time",
+    projection_class_embeddings_input_dim=2816,
+)
 # Tiny config for CPU tests (structure-identical to SD15), as in JAX.
 TINY_UNET = UNetConfig(
     sample_size=16,
@@ -130,7 +154,13 @@ class UNet2DConditionModel(nn.Module):
             )
 
         self.conv_in = Conv2d(cfg.in_channels, boc[0], 3, padding=1, **mk)
-        self.time_embedding = TimestepEmbedding(boc[0], temb, **mk)
+        self.time_embedding = TimestepEmbedding(boc[0], temb,
+                                                cond_proj_dim=cfg.time_cond_proj_dim, **mk)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim,
+                                                   temb, **mk)
+        elif cfg.addition_embed_type is not None:
+            raise ValueError(f"addition_embed_type {cfg.addition_embed_type!r}")
 
         down = []
         c_out = boc[0]
@@ -179,10 +209,15 @@ class UNet2DConditionModel(nn.Module):
         sample: torch.Tensor,
         timesteps: torch.Tensor,
         encoder_hidden_states: torch.Tensor,
+        added_cond_kwargs: Optional[dict] = None,
+        timestep_cond: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """sample (B, H, W, C_in) NHWC latents, timesteps () or (B,),
         encoder_hidden_states (B, S, cross_dim) → predicted noise
-        (B, H, W, C_out)."""
+        (B, H, W, C_out).  SDXL's ``added_cond_kwargs`` holds
+        ``text_embeds`` (B, pooled_dim) and ``time_ids`` (B, 6); an LCM
+        UNet's ``timestep_cond`` is the (B, time_cond_proj_dim) guidance
+        embedding."""
         cfg = self.config
         be = backends(self.compilation_config)
         dtype = self.conv_in.weight.dtype
@@ -192,7 +227,15 @@ class UNet2DConditionModel(nn.Module):
             timesteps, cfg.block_out_channels[0],
             flip_sin_to_cos=cfg.flip_sin_to_cos, freq_shift=cfg.freq_shift,
         ).to(dtype)
-        emb = self.time_embedding(t_emb)
+        emb = self.time_embedding(t_emb, cond=timestep_cond)
+        if cfg.addition_embed_type == "text_time":
+            text_embeds = added_cond_kwargs["text_embeds"]
+            t_ids = timestep_embedding(
+                added_cond_kwargs["time_ids"].reshape(-1), cfg.addition_time_embed_dim,
+                flip_sin_to_cos=cfg.flip_sin_to_cos, freq_shift=cfg.freq_shift,
+            ).reshape(text_embeds.shape[0], -1)
+            add = torch.cat([text_embeds.float(), t_ids], dim=-1).to(dtype)
+            emb = emb + self.add_embedding(add)
         context = encoder_hidden_states.to(dtype)
 
         def resnet(rn, h):

@@ -21,15 +21,30 @@ Two ways through the denoising loop, as in JAX:
   index, the timestep and the guidance scale are device tensors, so one
   graph of each serves every step;
 - **fused** (``fuse_denoising_loop``): the N steps (CFG concat, UNet,
-  guidance combine, step) are one CUDA graph, keyed by the step count and
-  CFG (JAX's ``lkey``, ``:899-902``) and by the latents' shape and dtype.
-  img2img entering after step 0 and inpainting take the stepwise loop, as
-  in JAX (``:820-825``).
+  guidance combine, step) are one CUDA graph, keyed by the step count,
+  CFG, the LCM guidance-embedding width and whether the scheduler takes
+  noise (JAX's ``lkey``, ``:899-902``), and by the latents' shape and
+  dtype.  img2img entering after step 0 and inpainting take the stepwise
+  loop, as in JAX (``:820-825``).
+
+A scheduler that ``needs_noise`` (LCM, ancestral Euler) takes fresh noise
+every step.  JAX splits its key once a step inside the loop
+(``:444-449``, ``:928-945``); here ``_step_noise`` draws the noise of all
+N steps into one buffer before the loop, on the card, from a generator
+seeded per call.  The stepwise path hands ``buf[i]`` to the (graphed)
+step as an ordinary input and the fused loop takes the buffer as an input,
+so no graph draws random numbers: a capture's three warm-up calls would
+advance a generator, and a graph would bake in its Philox state.
+
+An LCM-distilled UNet (``time_cond_proj_dim``) takes the guidance scale as
+an embedding (``timestep_cond``) and runs without CFG whatever the scale;
+any UNet runs without CFG at a scale ≤ 1 (JAX ``:736-742``).
 
 JAX's single-dispatch fused pipeline (``:466-647``) is three graphs here:
-CLIP, the loop and the VAE decode; the initial latents and img2img's two
-noise draws are drawn eagerly before them (torch's Philox is not JAX's
-threefry, so images from a seed differ between the packages in any case).
+CLIP, the loop and the VAE decode; the initial latents, img2img's two
+noise draws and the step noise are drawn eagerly before them (torch's
+Philox is not JAX's threefry, so images from a seed differ between the
+packages in any case).
 """
 
 from typing import List, Optional, Union
@@ -37,6 +52,7 @@ from typing import List, Optional, Union
 import torch
 
 from sfast_tpu_torch.config import CompilationConfig
+from sfast_tpu_torch.models.layers import lcm_timestep_cond
 from sfast_tpu_torch.runtime.executable_cache import global_executable_cache
 from sfast_tpu_torch.runtime.shape_bucket import pad_batch, unpad_batch
 from sfast_tpu_torch.runtime.tracing import LazyCompiledFunction
@@ -47,6 +63,11 @@ from sfast_tpu_torch.utils.image import (
     preprocess_image,
     preprocess_mask_image,
 )
+
+
+# mixes a call's seed into the seed of its step noise (a 64-bit odd constant,
+# the golden ratio's)
+_STEP_NOISE_MIX = 0x9E3779B97F4A7C15
 
 
 class PipelineOutput:
@@ -79,7 +100,8 @@ class StableDiffusionPipeline:
         self.device = torch.device(device) if device is not None else unet.conv_in.weight.device
         self.dtype = dtype
         self._ccfg = CompilationConfig.Default()
-        # fused loops by (steps, CFG): a loop's graph bakes its trip count in
+        # fused loops by (steps, CFG, LCM embedding width, step noise): a
+        # loop's graph bakes its trip count and branches in
         self._fused_loops = {}
         self._sched_states = {}
         self._sched_obj = scheduler
@@ -91,13 +113,16 @@ class StableDiffusionPipeline:
         kernel routes it was captured with."""
         self._ccfg = ccfg
         self._drop_fused_loops()
-        for m in (self.unet, self.vae, self.vae_encode, self.text_encoder, self.scheduler):
+        for m in (*self._submodels(), self.scheduler):
             if m is None:
                 continue
             if hasattr(m, "set_compilation_config"):
                 m.set_compilation_config(ccfg)
             elif m is not self.scheduler:
                 m.compilation_config = ccfg
+
+    def _submodels(self):
+        return (self.unet, self.vae, self.vae_encode, self.text_encoder)
 
     def _drop_fused_loops(self) -> None:
         for loop in self._fused_loops.values():
@@ -115,11 +140,16 @@ class StableDiffusionPipeline:
 
     def _scheduler_state(self, num_steps: int):
         """(state with its tables on the device, the step indices 0..N-1 on
-        the device), cached per step count."""
+        the device), cached per step count.  A scheduler without its own
+        ``device_state`` has its numpy tables uploaded as they are."""
         entry = self._sched_states.get(num_steps)
         if entry is None:
             sched = self.scheduler
-            state = sched.device_state(sched.set_timesteps(num_steps), self.device)
+            host = sched.set_timesteps(num_steps)
+            if hasattr(sched, "device_state"):
+                state = sched.device_state(host, self.device)
+            else:
+                state = common.device_state(host, self.device)
             entry = (state, torch.arange(num_steps, device=self.device))
             self._sched_states[num_steps] = entry
         return entry
@@ -188,22 +218,43 @@ class StableDiffusionPipeline:
             negative_prompt_ids = self._empty_prompt_ids(prompt_ids)
         return self.text_encoder(torch.cat([negative_prompt_ids, prompt_ids]))
 
+    @property
+    def _lcm_cond_dim(self) -> Optional[int]:
+        """The UNet's ``time_cond_proj_dim``: set for an LCM-distilled UNet,
+        which takes the guidance scale as an embedding, not CFG."""
+        return getattr(self.unet.config, "time_cond_proj_dim", None)
+
+    def _use_cfg(self, guidance_scale: float) -> bool:
+        return self._lcm_cond_dim is None and guidance_scale > 1.0
+
     @staticmethod
-    def _unet_eps(unet, scheduler, state, i, latents, context, guidance_scale, use_cfg):
+    def _unet_eps(unet, scheduler, state, i, latents, context, guidance_scale, use_cfg,
+                  tcond=None, added=None):
         """One UNet eval on the CFG batch and the guidance combine (``i``
-        an int: the timestep is a view of the device table)."""
+        an int: the timestep is a view of the device table).  ``tcond`` is
+        an LCM UNet's guidance embedding, ``added`` SDXL's
+        ``added_cond_kwargs``."""
         lat_in = torch.cat([latents, latents]) if use_cfg else latents
         lat_in = scheduler.scale_model_input(state, lat_in, i)
-        eps = unet(lat_in, state["timesteps"][i], context)
+        kw = {}
+        if added is not None:
+            kw["added_cond_kwargs"] = added
+        if tcond is not None:
+            kw["timestep_cond"] = tcond
+        eps = unet(lat_in, state["timesteps"][i], context, **kw)
         if not use_cfg:
             return eps
         eps_u, eps_c = eps.float().chunk(2)  # in f32, as JAX promotes bf16 eps
         return eps_u + guidance_scale * (eps_c - eps_u)
 
-    def _fused_loop(self, num_steps: int, use_cfg: bool):
+    def _fused_loop(self, num_steps: int, use_cfg: bool, tcond_dim: Optional[int] = None,
+                    needs_noise: bool = False):
         """The N-step loop as one function (≙ JAX's ``_build_fused_loop``),
-        a :class:`LazyCompiledFunction` when graphs are on."""
-        key = (num_steps, use_cfg)
+        a :class:`LazyCompiledFunction` when graphs are on.  It takes the
+        latents, the context, the state, the guidance scale, the step noise
+        buffer (None unless ``needs_noise``) and SDXL's added conditioning
+        (None for SD)."""
+        key = (num_steps, use_cfg, tcond_dim, needs_noise)
         loop = self._fused_loops.get(key)
         if loop is None:
             # the loop is captured whole, so it calls the module and the
@@ -211,16 +262,22 @@ class StableDiffusionPipeline:
             unet = getattr(self.unet, "module", self.unet)
             scheduler = getattr(self.scheduler, "_scheduler", self.scheduler)
 
-            def denoise_loop(latents, context, state, guidance_scale):
+            def denoise_loop(latents, context, state, guidance_scale, noise, added):
+                tcond = lcm_timestep_cond(guidance_scale, tcond_dim, latents.shape[0])
                 for i in range(num_steps):
                     eps = self._unet_eps(unet, scheduler, state, i, latents, context,
-                                         guidance_scale, use_cfg)
-                    latents, state = scheduler.step(state, eps, i, latents)
+                                         guidance_scale, use_cfg, tcond, added)
+                    if needs_noise:
+                        latents, state = scheduler.step(state, eps, i, latents, noise=noise[i])
+                    else:
+                        latents, state = scheduler.step(state, eps, i, latents)
                 return latents
 
             loop = denoise_loop
             if self._ccfg.enable_cuda_graph:
-                name = f"denoise_loop_{num_steps}" + ("" if use_cfg else "_nocfg")
+                name = (f"denoise_loop_{num_steps}" + ("" if use_cfg else "_nocfg")
+                        + (f"_tc{tcond_dim}" if tcond_dim else "")
+                        + ("_noise" if needs_noise else ""))
                 loop = global_executable_cache().register(
                     name, LazyCompiledFunction(denoise_loop, name=name))
             self._fused_loops[key] = loop
@@ -240,6 +297,25 @@ class StableDiffusionPipeline:
         return tuple(torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
                      for _ in range(2))
 
+    def _step_noise(self, shape, num_steps: int, seed: int) -> torch.Tensor:
+        """The noise of every step of a ``needs_noise`` scheduler: an
+        (N, *shape) f32 buffer drawn on the device, before the loop, from a
+        generator seeded per call with ``seed`` mixed by a fixed odd
+        constant, so that it is not the stream of the initial latents of
+        any seed."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            (seed * _STEP_NOISE_MIX + 1) % 2**63)
+        return torch.randn((num_steps, *shape), generator=gen, device=self.device,
+                           dtype=torch.float32)
+
+    def _init_noise_sigma(self, state):
+        """What the initial noise is scaled by: the state's
+        ``init_noise_sigma`` where it holds one (Euler, EDM), else the
+        scheduler's attribute, else 1 (JAX ``:796``)."""
+        if "init_noise_sigma" in state:
+            return state["init_noise_sigma"]
+        return getattr(self.scheduler, "init_noise_sigma", 1.0)
+
     def _inpaint_blend(self, state, latents, keep_mask, init, noise, steps, i, num_steps):
         """After step ``i``, the kept region (``keep_mask`` 1) is the
         encoded image forward-noised to step ``i + 1``, the noise level the
@@ -250,6 +326,22 @@ class StableDiffusionPipeline:
         init_at = self._add_noise(state, init, noise, steps[i + 1]) if i < num_steps - 1 else init
         out = keep_mask * init_at + (1.0 - keep_mask) * latents.float()
         return out.to(latents.dtype)
+
+    def _prompt_batch(self, prompt, prompt_ids, negative_prompt_ids):
+        """(prompt ids, negative prompt ids or None, the real batch), on the
+        device and padded to the batch bucket when buckets are on."""
+        dev, buckets = self.device, self._ccfg.batch_buckets
+        if prompt_ids is None:
+            prompt_ids = self.tokenize(prompt)
+        prompt_ids = torch.as_tensor(prompt_ids, device=dev).long()
+        real_b = prompt_ids.shape[0]
+        if buckets:  # pad the batch to its bucket; padded rows are dropped
+            prompt_ids, _ = pad_batch(prompt_ids, buckets)
+        if negative_prompt_ids is not None:
+            negative_prompt_ids = torch.as_tensor(negative_prompt_ids, device=dev).long()
+            if buckets:
+                negative_prompt_ids, _ = pad_batch(negative_prompt_ids, buckets)
+        return prompt_ids, negative_prompt_ids, real_b
 
     @torch.inference_mode()
     def __call__(
@@ -270,22 +362,26 @@ class StableDiffusionPipeline:
         output_type: str = "np",  # 'np' | 'pt' (uint8) | 'float' | 'latent'
     ) -> PipelineOutput:
         self._sched_guard()
+        prompt_ids, negative_prompt_ids, real_b = self._prompt_batch(
+            prompt, prompt_ids, negative_prompt_ids)
+        use_cfg = self._use_cfg(guidance_scale)
+        context = self.encode_prompt(prompt_ids, negative_prompt_ids, do_cfg=use_cfg)
+        return self._generate(
+            context, None, use_cfg, real_b, height=height, width=width,
+            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, seed=seed,
+            latents=latents, image=image, strength=strength, mask_image=mask_image,
+            output_type=output_type)
+
+    def _generate(self, context, added, use_cfg, real_b, *, height, width, num_inference_steps,
+                  guidance_scale, seed, latents, image, strength, mask_image, output_type):
+        """From the text conditioning to the output: the initial latents
+        (drawn, given, or img2img's encoded and forward-noised image), the
+        denoising loop, the decode.  ``added`` is SDXL's added conditioning,
+        None for SD."""
         dev = self.device
         buckets = self._ccfg.batch_buckets
-        if prompt_ids is None:
-            prompt_ids = self.tokenize(prompt)
-        prompt_ids = torch.as_tensor(prompt_ids, device=dev).long()
-        real_b = prompt_ids.shape[0]
-        if buckets:  # pad the batch to its bucket; padded rows are dropped
-            prompt_ids, _ = pad_batch(prompt_ids, buckets)
-        if negative_prompt_ids is not None:
-            negative_prompt_ids = torch.as_tensor(negative_prompt_ids, device=dev).long()
-            if buckets:
-                negative_prompt_ids, _ = pad_batch(negative_prompt_ids, buckets)
         sf = self.vae_scale_factor
         lat_shape = (real_b, height // sf, width // sf, self.vae.config.latent_channels)
-        use_cfg = guidance_scale > 1.0
-        context = self.encode_prompt(prompt_ids, negative_prompt_ids, do_cfg=use_cfg)
 
         sched = self.scheduler
         state, steps = self._scheduler_state(num_inference_steps)
@@ -311,19 +407,35 @@ class StableDiffusionPipeline:
         elif latents is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
             latents = torch.randn(lat_shape, generator=gen, device=dev, dtype=torch.float32)
-            latents = latents * sched.init_noise_sigma
+            latents = latents * self._init_noise_sigma(state)
         latents = torch.as_tensor(latents).to(device=dev, dtype=self.dtype)
         if buckets:
             latents, _ = pad_batch(latents, buckets)
-        state = sched.prepare_state(state, latents)
+        if hasattr(sched, "prepare_state"):
+            state = sched.prepare_state(state, latents)
         gs = self._dev_scalar(guidance_scale)
+        tcond_dim = self._lcm_cond_dim
+        step_noise = None
+        if getattr(sched, "needs_noise", False):
+            step_noise = self._step_noise((real_b, *latents.shape[1:]), num_inference_steps, seed)
+            if latents.shape[0] != real_b:  # zero noise for the padded rows
+                step_noise = torch.cat([step_noise, step_noise.new_zeros(
+                    (num_inference_steps, latents.shape[0] - real_b, *latents.shape[1:]))], 1)
 
         if self._ccfg.fuse_denoising_loop and start_index == 0 and keep_mask is None:
-            latents = self._fused_loop(num_inference_steps, use_cfg)(latents, context, state, gs)
+            loop = self._fused_loop(num_inference_steps, use_cfg, tcond_dim,
+                                    step_noise is not None)
+            latents = loop(latents, context, state, gs, step_noise, added)
         else:
+            tcond = lcm_timestep_cond(gs, tcond_dim, latents.shape[0])
             for i in range(start_index, num_inference_steps):
-                eps = self._unet_eps(self.unet, sched, state, i, latents, context, gs, use_cfg)
-                latents, state = sched.step(state, eps, steps[i], latents)
+                eps = self._unet_eps(self.unet, sched, state, i, latents, context, gs, use_cfg,
+                                     tcond, added)
+                if step_noise is not None:
+                    latents, state = sched.step(state, eps, steps[i], latents,
+                                                noise=step_noise[i])
+                else:
+                    latents, state = sched.step(state, eps, steps[i], latents)
                 if keep_mask is not None:
                     latents = self._inpaint_blend(state, latents, keep_mask, init, noise, steps,
                                                   i, num_inference_steps)

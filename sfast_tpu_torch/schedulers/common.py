@@ -2,9 +2,11 @@
 Karras respacing.
 
 Counterpart of ``sfast_tpu/schedulers/common.py``; these are host-side
-numpy tables computed once per ``set_timesteps``, identical to JAX's, and
-the forward diffusion of img2img's entry for schedulers whose state holds
-VP ``alpha_t`` / ``sigma_t`` tables.
+numpy tables computed once per ``set_timesteps``, identical to JAX's, the
+x0 / eps conversions of the VP schedulers (DDIM), the upload of a host
+state's tables (``device_state``), and the forward diffusion of img2img's
+entry for schedulers whose state holds VP ``alpha_t`` / ``sigma_t``
+tables.
 """
 
 import dataclasses
@@ -75,6 +77,63 @@ def table_at(table, i, like: torch.Tensor) -> torch.Tensor:
     if torch.is_tensor(i):
         return table.index_select(0, i.reshape(1).to(like.device))[0]
     return table[i]
+
+
+def predicted_x0(cfg: SchedulerConfig, model_output, sample, alpha_t, sigma_t):
+    """The x0 prediction of a model output, given
+    ``x_t = alpha_t·x0 + sigma_t·noise``."""
+    if cfg.prediction_type == "epsilon":
+        return (sample - sigma_t * model_output) / alpha_t
+    if cfg.prediction_type == "v_prediction":
+        return alpha_t * sample - sigma_t * model_output
+    if cfg.prediction_type == "sample":
+        return model_output
+    raise ValueError(cfg.prediction_type)
+
+
+def predicted_eps(cfg: SchedulerConfig, model_output, sample, alpha_t, sigma_t):
+    if cfg.prediction_type == "epsilon":
+        return model_output
+    if cfg.prediction_type == "v_prediction":
+        return sigma_t * sample + alpha_t * model_output
+    if cfg.prediction_type == "sample":
+        return (sample - alpha_t * model_output) / sigma_t
+    raise ValueError(cfg.prediction_type)
+
+
+def device_state(state: dict, device) -> dict:
+    """``state`` with every table on ``device``: numpy arrays and scalars
+    as f32 tensors (a 0-d one for a scalar), tensors moved; ints stay.  A
+    step then reads its tables by a gather at a device step index, and a
+    graph takes them as inputs."""
+    new = dict(state)
+    for k, v in state.items():
+        if isinstance(v, (np.ndarray, np.floating)):
+            new[k] = torch.as_tensor(np.asarray(v, np.float32), device=device)
+        elif torch.is_tensor(v):
+            new[k] = v.to(device)
+    return new
+
+
+def on_device(state: dict, like: torch.Tensor) -> dict:
+    """``state`` itself when every table of it lies on ``like``'s device,
+    else :func:`device_state` of it there."""
+    if all(torch.is_tensor(v) and v.device == like.device for v in state.values()
+           if torch.is_tensor(v) or isinstance(v, (np.ndarray, np.floating))):
+        return state
+    return device_state(state, like.device)
+
+
+class TableState:
+    """``device_state`` / ``prepare_state`` of a scheduler whose state is
+    its tables alone (Euler, DDIM, EDM Euler, LCM): uploaded once, and
+    nothing shaped like the latents."""
+
+    def device_state(self, state: dict, device) -> dict:
+        return device_state(state, device)
+
+    def prepare_state(self, state: dict, sample: torch.Tensor) -> dict:
+        return on_device(state, sample)
 
 
 def add_noise(state, original: torch.Tensor, noise: torch.Tensor, timestep_index):

@@ -1,11 +1,11 @@
 """Scheduler-step capture (the ``trace_scheduler`` knob).
 
 Counterpart of ``sfast_tpu/schedulers/compile.py``: a delegating proxy
-whose ``step`` replays a CUDA graph per signature.  The port's DPM++ step
-reads its coefficients from a device table by a 0-d device step index
-(``schedulers/dpm.py``), so one graph serves all 50 steps.
-``scale_model_input`` is DPM++'s identity, and a graph of it would have
-no node, so it stays a plain call.
+whose ``step`` replays a CUDA graph per signature.  Every port scheduler
+reads its tables on the device by a 0-d device step index
+(``common.table_at``), and a noisy step takes its noise as an input, so
+one graph serves every step.  ``scale_model_input`` stays a plain call:
+the identity for DPM++, DDIM and LCM, one division for Euler.
 """
 
 import logging

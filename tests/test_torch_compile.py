@@ -11,6 +11,7 @@ replay does.  Captures and replays on the card are in
 """
 
 import dataclasses
+import gc
 
 import jax.numpy as jnp
 import numpy as np
@@ -207,13 +208,49 @@ def test_cpu_tensors_never_capture(monkeypatch):
 def test_executable_cache_registry(recorder):
     cache = ExecutableCache()
     f = cache.register("f", LazyCompiledFunction(lambda x: x + 1))
-    cache.register("g", LazyCompiledFunction(lambda x: x - 1))
-    assert cache.get("f") is f and cache.get("h") is None
+    g = cache.register("g", LazyCompiledFunction(lambda x: x - 1))
+    assert cache.get("f") is f and cache.get("g") is g and cache.get("h") is None
     f(torch.zeros(2))
     f(torch.zeros(3))
     assert cache.stats() == {"f": 2, "g": 0}
     cache.clear()
     assert cache.stats() == {} and f.cache_size == 0
+
+
+def test_executable_cache_keeps_every_function_under_a_name(recorder):
+    cache = ExecutableCache()
+    a = cache.register("unet", LazyCompiledFunction(lambda x: x + 1))
+    b = cache.register("unet", LazyCompiledFunction(lambda x: x + 2))
+    assert cache.get_all("unet") == [a, b] and cache.get("unet") is b
+    cache.register("unet", a)  # again: held once, now the newest
+    assert cache.get_all("unet") == [b, a] and cache.get("unet") is a
+    a(torch.zeros(2))
+    b(torch.zeros(3))
+    b(torch.zeros(4))
+    assert cache.stats() == {"unet": 3}
+    del b  # held weakly: a dropped function leaves the registry
+    gc.collect()
+    assert cache.get_all("unet") == [a] and cache.stats() == {"unet": 1}
+    cache.clear()
+    assert cache.stats() == {} and a.cache_size == 0
+
+
+def test_two_pipelines_share_the_registry(recorder):
+    pipes = []
+    for _ in range(2):
+        unet, vae, te = _modules()
+        pipes.append(sfast_tpu_torch.compile(StableDiffusionPipeline(
+            unet, vae, te, DPMSolverMultistepScheduler(), device="cpu", dtype=torch.float32)))
+    cache = global_executable_cache()
+    for slot in ("unet", "vae", "text_encoder"):
+        assert all(getattr(p, slot)._call in cache.get_all(slot) for p in pipes)
+    assert all(p.scheduler._step in cache.get_all("scheduler.step") for p in pipes)
+    with torch.inference_mode():
+        for p in pipes:
+            p.vae.decode(torch.randn(1, 8, 8, 4))
+    assert cache.stats()["vae"] >= 2
+    cache.clear()  # both pipelines' graphs go
+    assert [p.vae.cache_size for p in pipes] == [0, 0]
 
 
 class _StandInGraph:

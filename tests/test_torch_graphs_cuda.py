@@ -7,7 +7,10 @@ GroupNorm at C = 320 and 640, K4 at K = 640), in bf16 with seeded random
 weights.  A replay runs the kernels the capture recorded on the same
 buffers, so graphed outputs must equal the eager ones bit for bit; the
 fused loop and the stepwise graphs run the same kernels in the same
-order, and are held to 1e-3 relative rms.  The VAE encode is graphed like
+order, and are held to 1e-3 relative rms.  A scheduler that takes noise
+every step (ancestral Euler, LCM) reads it from a buffer drawn before the
+loop, so its graphed step equals the eager one and a new seed needs no
+new capture.  The VAE encode is graphed like
 the decode, and a LoRA swap reaches every graph that reads the UNet's
 weights without a new capture.  Every test skips without a
 CUDA card.  The file imports no JAX, so on a machine without it run:
@@ -28,7 +31,12 @@ from sfast_tpu_torch.models import (
 )
 from sfast_tpu_torch.pipelines import StableDiffusionPipeline
 from sfast_tpu_torch.runtime import cuda_build
-from sfast_tpu_torch.schedulers import DPMSolverMultistepScheduler
+from sfast_tpu_torch.schedulers import (
+    DPMSolverMultistepScheduler,
+    EulerAncestralDiscreteScheduler,
+    LCMScheduler,
+    compile_scheduler,
+)
 
 pytestmark = pytest.mark.cuda
 BF16 = torch.bfloat16
@@ -266,3 +274,30 @@ def test_fused_loop_sees_a_lora_swap(pipe, dev):
     assert loop.graphs() == graphs
     assert _rms_rel(fused, fused_base) > 10 * LOOP_RMS_REL
     assert _rms_rel(fused, stepwise) <= LOOP_RMS_REL
+
+
+@pytest.mark.parametrize("make", [EulerAncestralDiscreteScheduler, LCMScheduler],
+                         ids=["euler_ancestral", "lcm"])
+def test_graphed_noisy_step_is_eager_and_a_new_seed_captures_nothing(pipe, dev, make):
+    """The step's noise is ``buf[i]`` of the pre-drawn buffer, an ordinary
+    input of the one step graph: graphed equals eager bit for bit, the
+    stepwise graphs and the fused loop's both; another seed draws another
+    buffer and changes the image with the same graphs."""
+    pipe.scheduler = compile_scheduler(make())
+    kw = dict(prompt_ids=torch.ones((1, 77), dtype=torch.long), height=64, width=64,
+              num_inference_steps=4, guidance_scale=1.0, output_type="latent")
+    graphed = pipe(**kw, seed=3).images
+    assert pipe.scheduler.cache_size == 1 and pipe.unet.cache_size == 1
+    graphs = {n: g.graphs() for n, g in (("unet", pipe.unet._call),
+                                         ("step", pipe.scheduler._step))}
+    other = pipe(**kw, seed=4).images
+    assert {"unet": pipe.unet._call.graphs(), "step": pipe.scheduler._step.graphs()} == graphs
+    assert not torch.equal(graphed, other)
+    pipe.set_compilation_config(CompilationConfig(fuse_denoising_loop=True))
+    fused = pipe(**kw, seed=3).images
+    (loop,) = pipe._fused_loops.values()
+    fused_other = pipe(**kw, seed=4).images
+    assert loop.cache_size == 1 and not torch.equal(fused, fused_other)
+    pipe.set_compilation_config(CompilationConfig(enable_cuda_graph=False))
+    assert torch.equal(graphed, pipe(**kw, seed=3).images)
+    assert _rms_rel(fused, graphed) <= LOOP_RMS_REL

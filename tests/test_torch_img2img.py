@@ -264,7 +264,7 @@ def test_fused_loop_is_bypassed(pipes, strength, inpaint):
         assert not tpipe._fused_loops
         tpipe(prompt_ids=ids, height=HW, width=HW, num_inference_steps=3, image=image,
               strength=1.0, seed=4, output_type="latent")  # img2img from step 0: fused
-        assert list(tpipe._fused_loops) == [(3, True)]
+        assert list(tpipe._fused_loops) == [(3, True, None, False)]
     finally:
         tpipe.set_compilation_config(CompilationConfig.Default())
     torch.testing.assert_close(fused, stepwise, rtol=0, atol=0)

@@ -120,6 +120,22 @@ def test_flash_attention_head_dims_ragged_kv_and_edge_heads(dev, d, sk):
         assert _rms_rel(got[:, head], ref[:, head]) <= 1e-2
 
 
+@pytest.mark.parametrize("b,h,s", [(2, 10, 4096), (2, 20, 1024)], ids=["64^2", "32^2"])
+def test_flash_attention_at_the_sdxl_shapes(dev, b, h, s):
+    """SDXL 1024²'s self-attention at head dim 64 (``launch<64, ...>``):
+    10 heads over the 64² level's 4096 tokens and 20 over the 32² level's
+    1024, as head-split views of (B, S, H·64); two calls agree bit for
+    bit."""
+    d = 64
+    q, k, v = (_randn(dev, b, s, h * d, seed=i).view(b, s, h, d).transpose(1, 2)
+               for i in (1, 2, 3))
+    got = flash_attention(q, k, v)
+    again = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rms_rel(got, flash_attention_ref(q, k, v)) <= 1e-2
+
+
 def test_flash_attention_rejects_what_it_cannot_run(dev):
     q = torch.zeros(1, 1, 64, 40, device=dev)
     with pytest.raises(ValueError, match="bf16"):

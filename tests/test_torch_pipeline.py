@@ -211,7 +211,7 @@ def test_fused_loop_matches_jax_fused_loop(pipes):
         tlat = tpipe(prompt_ids=ids, latents=torch.from_numpy(lat), output_type="latent",
                      **kw).images
         timg = tpipe(prompt_ids=ids, latents=torch.from_numpy(lat), **kw).images
-        assert list(tpipe._fused_loops) == [(STEPS, True)]
+        assert list(tpipe._fused_loops) == [(STEPS, True, None, False)]
     finally:
         tpipe.set_compilation_config(CompilationConfig.Default())
     np.testing.assert_allclose(tlat.numpy(), jlat, rtol=0, atol=2e-3 * np.abs(jlat).max())
@@ -232,7 +232,7 @@ def test_fused_loop_rekeys_on_step_count_change(pipes):
         fused3 = run(3, True)
         fused2 = tpipe(prompt_ids=ids, latents=torch.from_numpy(lat), height=HW, width=HW,
                        num_inference_steps=2, output_type="latent").images
-        assert sorted(tpipe._fused_loops) == [(2, True), (3, True)]
+        assert sorted(tpipe._fused_loops) == [(2, True, None, False), (3, True, None, False)]
         stepwise2, stepwise3 = run(2, False), run(3, False)
     finally:
         tpipe.set_compilation_config(CompilationConfig.Default())

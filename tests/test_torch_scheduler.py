@@ -1,21 +1,35 @@
-"""sfast_tpu_torch's DPM-Solver++ (2M) against sfast_tpu's on the CPU.
+"""sfast_tpu_torch's schedulers against sfast_tpu's on the CPU: DPM-Solver++
+(2M), Euler (with Karras sigmas, and ancestral), DDIM, EDM Euler and LCM.
 
 Tables (timesteps, sigmas) are host numpy on both sides and must agree
 exactly or to f32 rounding.  Steps are fed the same seeded numpy model
 outputs; both sides compute in f32, JAX with f32 device scalars and the
 port with f32 numpy scalars, so 5 steps agree to ~1e-6 relative (bound
-1e-5).
+1e-5).  Ancestral Euler and LCM take JAX's own noise draws.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from sfast_tpu.schedulers import DDIMScheduler as JaxDDIM
 from sfast_tpu.schedulers import DPMSolverMultistepScheduler as JaxDPM
+from sfast_tpu.schedulers import EulerDiscreteScheduler as JaxEuler
+from sfast_tpu.schedulers import LCMScheduler as JaxLCM
 from sfast_tpu.schedulers import SchedulerConfig as JaxSchedulerConfig
 from sfast_tpu.schedulers import common as jcommon
-from sfast_tpu_torch.schedulers import DPMSolverMultistepScheduler, SchedulerConfig
+from sfast_tpu.schedulers.edm_euler import EDMEulerScheduler as JaxEDM
+from sfast_tpu_torch.schedulers import (
+    DDIMScheduler,
+    DPMSolverMultistepScheduler,
+    EDMEulerScheduler,
+    EulerAncestralDiscreteScheduler,
+    EulerDiscreteScheduler,
+    LCMScheduler,
+    SchedulerConfig,
+)
 from sfast_tpu_torch.schedulers import common
 
 CONFIGS = [
@@ -161,3 +175,133 @@ def test_dpm_device_table_matches_host_form(num_steps):
         xh, host = _host_step(sch, host, e, i, xh)
         xd, dev = sch.step(dev, e, idx[i], xd)
         torch.testing.assert_close(xd, xh, rtol=1e-6, atol=1e-6 * xh.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# Euler (and ancestral, Karras), DDIM, EDM Euler and LCM against JAX
+# ---------------------------------------------------------------------------
+
+def _cfg(**kw):
+    return SchedulerConfig(**kw), JaxSchedulerConfig(**kw)
+
+
+def _schedulers(name):
+    """(the port's scheduler, JAX's) of one case."""
+    kind, _, variant = name.partition(":")
+    kw = {"karras": {"use_karras_sigmas": True}, "v": {"prediction_type": "v_prediction"},
+          "": {}}[variant]
+    ours, theirs = _cfg(**kw)
+    if kind == "euler":
+        return EulerDiscreteScheduler(ours), JaxEuler(theirs)
+    if kind == "euler_ancestral":
+        return EulerAncestralDiscreteScheduler(ours), JaxEuler(theirs, ancestral=True)
+    if kind == "ddim":
+        return DDIMScheduler(ours), JaxDDIM(theirs)
+    if kind == "edm_euler":
+        return EDMEulerScheduler(), JaxEDM()
+    if kind == "lcm":
+        return LCMScheduler(ours), JaxLCM(theirs)
+    raise ValueError(name)
+
+
+SCHEDULERS = ["euler", "euler:karras", "euler:v", "euler_ancestral", "euler_ancestral:karras",
+              "ddim", "ddim:v", "edm_euler", "lcm", "lcm:v"]
+
+
+@pytest.mark.parametrize("name", SCHEDULERS)
+def test_scheduler_tables_match_jax(name):
+    ours, theirs = _schedulers(name)
+    a, b = ours.set_timesteps(5), theirs.set_timesteps(5)
+    assert sorted(a) == sorted(b)
+    for k, v in b.items():
+        if isinstance(v, int):
+            assert a[k] == v
+        else:
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(v), err_msg=k)
+    assert getattr(ours, "needs_noise", False) == getattr(theirs, "needs_noise", False)
+
+
+@pytest.mark.parametrize("name", SCHEDULERS)
+def test_scheduler_five_steps_match_jax(name):
+    """scale_model_input and 5 steps on the same model outputs, with JAX's
+    own noise draws handed to both where the scheduler takes noise."""
+    ours, theirs = _schedulers(name)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
+    eps = rng.standard_normal((5, 2, 8, 8, 4)).astype(np.float32)
+    st, jst = ours.device_state(ours.set_timesteps(5), "cpu"), theirs.set_timesteps(5)
+    noisy = getattr(theirs, "needs_noise", False)
+    xt, jx = torch.from_numpy(x), jnp.asarray(x)
+    key = jax.random.key(3)
+    for i in range(5):
+        np.testing.assert_allclose(
+            ours.scale_model_input(st, xt, i).numpy(),
+            np.asarray(theirs.scale_model_input(jst, jx, i)), rtol=1e-6, atol=1e-6)
+        kw, jkw = {}, {}
+        if noisy:
+            key, sub = jax.random.split(key)
+            jkw["noise"] = jax.random.normal(sub, x.shape, jnp.float32)
+            kw["noise"] = torch.tensor(np.asarray(jkw["noise"]))
+        xt, st = ours.step(st, torch.from_numpy(eps[i]), i, xt, **kw)
+        jx, jst = theirs.step(jst, jnp.asarray(eps[i]), i, jx, **jkw)
+        ref = np.asarray(jx)
+        np.testing.assert_allclose(
+            xt.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max(), err_msg=f"step {i}")
+
+
+@pytest.mark.parametrize("name", SCHEDULERS)
+def test_device_index_step_equals_int_index(name):
+    """A 0-d device step index (one captured graph for every step) gives
+    the int index's step bit for bit, the last step included."""
+    ours, _ = _schedulers(name)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((1, 4, 4, 4)).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((4, 1, 4, 4, 4)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((4, 1, 4, 4, 4)).astype(np.float32))
+    st = ours.prepare_state(ours.device_state(ours.set_timesteps(4), "cpu"), x)
+    kw = (lambda i: {"noise": noise[i]}) if getattr(ours, "needs_noise", False) else (
+        lambda i: {})
+    a = b = x
+    for i in range(4):
+        a, _ = ours.step(st, eps[i], i, a, **kw(i))
+        b, _ = ours.step(st, eps[i], torch.tensor(i), b, **kw(i))
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_lcm_last_step_is_denoised_and_others_renoised():
+    sch = LCMScheduler()
+    st = sch.device_state(sch.set_timesteps(4), "cpu")
+    x, eps = torch.ones(1, 2, 2, 4), torch.full((1, 2, 2, 4), 0.5)
+    noise = torch.full((1, 2, 2, 4), 3.0)
+    for i in (torch.tensor(2), torch.tensor(3)):
+        with_noise, _ = sch.step(st, eps, i, x, noise=noise)
+        without, _ = sch.step(st, eps, i, x)
+        assert torch.equal(with_noise, without) == (int(i) == 3)
+
+
+@pytest.mark.parametrize("i", [0, 3, 49])
+def test_euler_add_noise_and_init_sigma_match_jax(i):
+    """img2img's entry in x-space, ``z + σ_i·noise``, and the initial
+    noise scale in the state."""
+    ours, theirs = _schedulers("euler")
+    rng = np.random.default_rng(i)
+    x0, noise = (rng.standard_normal((1, 4, 4, 4)).astype(np.float32) for _ in range(2))
+    host, jst = ours.set_timesteps(50), theirs.set_timesteps(50)
+    ref = np.asarray(theirs.add_noise(jst, jnp.asarray(x0), jnp.asarray(noise), i))
+    dev = ours.device_state(host, "cpu")
+    for state, idx in ((host, i), (dev, torch.tensor(i))):
+        got = ours.add_noise(state, torch.from_numpy(x0), torch.from_numpy(noise), idx)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
+    assert float(dev["init_noise_sigma"]) == float(jst["init_noise_sigma"])
+    assert dev["init_noise_sigma"].dim() == 0 and dev["sigmas"].dtype == torch.float32
+
+
+def test_ddim_add_noise_is_the_vp_form():
+    ours, theirs = _schedulers("ddim")
+    rng = np.random.default_rng(4)
+    x0, noise = (rng.standard_normal((1, 4, 4, 4)).astype(np.float32) for _ in range(2))
+    jst = theirs.set_timesteps(10)
+    ref = np.asarray(jcommon.add_noise(jst, jnp.asarray(x0), jnp.asarray(noise), 3))
+    st = ours.device_state(ours.set_timesteps(10), "cpu")
+    got = common.add_noise(st, torch.from_numpy(x0), torch.from_numpy(noise), torch.tensor(3))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)

@@ -69,7 +69,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     loop, each bit for bit against eager, and two seeds apart; an
     LCM-distilled UNet (``time_cond_proj_dim=256``) at guidance 8, graphed
     against eager; ancestral Euler and DDIM at 50 steps, graphed against
-    eager.
+    eager;
+12. ControlNet and IP-Adapter on phase 4's SD1.5 modules with a full-width
+    ``SD15_CONTROLNET`` (its zero convs drawn at the init scale times
+    ``CN_ZERO_CONV_SCALE``, as a trained ControlNet's are nonzero): 512²,
+    DPM++ 30 steps, CFG 7.5, control scale 0.8 on a seeded uint8 control
+    image (JAX's tracked configuration).  One eager image; graphed stepwise
+    (capture, count, 3 timed, profiled) and the fused loop, each against
+    eager; with the graphs in place one ControlNet eval on the kernel route
+    against the plain route, control scale 0 against the no-control image
+    bit for bit, and a second scale that captures nothing.  The ViT-H image
+    encoder (``compile_model``) graphed against eager; IP-Adapter tokens
+    (4, scale 0.6) with IP scale 0 against the no-IP image; one ControlNet +
+    IP image graphed against eager; one counted image of the ControlNet path
+    under the opt-in configuration.
 
 Each phase prints its seconds and the graphs its pipeline holds, with
 their nodes, capture and instantiate seconds, and the peak memory.
@@ -161,11 +174,26 @@ EXPECTED_SDXL_IMG2IMG_LAUNCHES = dict(
 LCM_STEPS = 4
 EXPECTED_LCM_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=5 * LCM_STEPS)
 LCM_COND_DIM = 256  # the time_cond_proj_dim of SimianLuo/LCM_Dreamshaper_v7
+# ControlNet (JAX's tracked configuration, bench_extra_configs.py:126-175):
+# 30 DPM++ steps, CFG 7.5, control scale 0.8.  Each step runs the UNet's 5
+# and the ControlNet's 2 level-0 self-attentions through K1; the VAE as
+# before.  Opt-in: the ControlNet's 27 GroupNorms (20 in its resnets, 7 in
+# its transformers) and 5 GEGLUs (levels 1, 2 and mid) beside the UNet's.
+CN_STEPS = 30
+CN_SCALE, IP_SCALE, IP_TOKENS = 0.8, 0.6, 4
+# the zero convs' weights, N(0, (scale)²/fan_in) with zero biases
+CN_ZERO_CONV_SCALE = 0.1
+EXPECTED_CN_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=(5 + 2) * CN_STEPS)
+CN_EVAL_LAUNCHES = {"flash_attention": 2}  # one ControlNet eval on the CFG batch
 EXPECTED_OPTIN_LAUNCHES = {
     "flash_attention": 0, "quantize_qkv": 5 * STEPS, "flash_attention_int8": 5 * STEPS,
     "conv3x3": 21, "group_norm_stats": 9, "group_norm_apply": 0,
     "group_norm_fused": 61 * STEPS, "linear_geglu": 11 * STEPS,
 }
+EXPECTED_CN_OPTIN_LAUNCHES = dict(
+    EXPECTED_OPTIN_LAUNCHES, quantize_qkv=(5 + 2) * CN_STEPS,
+    flash_attention_int8=(5 + 2) * CN_STEPS, group_norm_fused=(61 + 27) * CN_STEPS,
+    linear_geglu=(11 + 5) * CN_STEPS)
 
 KERNELS = {
     "flash_attention": ("sfast_tpu_torch/csrc/flash_attention.cu",
@@ -786,7 +814,7 @@ def pipe_graphs(pipe):
     """Every graph ``pipe`` holds, by the name of what holds it: its
     compiled models, its compiled scheduler's step and its fused loops."""
     out = {}
-    for attr in ("text_encoder", "text_encoder_2", "unet", "vae", "vae_encode"):
+    for attr in ("text_encoder", "text_encoder_2", "unet", "controlnet", "vae", "vae_encode"):
         call = getattr(getattr(pipe, attr, None), "_call", None)
         if call is not None and call.cache_size:
             out[attr] = call.graphs()
@@ -1457,8 +1485,195 @@ def run_schedulers(torch, dev, pipe):
     return res
 
 
+def build_controlnet_pipeline(torch, dev, pipe):
+    """Phase 4's SD1.5 modules with a full-width SD15_CONTROLNET, through
+    the entry points a user calls."""
+    import sfast_tpu_torch
+    from sfast_tpu_torch.models import SD15_CONTROLNET, ControlNetModel, init_controlnet_weights_
+    from sfast_tpu_torch.pipelines import StableDiffusionPipeline
+    from sfast_tpu_torch.schedulers import DPMSolverMultistepScheduler
+
+    cn = init_controlnet_weights_(
+        ControlNetModel(SD15_CONTROLNET, device=dev, dtype=torch.bfloat16),
+        torch.Generator(device=dev).manual_seed(30), zero_conv_scale=CN_ZERO_CONV_SCALE)
+    vae = pipe.vae.module
+    cpipe = sfast_tpu_torch.compile(StableDiffusionPipeline(
+        pipe.unet.module, vae, pipe.text_encoder.module, DPMSolverMultistepScheduler(),
+        vae_encode=vae, controlnet=cn, device=dev, dtype=torch.bfloat16))
+    log(f"[controlnet] built: {sum(p.numel() for p in cn.parameters()) / 1e6:.1f} M params, "
+        f"zero convs at {CN_ZERO_CONV_SCALE} x the init scale")
+    return cpipe
+
+
+def controlnet_route_check(torch, dev, cpipe, hw):
+    """One graphed ControlNet eval at an ``hw``² image on the kernel route
+    against the plain route: 2 K1 launches (its level-0 self-attentions),
+    the plain route none; the residuals within MODEL_RMS_REL."""
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.runtime import cuda_build
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+    with torch.inference_mode():
+        ctx = cpipe.encode_prompt(torch.randint(0, 49408, (1, 77), generator=gen, device=dev))
+        lhw = hw // cpipe.vae_scale_factor
+        x = torch.randn((2, lhw, lhw, 4), generator=gen, device=dev).to(torch.bfloat16)
+        ctrl = torch.rand((2, hw, hw, 3), generator=gen, device=dev).to(torch.bfloat16)
+        args = (x, torch.tensor(801.0, device=dev), ctx, ctrl)
+        kw = {"conditioning_scale": cpipe._dev_scalar(CN_SCALE)}
+        for route, rcfg in (("kernels", CompilationConfig.Default()),
+                            ("plain", CompilationConfig(enable_kernels=False))):
+            cpipe.set_compilation_config(rcfg)
+            cpipe.controlnet(*args, **kw)  # the capture: its warm-ups count as launches
+            cuda_build.reset_launch_counts()
+            down, mid = cpipe.controlnet(*args, **kw)
+            torch.cuda.synchronize()
+            out[route] = torch.cat([r.flatten() for r in (*down, mid)])
+            out[route + " launches"] = {k: n for k, n in cuda_build.launch_counts.items() if n}
+            out[route + " residuals"] = len(down)
+    cpipe.set_compilation_config(CompilationConfig.Default())
+    _, max_rel, rms = rel_errors(out["kernels"], out["plain"])
+    log(f"[controlnet] route check: {out['kernels residuals']} down residuals and the mid; "
+        f"kernel route launched {out['kernels launches']}, plain route {out['plain launches']}; "
+        f"residuals, kernel route vs plain route: max_rel {max_rel:.3e} rms_rel {rms:.3e}")
+    n_skips = len(cpipe.controlnet.controlnet_down_blocks)
+    if out["kernels residuals"] != n_skips or out["kernels launches"] != CN_EVAL_LAUNCHES \
+            or out["plain launches"]:
+        raise AssertionError(f"[controlnet] route check: {out['kernels residuals']} residuals, "
+                             f"launches {out['kernels launches']} / {out['plain launches']}")
+    if not 0 < rms <= MODEL_RMS_REL:
+        raise AssertionError(f"[controlnet] residuals rms rel {rms} not in (0, {MODEL_RMS_REL}]")
+    return {"down_residuals": out["kernels residuals"], "rms_rel": rms,
+            "kernel_launches": out["kernels launches"]}
+
+
+def image_encoder_check(torch, dev):
+    """The ViT-H image encoder compiled alone (``compile_model``): its
+    graphed embeds against eager, and one graphed call's time."""
+    from sfast_tpu_torch import compile_model
+    from sfast_tpu_torch.models import VIT_H_IMAGE_ENCODER, CLIPVisionModel, init_weights_
+
+    enc = init_weights_(CLIPVisionModel(VIT_H_IMAGE_ENCODER, device=dev, dtype=torch.bfloat16),
+                        torch.Generator(device=dev).manual_seed(32))
+    compiled = compile_model(enc, name="image_encoder")
+    side = VIT_H_IMAGE_ENCODER.image_size
+    px = torch.randn((1, side, side, 3), generator=torch.Generator(device=dev).manual_seed(33),
+                     device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        eager = enc(px)["image_embeds"]
+        graphed = compiled(px)["image_embeds"]
+        ms = cuda_ms(lambda: compiled(px))
+    g = compiled._call.graphs()[0]
+    equal = torch.equal(graphed, eager)
+    _, _, rms = rel_errors(graphed, eager)
+    n_params = sum(p.numel() for p in enc.parameters()) / 1e6
+    log(f"[image encoder] ViT-H/14 at {side}², {n_params:.1f} M params: graphed embeds "
+        f"{tuple(graphed.shape)} vs eager bit for bit {equal} (rms_rel {rms:.3e}); one graphed "
+        f"call {ms:.3f} ms (CUDA events); graph {g.nodes} nodes, captured in "
+        f"{g.capture_seconds:.3f} s")
+    if graphed.shape != (1, VIT_H_IMAGE_ENCODER.projection_dim) or not rms <= 1e-6:
+        raise AssertionError(f"[image encoder] graphed embeds {tuple(graphed.shape)}, rms {rms}")
+    return {"graphed_ms": ms, "bit_equal": equal, "nodes": g.nodes}, graphed
+
+
+def scale_checks(torch, cpipe, kw):
+    """With the stepwise graphs in place: control scale 0 against the
+    no-control image of the same call (bit for bit: the residuals are 0 and
+    the UNet adds them in f32), then a second scale, which captures
+    nothing and changes the image."""
+    args = dict(kw, seed=0, output_type="latent")
+    base = {k: v for k, v in args.items()
+            if k not in ("control_image", "controlnet_conditioning_scale")}
+    zero = cpipe(**dict(args, controlnet_conditioning_scale=0.0)).images
+    plain = cpipe(**base).images
+    graphs = {n: len(v) for n, v in pipe_graphs(cpipe).items()}
+    at_scale = cpipe(**args).images
+    other = cpipe(**dict(args, controlnet_conditioning_scale=0.5)).images
+    after = {n: len(v) for n, v in pipe_graphs(cpipe).items()}
+    res = {"scale_0_bit_equal": torch.equal(zero, plain), "second_scale_captured": after != graphs,
+           "second_scale_changes": not torch.equal(at_scale, other)}
+    log(f"[controlnet] control scale 0 vs no control image, latents bit for bit: "
+        f"{res['scale_0_bit_equal']}; scale 0.5 after {CN_SCALE}: graphs {graphs} -> {after}, "
+        f"latents changed {res['second_scale_changes']}")
+    if not res["scale_0_bit_equal"] or res["second_scale_captured"] \
+            or not res["second_scale_changes"]:
+        raise AssertionError(f"[controlnet] scale checks: {res}")
+    return res
+
+
+def run_controlnet(torch, dev, pipe):
+    """Phase 12: the ControlNet path eager, graphed and fused; the route
+    and scale checks; the image encoder; IP-Adapter; opt-in."""
+    import numpy as np
+
+    from sfast_tpu_torch import CompilationConfig, ip_adapter
+
+    cpipe = build_controlnet_pipeline(torch, dev, pipe)
+    kw = call_kwargs(torch, num_inference_steps=CN_STEPS, controlnet_conditioning_scale=CN_SCALE)
+    hw = kw["height"]
+    kw["control_image"] = np.random.default_rng(34).integers(0, 256, (1, hw, hw, 3),
+                                                             dtype=np.uint8)
+    res = {}
+    t = time.perf_counter()
+    eager = eager_once(torch, cpipe, kw)
+    res["eager_image_s"] = time.perf_counter() - t
+    log(f"[controlnet eager] one image of seed 5 and its decode: {res['eager_image_s']:.1f} s")
+    res["graphed"] = run_mode(torch, dev, cpipe, "controlnet graphed", CompilationConfig.Default(),
+                              EXPECTED_CN_LAUNCHES, None, base=kw)
+    res["graphed"]["vs_eager"] = compare_runs(torch, "controlnet graphed vs eager", eager,
+                                              res["graphed"])
+    res["route"] = controlnet_route_check(torch, dev, cpipe, hw)
+    cpipe(**kw, seed=0, output_type="latent")  # the stepwise graphs again
+    res["scales"] = scale_checks(torch, cpipe, kw)
+    res["fused"] = run_mode(torch, dev, cpipe, "controlnet fused loop",
+                            CompilationConfig(fuse_denoising_loop=True), EXPECTED_CN_LAUNCHES,
+                            None, base=kw, timed_images=1)
+    res["fused"]["vs_eager"] = compare_runs(torch, "controlnet fused loop vs eager", eager,
+                                            res["fused"])
+    loop = res["fused"]["graphs"].get(f"denoise_loop_{CN_STEPS}_cn")
+    if loop is None:
+        raise AssertionError("controlnet fused loop: no denoise_loop graph was captured")
+    log(f"[controlnet fused loop] the loop's graph: {loop['nodes']} nodes, captured in "
+        f"{loop['capture_s']:.3f} s, instantiated in {loop['instantiate_s']:.3f} s")
+    cpipe.set_compilation_config(CompilationConfig.Default())
+
+    res["image_encoder"], embeds = image_encoder_check(torch, dev)
+    proj = ip_adapter.load_ip_adapter(cpipe.unet, ip_adapter.init_ip_adapter_params(
+        torch.Generator(device=dev).manual_seed(35), cpipe.unet, clip_embed_dim=embeds.shape[-1],
+        num_tokens=IP_TOKENS), num_tokens=IP_TOKENS)
+    with torch.inference_mode():
+        tokens = ip_adapter.ip_image_embed(proj, embeds)
+    # [uncond; cond] for the CFG batch, as the community example stacks them
+    tokens = torch.cat([torch.zeros_like(tokens), tokens])
+    ip_kw = dict(kw, ip_adapter_embeds=tokens, ip_adapter_scale=IP_SCALE)
+    zero_ip = cpipe(**dict(ip_kw, ip_adapter_scale=0.0, seed=0, output_type="pt")).images
+    no_ip = cpipe(**dict(kw, seed=0, output_type="pt")).images
+    diff = (zero_ip.int() - no_ip.int()).abs().max().item()
+    res["ip_scale_0"] = {"max_uint8_diff": diff, "bit_equal": torch.equal(zero_ip, no_ip)}
+    log(f"[ip-adapter] {IP_TOKENS} tokens {tuple(tokens.shape)}: IP scale 0 vs no IP tokens, max "
+        f"uint8 difference {diff}, bit for bit {res['ip_scale_0']['bit_equal']} (the IP term "
+        "stays bf16: a 0-d f32 scale does not promote it)")
+    if diff > 1:
+        raise AssertionError(f"[ip-adapter] scale 0 differs from no IP by {diff} uint8 levels")
+    res["controlnet_ip"] = run_mode(torch, dev, cpipe, "controlnet + ip-adapter graphed",
+                                    CompilationConfig.Default(), EXPECTED_CN_LAUNCHES, None,
+                                    base=ip_kw, timed_images=1)
+    res["controlnet_ip"]["vs_eager"] = compare_runs(
+        torch, "controlnet + ip-adapter graphed vs eager", eager_once(torch, cpipe, ip_kw),
+        res["controlnet_ip"])
+    optin = CompilationConfig(enable_fused_group_norm=True, enable_fused_linear_geglu=True,
+                              enable_int8_attention=True)
+    res["optin"] = run_mode(torch, dev, cpipe, "controlnet opt-in graphed", optin,
+                            EXPECTED_CN_OPTIN_LAUNCHES, None, base=kw, timed_images=1)
+    log_pools(torch, cpipe, "controlnet")
+    cpipe.set_compilation_config(CompilationConfig.Default())  # drops every graph
+    for r in (res["graphed"], res["fused"], res["controlnet_ip"], res["optin"]):
+        del r["latents"], r["u8"]
+    return res
+
+
 def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_res,
-                 prompt_res, phase_s):
+                 prompt_res, cn, phase_s):
     """The ``{"kernels": [...]}`` line: per kernel its launches per image on
     each path (``launches``: the stepwise paths' sum) and the main-path
     case's numbers, every case under ``cases``; then each path's numbers."""
@@ -1473,6 +1688,10 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
     paths["sdxl img2img"] = sdxl["img2img"]
     for name, r in scheds.items():
         paths[name.replace("_", " ")] = r
+    for name, key in (("controlnet graphed", "graphed"), ("controlnet fused loop", "fused"),
+                      ("controlnet + ip-adapter graphed", "controlnet_ip"),
+                      ("controlnet opt-in graphed", "optin")):
+        paths[name] = cn[key]
     keep = ("e2e_ms", "device_ms", "idle", "cuda_kernels", "profiled_wall_ms", "traced_wall_ms",
             "peak_gib", "peak_reserved_gib", "graphs", "vs_eager", "vs_default_eager",
             "vs_stepwise", "first_ms", "seed_6_differs")
@@ -1487,7 +1706,11 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
                      "sdxl": sdxl["graphed"]["counts"][name],
                      "sdxl_fused_loop": sdxl["fused"]["counts"][name],
                      "sdxl_img2img": sdxl["img2img"]["counts"][name],
-                     **{k: r["counts"][name] for k, r in scheds.items()}}
+                     **{k: r["counts"][name] for k, r in scheds.items()},
+                     "controlnet": cn["graphed"]["counts"][name],
+                     "controlnet_fused_loop": cn["fused"]["counts"][name],
+                     "controlnet_ip": cn["controlnet_ip"]["counts"][name],
+                     "controlnet_optin": cn["optin"]["counts"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(n for p, n in per_image.items() if "fused_loop" not in p),
@@ -1504,6 +1727,8 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
                        "lora": lora_res, "prompt": prompt_res,
                        "sdxl": {"eager_image_s": sdxl["eager_image_s"], "route": sdxl["route"],
                                 "plain_routes": sdxl["plain_routes"], "encode": sdxl["encode"]},
+                       "controlnet": {k: cn[k] for k in ("eager_image_s", "route", "scales",
+                                                         "image_encoder", "ip_scale_0")},
                        "phase_s": phase_s})
 
 
@@ -1568,9 +1793,10 @@ def main():
     log_pools(torch, pipe, "sd1.5 phases 4 to 9")
     sdxl = phase("10 sdxl", run_sdxl, torch, dev)
     scheds = phase("11 schedulers", run_schedulers, torch, dev, pipe)
+    cn = phase("12 controlnet / ip-adapter", run_controlnet, torch, dev, pipe)
 
     print(kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_res,
-                       prompt_res, phase_s))
+                       prompt_res, cn, phase_s))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

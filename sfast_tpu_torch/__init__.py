@@ -4,7 +4,9 @@ The JAX package ``sfast_tpu`` stays the reference.  This package runs
 SD1.5 and SDXL text2img, img2img and inpainting (prompt strings through
 ``text/clip_tokenizer.py``, LoRA hot-swap through ``lora.py``; DPM++,
 Euler, Euler ancestral, DDIM, EDM Euler and LCM, an LCM-distilled UNet
-included) on an NVIDIA H100 with PyTorch, through CUDA kernels written by
+included), and SD1.5 with a ControlNet (``models/controlnet.py``) and an
+IP-Adapter (``ip_adapter.py``, its CLIP vision encoder in
+``models/clip_vision.py``), on an NVIDIA H100 with PyTorch, through CUDA kernels written by
 hand for Hopper, eight sources in ``csrc/``: flash attention
 (K1), the fused GroupNorm+SiLU→3×3 conv (K2), GroupNorm statistics (K3),
 GroupNorm apply (K5), the fused GroupNorm (K3′ and K5 in one launch),
@@ -14,10 +16,11 @@ runs for CPU tensors.  The kernels are built with nvcc at first use;
 importing the package builds and loads nothing.
 
 ``compile`` wraps the pipeline's models so that each replays a CUDA graph
-per input signature (``runtime/tracing.py``).
+per input signature (``runtime/tracing.py``); ``compile_model`` wraps one
+model alone (an IP-Adapter's image encoder).
 """
 
-from sfast_tpu_torch.compilers import compile
+from sfast_tpu_torch.compilers import compile, compile_model
 from sfast_tpu_torch.config import CompilationConfig
 
-__all__ = ["CompilationConfig", "compile"]
+__all__ = ["CompilationConfig", "compile", "compile_model"]

@@ -2,14 +2,19 @@
 ``sfast_tpu/compilers/diffusion_pipeline_compiler.py`` (``:51-337``).
 
 ``compile`` wraps the callable the pipeline uses of each submodel (the
-UNet's ``forward``, the VAE's ``decode``, its ``encode`` in the
-``vae_encode`` slot, CLIP's ``forward``) in a
+UNet's ``forward``, a ControlNet's ``forward``, whose graph returns the
+tuple of its down residuals and its mid residual, the VAE's ``decode``,
+its ``encode`` in the ``vae_encode`` slot, CLIP's ``forward``) in a
 :class:`CompiledModel`, which replays one CUDA graph per input signature
 (``runtime/tracing.py``), and the scheduler's step in a
 ``CompiledScheduler`` when ``trace_scheduler`` is on; then it applies the
 config's kernel routes.  It compiles nothing itself: each graph is
 captured at its first call.  With ``enable_cuda_graph=False`` the models
 run eagerly.
+
+The pipeline holds no image encoder, as in JAX: an IP-Adapter caller
+compiles its CLIP vision encoder alone, ``compile_model(image_encoder,
+name="image_encoder")``, as the reference's community example does.
 """
 
 import logging

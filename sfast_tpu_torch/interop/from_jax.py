@@ -5,13 +5,17 @@ The JAX package keeps its weights as nested dicts of arrays (linear
 functions turn such a tree — numpy arrays, or JAX arrays, which numpy
 reads without importing JAX — into f32 state dicts for
 ``UNet2DConditionModel`` (SDXL's ``add_embedding`` and an LCM UNet's
-``time_embedding.cond_proj`` included), ``AutoencoderKL`` (both halves)
-and ``CLIPTextModel`` (with ``text_projection``), whose
-``load_state_dict`` casts to the model's dtype, and LoRA trees into the
-port's LoRA layout (``sfast_tpu_torch/lora.py``).
+``time_embedding.cond_proj`` included), ``ControlNetModel``,
+``AutoencoderKL`` (both halves), ``CLIPTextModel`` (with
+``text_projection``) and ``CLIPVisionModel``, whose ``load_state_dict``
+casts to the model's dtype; IP-Adapter trees into the UNet's added attn2
+keys and the image projection's; and LoRA trees into the port's LoRA
+layout (``sfast_tpu_torch/lora.py``).
 
 UNet and VAE follow ``sfast_tpu/interop/export_unet.py:16-126`` and
 ``export_vae.py:16-63``; CLIP is the inverse of ``convert_clip.py:28-88``.
+JAX has no ControlNet, CLIP vision or IP-Adapter exporter; those here
+are the port's own, in diffusers' and transformers' names.
 """
 
 from typing import Dict
@@ -76,32 +80,88 @@ def _put_spatial_transformer(sd: StateDict, pre: str, p) -> None:
         _put_lin(sd, bp + "ff.net.2", blk["ff"]["out"])
 
 
-def unet_state_dict(params) -> StateDict:
-    """``init_unet_params`` tree → ``UNet2DConditionModel`` state dict."""
-    sd: StateDict = {}
+def _put_trunk(sd: StateDict, params) -> None:
+    """conv_in, the embeddings, the down blocks and the mid block: the part
+    a ControlNet shares with the UNet (``models.unet_2d_condition.UNetTrunk``)."""
     _put_conv(sd, "conv_in", params["conv_in"])
     for name, p in params["time_embedding"].items():  # linear_1, linear_2, LCM's cond_proj
         _put_lin(sd, f"time_embedding.{name}", p)
     for name, p in params.get("add_embedding", {}).items():  # SDXL's text_time MLP
         _put_lin(sd, f"add_embedding.{name}", p)
-    for part in ("down_blocks", "up_blocks"):
-        for i, blk in enumerate(params[part]):
-            pre = f"{part}.{i}."
-            for j, rn in enumerate(blk["resnets"]):
-                _put_resnet(sd, f"{pre}resnets.{j}.", rn)
-            for j, at in enumerate(blk.get("attentions", [])):
-                _put_spatial_transformer(sd, f"{pre}attentions.{j}.", at)
-            if "downsample" in blk:
-                _put_conv(sd, f"{pre}downsamplers.0.conv", blk["downsample"]["conv"])
-            if "upsample" in blk:
-                _put_conv(sd, f"{pre}upsamplers.0.conv", blk["upsample"]["conv"])
+    _put_blocks(sd, "down_blocks", params["down_blocks"])
     mid = params["mid_block"]
     for j, rn in enumerate(mid["resnets"]):
         _put_resnet(sd, f"mid_block.resnets.{j}.", rn)
     _put_spatial_transformer(sd, "mid_block.attentions.0.", mid["attentions"][0])
+
+
+def _put_blocks(sd: StateDict, part: str, blocks) -> None:
+    for i, blk in enumerate(blocks):
+        pre = f"{part}.{i}."
+        for j, rn in enumerate(blk["resnets"]):
+            _put_resnet(sd, f"{pre}resnets.{j}.", rn)
+        for j, at in enumerate(blk.get("attentions", [])):
+            _put_spatial_transformer(sd, f"{pre}attentions.{j}.", at)
+        if "downsample" in blk:
+            _put_conv(sd, f"{pre}downsamplers.0.conv", blk["downsample"]["conv"])
+        if "upsample" in blk:
+            _put_conv(sd, f"{pre}upsamplers.0.conv", blk["upsample"]["conv"])
+
+
+def unet_state_dict(params) -> StateDict:
+    """``init_unet_params`` tree → ``UNet2DConditionModel`` state dict
+    (without IP-Adapter keys: ``ip_adapter_state_dicts``)."""
+    sd: StateDict = {}
+    _put_trunk(sd, params)
+    _put_blocks(sd, "up_blocks", params["up_blocks"])
     _put_norm(sd, "conv_norm_out", params["conv_norm_out"])
     _put_conv(sd, "conv_out", params["conv_out"])
     return sd
+
+
+def controlnet_state_dict(params) -> StateDict:
+    """``init_controlnet_params`` tree → ``ControlNetModel`` state dict
+    (diffusers' names)."""
+    sd: StateDict = {}
+    _put_trunk(sd, params)
+    ce = params["controlnet_cond_embedding"]
+    _put_conv(sd, "controlnet_cond_embedding.conv_in", ce["conv_in"])
+    for i, conv in enumerate(ce["blocks"]):
+        _put_conv(sd, f"controlnet_cond_embedding.blocks.{i}", conv)
+    _put_conv(sd, "controlnet_cond_embedding.conv_out", ce["conv_out"])
+    for i, conv in enumerate(params["controlnet_down_blocks"]):
+        _put_conv(sd, f"controlnet_down_blocks.{i}", conv)
+    _put_conv(sd, "controlnet_mid_block", params["controlnet_mid_block"])
+    return sd
+
+
+def _attn2_nodes(params):
+    """(module name, attn2 param dict) of every cross-attention of a UNet
+    tree."""
+    for part in ("down_blocks", "up_blocks"):
+        for i, blk in enumerate(params[part]):
+            for j, at in enumerate(blk.get("attentions", [])):
+                for k, b in enumerate(at["blocks"]):
+                    yield f"{part}.{i}.attentions.{j}.transformer_blocks.{k}.attn2", b["attn2"]
+    for k, b in enumerate(params["mid_block"]["attentions"][0]["blocks"]):
+        yield f"mid_block.attentions.0.transformer_blocks.{k}.attn2", b["attn2"]
+
+
+def ip_adapter_state_dicts(unet_params, image_proj):
+    """A UNet tree with IP-Adapter weights (JAX's ``load_ip_adapter`` or
+    ``init_ip_adapter_params``) and its image projection → (the UNet's
+    added keys, ``...attn2.to_k_ip.weight`` / ``to_v_ip.weight``, for a UNet
+    given them by ``ip_adapter.add_ip_projections``; the
+    ``ImageProjModel`` state dict)."""
+    sd: StateDict = {}
+    for name, p in _attn2_nodes(unet_params):
+        if "ip_to_k" in p:
+            _put_lin(sd, f"{name}.to_k_ip", p["ip_to_k"])
+            _put_lin(sd, f"{name}.to_v_ip", p["ip_to_v"])
+    proj: StateDict = {}
+    _put_lin(proj, "proj", image_proj["proj"])
+    _put_norm(proj, "norm", image_proj["norm"])
+    return sd, proj
 
 
 def _put_vae_mid(sd: StateDict, pre: str, mid) -> None:
@@ -142,6 +202,18 @@ def vae_state_dict(params) -> StateDict:
     return sd
 
 
+def _put_clip_layers(sd: StateDict, pre: str, layers) -> None:
+    for i, lyr in enumerate(layers):
+        lp = f"{pre}{i}."
+        _put_norm(sd, lp + "layer_norm1", lyr["layer_norm1"])
+        for ours, theirs in (("to_q", "q_proj"), ("to_k", "k_proj"),
+                             ("to_v", "v_proj"), ("to_out", "out_proj")):
+            _put_lin(sd, f"{lp}self_attn.{theirs}", lyr["attn"][ours])
+        _put_norm(sd, lp + "layer_norm2", lyr["layer_norm2"])
+        _put_lin(sd, lp + "mlp.fc1", lyr["fc1"])
+        _put_lin(sd, lp + "mlp.fc2", lyr["fc2"])
+
+
 def clip_text_state_dict(params) -> StateDict:
     """``init_clip_text_params`` tree → ``CLIPTextModel`` state dict
     (transformers' names)."""
@@ -151,17 +223,27 @@ def clip_text_state_dict(params) -> StateDict:
         pre + "embeddings.position_embedding.weight": _t(params["position_embedding"]),
     }
     _put_norm(sd, pre + "final_layer_norm", params["final_layer_norm"])
-    for i, lyr in enumerate(params["layers"]):
-        lp = f"{pre}encoder.layers.{i}."
-        _put_norm(sd, lp + "layer_norm1", lyr["layer_norm1"])
-        for ours, theirs in (("to_q", "q_proj"), ("to_k", "k_proj"),
-                             ("to_v", "v_proj"), ("to_out", "out_proj")):
-            _put_lin(sd, f"{lp}self_attn.{theirs}", lyr["attn"][ours])
-        _put_norm(sd, lp + "layer_norm2", lyr["layer_norm2"])
-        _put_lin(sd, lp + "mlp.fc1", lyr["fc1"])
-        _put_lin(sd, lp + "mlp.fc2", lyr["fc2"])
+    _put_clip_layers(sd, pre + "encoder.layers.", params["layers"])
     if "text_projection" in params:  # CLIPTextModelWithProjection: top level
         _put_lin(sd, "text_projection", params["text_projection"])
+    return sd
+
+
+def clip_vision_state_dict(params) -> StateDict:
+    """``init_clip_vision_params`` tree → ``CLIPVisionModel`` state dict
+    (transformers' names, ``pre_layrnorm`` as transformers spells it)."""
+    pre = "vision_model."
+    sd: StateDict = {
+        pre + "embeddings.class_embedding": _t(params["class_embedding"]),
+        pre + "embeddings.patch_embedding.weight":
+            _t(np.asarray(params["patch_embedding"]["w"], np.float32).transpose(3, 2, 0, 1)),
+        pre + "embeddings.position_embedding.weight": _t(params["position_embedding"]),
+    }
+    _put_norm(sd, pre + "pre_layrnorm", params["pre_layernorm"])
+    _put_norm(sd, pre + "post_layernorm", params["post_layernorm"])
+    _put_clip_layers(sd, pre + "encoder.layers.", params["layers"])
+    if "visual_projection" in params:
+        _put_lin(sd, "visual_projection", params["visual_projection"])
     return sd
 
 

@@ -1,5 +1,5 @@
 """The models of the port: CLIP text encoders, UNet, VAE (SD1.5, SD2.x,
-SDXL)."""
+SDXL), ControlNet and the CLIP vision encoder (IP-Adapter)."""
 
 from sfast_tpu_torch.models.autoencoder_kl import (
     SD_VAE,
@@ -16,6 +16,20 @@ from sfast_tpu_torch.models.clip_text import (
     CLIPTextConfig,
     CLIPTextModel,
 )
+from sfast_tpu_torch.models.clip_vision import (
+    TINY_IMAGE_ENCODER,
+    VIT_H_IMAGE_ENCODER,
+    VIT_L_IMAGE_ENCODER,
+    CLIPVisionConfig,
+    CLIPVisionModel,
+)
+from sfast_tpu_torch.models.controlnet import (
+    SD15_CONTROLNET,
+    TINY_CONTROLNET,
+    ControlNetConfig,
+    ControlNetModel,
+    init_controlnet_weights_,
+)
 from sfast_tpu_torch.models.layers import init_weights_
 from sfast_tpu_torch.models.unet_2d_condition import (
     SD15_UNET,
@@ -27,8 +41,10 @@ from sfast_tpu_torch.models.unet_2d_condition import (
 )
 
 __all__ = [
-    "AutoencoderKL", "CLIPTextConfig", "CLIPTextModel", "SD15_TEXT_ENCODER", "SD15_UNET",
+    "AutoencoderKL", "CLIPTextConfig", "CLIPTextModel", "CLIPVisionConfig", "CLIPVisionModel",
+    "ControlNetConfig", "ControlNetModel", "SD15_CONTROLNET", "SD15_TEXT_ENCODER", "SD15_UNET",
     "SD21_TEXT_ENCODER", "SD21_UNET", "SDXL_TEXT_ENCODER_2", "SDXL_UNET", "SDXL_VAE", "SD_VAE",
-    "TINY_TEST_VAE", "TINY_TEXT_ENCODER", "TINY_UNET", "UNet2DConditionModel", "UNetConfig",
-    "VAEConfig", "init_weights_",
+    "TINY_CONTROLNET", "TINY_IMAGE_ENCODER", "TINY_TEST_VAE", "TINY_TEXT_ENCODER", "TINY_UNET",
+    "UNet2DConditionModel", "UNetConfig", "VAEConfig", "VIT_H_IMAGE_ENCODER",
+    "VIT_L_IMAGE_ENCODER", "init_controlnet_weights_", "init_weights_",
 ]

@@ -66,10 +66,13 @@ TINY_TEXT_ENCODER = CLIPTextConfig(
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, dim: int, heads: int, *, device=None, dtype=None):
+    """Causal for text, not for an image's patches (``causal=False``)."""
+
+    def __init__(self, dim: int, heads: int, *, causal: bool = True, device=None, dtype=None):
         super().__init__()
         mk = dict(device=device, dtype=dtype)
         self.heads = heads
+        self.causal = causal
         self.q_proj = Linear(dim, dim, **mk)
         self.k_proj = Linear(dim, dim, **mk)
         self.v_proj = Linear(dim, dim, **mk)
@@ -83,7 +86,7 @@ class CLIPAttention(nn.Module):
 
         out = dot_product_attention(
             split_heads(self.q_proj(x)), split_heads(self.k_proj(x)),
-            split_heads(self.v_proj(x)), causal=True, backend="plain",
+            split_heads(self.v_proj(x)), causal=self.causal, backend="plain",
         )
         return self.out_proj(out.transpose(1, 2).reshape(b, s, d))
 
@@ -105,12 +108,14 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig, *, device=None, dtype=None):
+    """One pre-LN layer; ``cfg`` is a text or a vision config."""
+
+    def __init__(self, cfg, *, causal: bool = True, device=None, dtype=None):
         super().__init__()
         mk = dict(device=device, dtype=dtype)
         f32 = dict(device=device, dtype=torch.float32)
         self.layer_norm1 = LayerNorm(cfg.hidden_size, **f32)
-        self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads, **mk)
+        self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads, causal=causal, **mk)
         self.layer_norm2 = LayerNorm(cfg.hidden_size, **f32)
         self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act, **mk)
 
@@ -134,11 +139,11 @@ class CLIPEmbeddings(nn.Module):
 
 
 class CLIPEncoder(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig, *, device=None, dtype=None):
+    def __init__(self, cfg, *, causal: bool = True, device=None, dtype=None):
         super().__init__()
-        self.layers = nn.ModuleList(
-            [CLIPEncoderLayer(cfg, device=device, dtype=dtype) for _ in range(cfg.num_layers)]
-        )
+        self.layers = nn.ModuleList([CLIPEncoderLayer(cfg, causal=causal, device=device,
+                                                      dtype=dtype)
+                                     for _ in range(cfg.num_layers)])
 
 
 class CLIPTextTransformer(nn.Module):

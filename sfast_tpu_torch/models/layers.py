@@ -85,8 +85,10 @@ class LayerNorm(nn.LayerNorm):
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights at the scales of JAX's ``init_*``
     (``layers.py:118-137``): linear and conv weights N(0, 1/fan_in),
-    biases 0, norms (1, 0), embeddings N(0, 0.02²).  Values are drawn on
-    ``generator``'s device in f32, in module order, then cast."""
+    biases 0, norms (1, 0), embeddings and any parameter held bare by a
+    module of no other kind (CLIP vision's class token) N(0, 0.02²).
+    Values are drawn on ``generator``'s device in f32, in module order,
+    then cast."""
 
     def randn_(p: torch.Tensor, std: float) -> None:
         r = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
@@ -102,6 +104,9 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             randn_(m.weight, 0.02)
+        else:
+            for p in m.parameters(recurse=False):
+                randn_(p, 0.02)
     return module
 
 
@@ -280,7 +285,13 @@ class ResnetBlock2D(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self- or cross-attention over (B, S, D) tokens."""
+    """Multi-head self- or cross-attention over (B, S, D) tokens.
+
+    An IP-Adapter (``ip_adapter.load_ip_adapter``) gives a cross-attention
+    the bias-free ``to_k_ip`` / ``to_v_ip`` of diffusers'
+    ``IPAdapterAttnProcessor``; with ``ip_embeds`` (B, N, context_dim) the
+    forward adds ``ip_scale · attention(q, k_ip, v_ip)`` before ``to_out``
+    (JAX ``layers.py:520-560``)."""
 
     def __init__(
         self,
@@ -300,6 +311,19 @@ class Attention(nn.Module):
         self.to_k = Linear(ctx, dim, bias=qkv_bias, **mk)
         self.to_v = Linear(ctx, dim, bias=qkv_bias, **mk)
         self.to_out = nn.ModuleList([Linear(dim, dim, **mk)])
+        self.to_k_ip: Optional[Linear] = None
+        self.to_v_ip: Optional[Linear] = None
+
+    def add_ip_projections(self) -> None:
+        """Give this attention the IP-Adapter's two projections, on its own
+        device and dtype (zero until loaded)."""
+        w = self.to_k.weight
+        mk = dict(device=w.device, dtype=w.dtype)
+        self.to_k_ip = Linear(w.shape[1], w.shape[0], bias=False, **mk)
+        self.to_v_ip = Linear(w.shape[1], w.shape[0], bias=False, **mk)
+        with torch.no_grad():
+            self.to_k_ip.weight.zero_()
+            self.to_v_ip.weight.zero_()
 
     def forward(
         self,
@@ -308,6 +332,8 @@ class Attention(nn.Module):
         *,
         causal: bool = False,
         attn_backend: Optional[str] = None,
+        ip_embeds: Optional[torch.Tensor] = None,
+        ip_scale=1.0,
     ) -> torch.Tensor:
         b, s, d = x.shape
         ctx = x if context is None else context
@@ -316,10 +342,21 @@ class Attention(nn.Module):
         def split_heads(t):  # (B, S, H·dh) → (B, H, S, dh) view
             return t.view(b, -1, self.heads, dh).transpose(1, 2)
 
+        q = split_heads(self.to_q(x))
         out = dot_product_attention(
-            split_heads(self.to_q(x)), split_heads(self.to_k(ctx)),
-            split_heads(self.to_v(ctx)), causal=causal, backend=attn_backend,
+            q, split_heads(self.to_k(ctx)), split_heads(self.to_v(ctx)),
+            causal=causal, backend=attn_backend,
         )
+        if ip_embeds is not None and self.to_k_ip is not None:
+            e = ip_embeds.to(x.dtype)
+            ip = dot_product_attention(q, split_heads(self.to_k_ip(e)),
+                                       split_heads(self.to_v_ip(e)), backend=attn_backend)
+            # ``ip_scale`` is a Python float or a 0-d f32 tensor: either way
+            # the term stays in x's dtype (a 0-d tensor does not promote a
+            # bf16 one), as JAX's stepwise path, which passes a float
+            # (stable_diffusion.py:936-937).  JAX's fused loop passes a 0-d
+            # f32 array, which promotes the sum to f32 from here on.
+            out = out + ip_scale * ip
         return self.to_out[0](out.transpose(1, 2).reshape(b, s, d))
 
 
@@ -370,9 +407,13 @@ class BasicTransformerBlock(nn.Module):
         *,
         attn_backend: Optional[str] = None,
         geglu_backend: Optional[str] = None,
+        ip_embeds: Optional[torch.Tensor] = None,
+        ip_scale=1.0,
     ) -> torch.Tensor:
+        """``ip_embeds`` / ``ip_scale`` (IP-Adapter) reach ``attn2`` only."""
         x = x + self.attn1(self.norm1(x), attn_backend=attn_backend)
-        x = x + self.attn2(self.norm2(x), context, attn_backend=attn_backend)
+        x = x + self.attn2(self.norm2(x), context, attn_backend=attn_backend,
+                           ip_embeds=ip_embeds, ip_scale=ip_scale)
         return x + self.ff(self.norm3(x), geglu_backend=geglu_backend)
 
 
@@ -414,6 +455,8 @@ class Transformer2DModel(nn.Module):
         gn_backend: Optional[str] = None,
         attn_backend: Optional[str] = None,
         geglu_backend: Optional[str] = None,
+        ip_embeds: Optional[torch.Tensor] = None,
+        ip_scale=1.0,
     ) -> torch.Tensor:
         b, hgt, wid, c = x.shape
         h = self.norm(x, backend=gn_backend)
@@ -422,7 +465,8 @@ class Transformer2DModel(nn.Module):
         else:
             h = self.proj_in(h).reshape(b, hgt * wid, c)
         for blk in self.transformer_blocks:
-            h = blk(h, context, attn_backend=attn_backend, geglu_backend=geglu_backend)
+            h = blk(h, context, attn_backend=attn_backend, geglu_backend=geglu_backend,
+                    ip_embeds=ip_embeds, ip_scale=ip_scale)
         if self.use_linear_projection:
             h = self.proj_out(h).reshape(b, hgt, wid, c)
         else:

@@ -5,14 +5,19 @@ Counterpart of ``sfast_tpu/models/unet_2d_condition.py``, with SDXL's
 ``text_time`` addition embedding (the pooled text embeds and the six
 micro-conditioning ids, ``add_embedding``) and an LCM-distilled UNet's
 ``time_embedding.cond_proj`` (``timestep_cond``, the embedded guidance
-scale); without the parts no ported pipeline runs yet (ControlNet
-residuals, IP-Adapter, weight stacking).  Head counts follow diffusers'
-legacy SD1.5 reading of ``attention_head_dim`` as the number of heads (8 →
-head dim 40 / 80 / 160); SDXL's 5 / 10 / 20 heads are of dim 64.
+scale), a ControlNet's residuals (``down_block_additional_residuals``,
+``mid_block_additional_residual``) and IP-Adapter image tokens
+(``ip_adapter_embeds``); without JAX's weight stacking.  Head counts follow
+diffusers' legacy SD1.5 reading of ``attention_head_dim`` as the number of
+heads (8 → head dim 40 / 80 / 160); SDXL's 5 / 10 / 20 heads are of dim 64.
+
+:class:`UNetTrunk` holds what a ControlNet shares with the UNet (conv_in,
+the embeddings, the down blocks, the mid block) and runs it;
+``models/controlnet.py`` builds on it, so both carry the same names.
 """
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -131,34 +136,36 @@ class _Block(nn.Module):
         self.upsamplers = nn.ModuleList([upsample]) if upsample else None
 
 
-class UNet2DConditionModel(nn.Module):
-    def __init__(self, cfg: UNetConfig = SD15_UNET, *, device=None, dtype=None):
+def _new_resnet(cfg: UNetConfig, cin: int, cout: int, mk: dict) -> ResnetBlock2D:
+    return ResnetBlock2D(cin, cout, cfg.time_embed_dim, groups=cfg.norm_num_groups, **mk)
+
+
+def _new_transformer(cfg: UNetConfig, c: int, level: int, mk: dict) -> Transformer2DModel:
+    return Transformer2DModel(
+        c, cfg.num_heads[level], cfg.cross_attention_dim,
+        depth=cfg.transformer_layers_per_block[level],
+        use_linear_projection=cfg.use_linear_projection, **mk,
+    )
+
+
+class UNetTrunk(nn.Module):
+    """conv_in, the time embedding (with SDXL's ``add_embedding``), the down
+    blocks and the mid block, and the passes through them: the part of the
+    UNet a ControlNet copies (JAX ``controlnet.py:58-78``)."""
+
+    def __init__(self, cfg: UNetConfig, *, device=None, dtype=None):
         super().__init__()
-        self.config = cfg
+        self.unet_config = cfg
         self.compilation_config = CompilationConfig.Default()
-        device = resolve_device(device)
         mk = dict(device=device, dtype=dtype)
         boc = cfg.block_out_channels
         n_levels = len(boc)
-        temb = cfg.time_embed_dim
-        groups = cfg.norm_num_groups
-
-        def resnet(cin, cout):
-            return ResnetBlock2D(cin, cout, temb, groups=groups, **mk)
-
-        def transformer(c, level):
-            return Transformer2DModel(
-                c, cfg.num_heads[level], cfg.cross_attention_dim,
-                depth=cfg.transformer_layers_per_block[level],
-                use_linear_projection=cfg.use_linear_projection, **mk,
-            )
-
         self.conv_in = Conv2d(cfg.in_channels, boc[0], 3, padding=1, **mk)
-        self.time_embedding = TimestepEmbedding(boc[0], temb,
+        self.time_embedding = TimestepEmbedding(boc[0], cfg.time_embed_dim,
                                                 cond_proj_dim=cfg.time_cond_proj_dim, **mk)
         if cfg.addition_embed_type == "text_time":
             self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim,
-                                                   temb, **mk)
+                                                   cfg.time_embed_dim, **mk)
         elif cfg.addition_embed_type is not None:
             raise ValueError(f"addition_embed_type {cfg.addition_embed_type!r}")
 
@@ -168,59 +175,29 @@ class UNet2DConditionModel(nn.Module):
             c_in, c_out = c_out, boc[i]
             cross = btype == "CrossAttnDownBlock2D"
             down.append(_Block(
-                [resnet(c_in if j == 0 else c_out, c_out) for j in range(cfg.layers_per_block)],
-                [transformer(c_out, i) for _ in range(cfg.layers_per_block)] if cross else None,
+                [_new_resnet(cfg, c_in if j == 0 else c_out, c_out, mk)
+                 for j in range(cfg.layers_per_block)],
+                [_new_transformer(cfg, c_out, i, mk) for _ in range(cfg.layers_per_block)]
+                if cross else None,
                 downsample=Downsample2D(c_out, **mk) if i < n_levels - 1 else None,
             ))
         self.down_blocks = nn.ModuleList(down)
 
         c_mid = boc[-1]
         self.mid_block = _Block(
-            [resnet(c_mid, c_mid), resnet(c_mid, c_mid)], [transformer(c_mid, n_levels - 1)]
+            [_new_resnet(cfg, c_mid, c_mid, mk), _new_resnet(cfg, c_mid, c_mid, mk)],
+            [_new_transformer(cfg, c_mid, n_levels - 1, mk)],
         )
 
-        up = []
-        rev = list(reversed(boc))
-        c_prev = rev[0]
-        for i, btype in enumerate(cfg.up_block_types):
-            c_out = rev[i]
-            c_skip_in = rev[min(i + 1, n_levels - 1)]
-            level = n_levels - 1 - i
-            resnets = []
-            for j in range(cfg.layers_per_block + 1):
-                res_skip = c_skip_in if j == cfg.layers_per_block else c_out
-                res_in = c_prev if j == 0 else c_out
-                resnets.append(resnet(res_in + res_skip, c_out))
-            cross = btype == "CrossAttnUpBlock2D"
-            up.append(_Block(
-                resnets,
-                [transformer(c_out, level) for _ in range(cfg.layers_per_block + 1)]
-                if cross else None,
-                upsample=Upsample2D(c_out, **mk) if i < n_levels - 1 else None,
-            ))
-            c_prev = c_out
-        self.up_blocks = nn.ModuleList(up)
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv_in.weight.dtype
 
-        self.conv_norm_out = GroupNorm(groups, boc[0], device=device, dtype=torch.float32)
-        self.conv_out = Conv2d(boc[0], cfg.out_channels, 3, padding=1, **mk)
-
-    def forward(
-        self,
-        sample: torch.Tensor,
-        timesteps: torch.Tensor,
-        encoder_hidden_states: torch.Tensor,
-        added_cond_kwargs: Optional[dict] = None,
-        timestep_cond: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
-        """sample (B, H, W, C_in) NHWC latents, timesteps () or (B,),
-        encoder_hidden_states (B, S, cross_dim) → predicted noise
-        (B, H, W, C_out).  SDXL's ``added_cond_kwargs`` holds
-        ``text_embeds`` (B, pooled_dim) and ``time_ids`` (B, 6); an LCM
-        UNet's ``timestep_cond`` is the (B, time_cond_proj_dim) guidance
-        embedding."""
-        cfg = self.config
-        be = backends(self.compilation_config)
-        dtype = self.conv_in.weight.dtype
+    def embed(self, sample, timesteps, added_cond_kwargs=None, timestep_cond=None):
+        """The time embedding of ``timesteps`` (() or (B,)), plus SDXL's
+        added embedding of ``added_cond_kwargs``."""
+        cfg = self.unet_config
+        dtype = self.dtype
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
         t_emb = timestep_embedding(
@@ -236,40 +213,125 @@ class UNet2DConditionModel(nn.Module):
             ).reshape(text_embeds.shape[0], -1)
             add = torch.cat([text_embeds.float(), t_ids], dim=-1).to(dtype)
             emb = emb + self.add_embedding(add)
-        context = encoder_hidden_states.to(dtype)
+        return emb
 
-        def resnet(rn, h):
-            return rn(h, emb, gn_backend=be["gn"], conv_backend=be["conv"])
+    def _resnet(self, rn, h, emb, be):
+        return rn(h, emb, gn_backend=be["gn"], conv_backend=be["conv"])
 
-        def attention(at, h):
-            return at(h, context, gn_backend=be["gn"], attn_backend=be["attn"],
-                      geglu_backend=be["geglu"])
+    def _attention(self, at, h, context, be, ip):
+        return at(h, context, gn_backend=be["gn"], attn_backend=be["attn"],
+                  geglu_backend=be["geglu"], **ip)
 
-        def level(blk, j, h):
-            h = resnet(blk.resnets[j], h)
-            if blk.attentions is not None:
-                h = attention(blk.attentions[j], h)
-            return h
+    def _level(self, blk, j, h, emb, context, be, ip):
+        h = self._resnet(blk.resnets[j], h, emb, be)
+        if blk.attentions is not None:
+            h = self._attention(blk.attentions[j], h, context, be, ip)
+        return h
 
-        h = self.conv_in(sample.to(dtype))
+    def down(self, h, emb, context, be, ip):
+        """The down blocks from ``h`` (conv_in's output): (h, the skips in
+        order: ``h`` itself, each level's resnets, each downsampler)."""
         res_stack = [h]
         for blk in self.down_blocks:
             for j in range(len(blk.resnets)):
-                h = level(blk, j, h)
+                h = self._level(blk, j, h, emb, context, be, ip)
                 res_stack.append(h)
             if blk.downsamplers is not None:
                 h = blk.downsamplers[0](h)
                 res_stack.append(h)
+        return h, res_stack
 
+    def mid(self, h, emb, context, be, ip):
         mid = self.mid_block
-        h = resnet(mid.resnets[0], h)
-        h = attention(mid.attentions[0], h)
-        h = resnet(mid.resnets[1], h)
+        h = self._resnet(mid.resnets[0], h, emb, be)
+        h = self._attention(mid.attentions[0], h, context, be, ip)
+        return self._resnet(mid.resnets[1], h, emb, be)
+
+
+def _add_f32(h: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``h + r`` summed in f32 and cast back to ``h``'s dtype, as JAX adds a
+    ControlNet residual (``unet_2d_condition.py:469-493``)."""
+    return (h.float() + r.float()).to(h.dtype)
+
+
+class UNet2DConditionModel(UNetTrunk):
+    def __init__(self, cfg: UNetConfig = SD15_UNET, *, device=None, dtype=None):
+        device = resolve_device(device)
+        super().__init__(cfg, device=device, dtype=dtype)
+        self.config = cfg
+        mk = dict(device=device, dtype=dtype)
+        boc = cfg.block_out_channels
+        n_levels = len(boc)
+
+        up = []
+        rev = list(reversed(boc))
+        c_prev = rev[0]
+        for i, btype in enumerate(cfg.up_block_types):
+            c_out = rev[i]
+            c_skip_in = rev[min(i + 1, n_levels - 1)]
+            level = n_levels - 1 - i
+            resnets = []
+            for j in range(cfg.layers_per_block + 1):
+                res_skip = c_skip_in if j == cfg.layers_per_block else c_out
+                res_in = c_prev if j == 0 else c_out
+                resnets.append(_new_resnet(cfg, res_in + res_skip, c_out, mk))
+            cross = btype == "CrossAttnUpBlock2D"
+            up.append(_Block(
+                resnets,
+                [_new_transformer(cfg, c_out, level, mk) for _ in range(cfg.layers_per_block + 1)]
+                if cross else None,
+                upsample=Upsample2D(c_out, **mk) if i < n_levels - 1 else None,
+            ))
+            c_prev = c_out
+        self.up_blocks = nn.ModuleList(up)
+
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0], device=device,
+                                       dtype=torch.float32)
+        self.conv_out = Conv2d(boc[0], cfg.out_channels, 3, padding=1, **mk)
+
+    def forward(
+        self,
+        sample: torch.Tensor,
+        timesteps: torch.Tensor,
+        encoder_hidden_states: torch.Tensor,
+        added_cond_kwargs: Optional[dict] = None,
+        timestep_cond: Optional[torch.Tensor] = None,
+        down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None,
+        mid_block_additional_residual: Optional[torch.Tensor] = None,
+        ip_adapter_embeds: Optional[torch.Tensor] = None,
+        ip_adapter_scale=1.0,
+    ) -> torch.Tensor:
+        """sample (B, H, W, C_in) NHWC latents, timesteps () or (B,),
+        encoder_hidden_states (B, S, cross_dim) → predicted noise
+        (B, H, W, C_out).  SDXL's ``added_cond_kwargs`` holds
+        ``text_embeds`` (B, pooled_dim) and ``time_ids`` (B, 6); an LCM
+        UNet's ``timestep_cond`` is the (B, time_cond_proj_dim) guidance
+        embedding.  A ControlNet's residuals (one per skip, in the down
+        pass's order, and the mid block's) are added in f32;
+        ``ip_adapter_embeds`` (B, N, cross_dim) and ``ip_adapter_scale`` (a
+        float or a 0-d tensor) reach every ``attn2`` that holds IP
+        projections."""
+        be = backends(self.compilation_config)
+        emb = self.embed(sample, timesteps, added_cond_kwargs, timestep_cond)
+        context = encoder_hidden_states.to(self.dtype)
+        ip = {}
+        if ip_adapter_embeds is not None:
+            ip = dict(ip_embeds=ip_adapter_embeds, ip_scale=ip_adapter_scale)
+
+        h, res_stack = self.down(self.conv_in(sample.to(self.dtype)), emb, context, be, ip)
+        if down_block_additional_residuals is not None:
+            if len(down_block_additional_residuals) != len(res_stack):
+                raise ValueError(f"{len(down_block_additional_residuals)} down residuals for "
+                                 f"{len(res_stack)} skips")
+            res_stack = [_add_f32(r, a) for r, a in zip(res_stack, down_block_additional_residuals)]
+        h = self.mid(h, emb, context, be, ip)
+        if mid_block_additional_residual is not None:
+            h = _add_f32(h, mid_block_additional_residual)
 
         for blk in self.up_blocks:
             for j in range(len(blk.resnets)):
                 h = torch.cat([h, res_stack.pop().to(h.dtype)], dim=-1)
-                h = level(blk, j, h)
+                h = self._level(blk, j, h, emb, context, be, ip)
             if blk.upsamplers is not None:
                 h = blk.upsamplers[0](h, conv_backend=be["conv"])
 

@@ -36,6 +36,16 @@ step as an ordinary input and the fused loop takes the buffer as an input,
 so no graph draws random numbers: a capture's three warm-up calls would
 advance a generator, and a graph would bake in its Philox state.
 
+A ControlNet (``controlnet=``, ``control_image=``) runs before the UNet on
+the CFG batch each step, and its residuals feed the UNet; IP-Adapter tokens
+(``ip_adapter_embeds=``, [uncond; cond] with CFG) reach every attn2 that
+holds IP projections (``ip_adapter.py``).  Both scales enter every graph as
+0-d device tensors, so a new scale captures nothing.  The stepwise path
+embeds the control image inside each ControlNet eval, as JAX's stepwise
+path does (``:313-349``); the fused loop embeds it once before its steps
+(``:395-410``) and is keyed by both branches as well (JAX's ``_cn`` /
+``_ip``, ``:455-462``).
+
 An LCM-distilled UNet (``time_cond_proj_dim``) takes the guidance scale as
 an embedding (``timestep_cond``) and runs without CFG whatever the scale;
 any UNet runs without CFG at a scale ≤ 1 (JAX ``:736-742``).
@@ -60,6 +70,7 @@ from sfast_tpu_torch.schedulers import common
 from sfast_tpu_torch.text.clip_tokenizer import CLIPTokenizer, find_vocab_files
 from sfast_tpu_torch.utils.image import (
     denormalize_to_uint8,
+    preprocess_control_image,
     preprocess_image,
     preprocess_mask_image,
 )
@@ -85,13 +96,16 @@ class StableDiffusionPipeline:
         *,
         vae_encode=None,
         tokenizer=None,
+        controlnet=None,
         device=None,
         dtype: torch.dtype = torch.bfloat16,
     ):
         """``vae_encode`` is what img2img encodes with: the VAE module itself
         (its ``encode``), which ``sfast_tpu_torch.compile`` wraps as a model
-        of its own beside the decode."""
+        of its own beside the decode.  ``controlnet`` is a
+        ``ControlNetModel``, run by ``control_image=``."""
         self.unet = unet
+        self.controlnet = controlnet
         self.vae = vae
         self.vae_encode = vae_encode
         self.text_encoder = text_encoder
@@ -100,8 +114,9 @@ class StableDiffusionPipeline:
         self.device = torch.device(device) if device is not None else unet.conv_in.weight.device
         self.dtype = dtype
         self._ccfg = CompilationConfig.Default()
-        # fused loops by (steps, CFG, LCM embedding width, step noise): a
-        # loop's graph bakes its trip count and branches in
+        # fused loops by (steps, CFG, LCM embedding width, step noise, then
+        # "cn" and "ip" where it runs those branches): a loop's graph bakes
+        # its trip count and branches in
         self._fused_loops = {}
         self._sched_states = {}
         self._sched_obj = scheduler
@@ -122,7 +137,7 @@ class StableDiffusionPipeline:
                 m.compilation_config = ccfg
 
     def _submodels(self):
-        return (self.unet, self.vae, self.vae_encode, self.text_encoder)
+        return (self.unet, self.controlnet, self.vae, self.vae_encode, self.text_encoder)
 
     def _drop_fused_loops(self) -> None:
         for loop in self._fused_loops.values():
@@ -229,44 +244,69 @@ class StableDiffusionPipeline:
 
     @staticmethod
     def _unet_eps(unet, scheduler, state, i, latents, context, guidance_scale, use_cfg,
-                  tcond=None, added=None):
+                  tcond=None, added=None, controlnet=None, control=None, ip=None):
         """One UNet eval on the CFG batch and the guidance combine (``i``
         an int: the timestep is a view of the device table).  ``tcond`` is
         an LCM UNet's guidance embedding, ``added`` SDXL's
-        ``added_cond_kwargs``."""
+        ``added_cond_kwargs``; ``control`` is (control image on the CFG
+        batch or None, scale, its embedding or None) for ``controlnet``,
+        which runs first; ``ip`` is (IP tokens, scale)."""
         lat_in = torch.cat([latents, latents]) if use_cfg else latents
         lat_in = scheduler.scale_model_input(state, lat_in, i)
+        t = state["timesteps"][i]
         kw = {}
         if added is not None:
             kw["added_cond_kwargs"] = added
         if tcond is not None:
             kw["timestep_cond"] = tcond
-        eps = unet(lat_in, state["timesteps"][i], context, **kw)
+        if control is not None:
+            image, scale, embed = control
+            cn_kw = {"conditioning_scale": scale}
+            if added is not None:
+                cn_kw["added_cond_kwargs"] = added
+            if embed is not None:
+                cn_kw["cond_embed"] = embed
+            down, mid = controlnet(lat_in, t, context, image, **cn_kw)
+            kw["down_block_additional_residuals"] = down
+            kw["mid_block_additional_residual"] = mid
+        if ip is not None:
+            kw["ip_adapter_embeds"], kw["ip_adapter_scale"] = ip
+        eps = unet(lat_in, t, context, **kw)
         if not use_cfg:
             return eps
         eps_u, eps_c = eps.float().chunk(2)  # in f32, as JAX promotes bf16 eps
         return eps_u + guidance_scale * (eps_c - eps_u)
 
     def _fused_loop(self, num_steps: int, use_cfg: bool, tcond_dim: Optional[int] = None,
-                    needs_noise: bool = False):
+                    needs_noise: bool = False, with_control: bool = False,
+                    with_ip: bool = False):
         """The N-step loop as one function (≙ JAX's ``_build_fused_loop``),
         a :class:`LazyCompiledFunction` when graphs are on.  It takes the
         latents, the context, the state, the guidance scale, the step noise
-        buffer (None unless ``needs_noise``) and SDXL's added conditioning
-        (None for SD)."""
-        key = (num_steps, use_cfg, tcond_dim, needs_noise)
+        buffer (None unless ``needs_noise``), SDXL's added conditioning
+        (None for SD), and ``control`` (the control image on the CFG batch
+        and its scale) and ``ip`` (the IP tokens and their scale), each
+        None unless the loop runs that branch."""
+        branches = (("cn",) if with_control else ()) + (("ip",) if with_ip else ())
+        key = (num_steps, use_cfg, tcond_dim, needs_noise, *branches)
         loop = self._fused_loops.get(key)
         if loop is None:
-            # the loop is captured whole, so it calls the module and the
+            # the loop is captured whole, so it calls the modules and the
             # scheduler themselves, not their graphs
             unet = getattr(self.unet, "module", self.unet)
+            controlnet = getattr(self.controlnet, "module", self.controlnet)
             scheduler = getattr(self.scheduler, "_scheduler", self.scheduler)
 
-            def denoise_loop(latents, context, state, guidance_scale, noise, added):
+            def denoise_loop(latents, context, state, guidance_scale, noise, added, control,
+                             ip):
                 tcond = lcm_timestep_cond(guidance_scale, tcond_dim, latents.shape[0])
+                if with_control:  # the control image's embedding, once for N steps
+                    image, scale = control
+                    control = (None, scale, controlnet.cond_embed(image))
                 for i in range(num_steps):
                     eps = self._unet_eps(unet, scheduler, state, i, latents, context,
-                                         guidance_scale, use_cfg, tcond, added)
+                                         guidance_scale, use_cfg, tcond, added, controlnet,
+                                         control, ip)
                     if needs_noise:
                         latents, state = scheduler.step(state, eps, i, latents, noise=noise[i])
                     else:
@@ -275,7 +315,8 @@ class StableDiffusionPipeline:
 
             loop = denoise_loop
             if self._ccfg.enable_cuda_graph:
-                name = (f"denoise_loop_{num_steps}" + ("" if use_cfg else "_nocfg")
+                name = (f"denoise_loop_{num_steps}" + "".join(f"_{b}" for b in branches)
+                        + ("" if use_cfg else "_nocfg")
                         + (f"_tc{tcond_dim}" if tcond_dim else "")
                         + ("_noise" if needs_noise else ""))
                 loop = global_executable_cache().register(
@@ -359,8 +400,16 @@ class StableDiffusionPipeline:
         image=None,
         strength: float = 0.8,
         mask_image=None,
+        control_image=None,
+        controlnet_conditioning_scale: float = 1.0,
+        ip_adapter_embeds=None,
+        ip_adapter_scale: float = 1.0,
         output_type: str = "np",  # 'np' | 'pt' (uint8) | 'float' | 'latent'
     ) -> PipelineOutput:
+        """``control_image`` (B or 1 images, (B, H, W, 3) uint8 or float in
+        [0, 1], at the output's H × W) runs ``controlnet``;
+        ``ip_adapter_embeds`` are IP-Adapter tokens for the UNet's batch,
+        (2B, N, D) as [uncond; cond] with CFG, else (B, N, D)."""
         self._sched_guard()
         prompt_ids, negative_prompt_ids, real_b = self._prompt_batch(
             prompt, prompt_ids, negative_prompt_ids)
@@ -370,14 +419,55 @@ class StableDiffusionPipeline:
             context, None, use_cfg, real_b, height=height, width=width,
             num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, seed=seed,
             latents=latents, image=image, strength=strength, mask_image=mask_image,
-            output_type=output_type)
+            output_type=output_type,
+            control=self._control_input(control_image, controlnet_conditioning_scale, real_b,
+                                        height, width, use_cfg),
+            ip=self._ip_input(ip_adapter_embeds, ip_adapter_scale, real_b, use_cfg))
+
+    def _control_input(self, control_image, scale, real_b, height, width, use_cfg):
+        """(the control image on the device, [0, 1], broadcast from batch 1
+        to the prompt batch, padded to its bucket, doubled for CFG; the
+        scale as a 0-d device tensor), or None without a control image."""
+        if control_image is None:
+            return None
+        if self.controlnet is None:
+            raise ValueError("pipeline has no controlnet model")
+        ctrl = preprocess_control_image(control_image, self.dtype, self.device)
+        if tuple(ctrl.shape[1:3]) != (height, width):
+            raise ValueError(f"control image of {tuple(ctrl.shape[1:3])} for a "
+                             f"{height}x{width} image")
+        if ctrl.shape[0] == 1 and real_b > 1:  # one control image for the batch (diffusers)
+            ctrl = ctrl.expand(real_b, -1, -1, -1)
+        elif ctrl.shape[0] != real_b:
+            raise ValueError(f"{ctrl.shape[0]} control images for a batch of {real_b}")
+        if self._ccfg.batch_buckets:
+            ctrl, _ = pad_batch(ctrl, self._ccfg.batch_buckets)
+        ctrl = torch.cat([ctrl, ctrl]) if use_cfg else ctrl.contiguous()
+        return ctrl, self._dev_scalar(scale)
+
+    def _ip_input(self, embeds, scale, real_b, use_cfg):
+        """(the IP tokens on the device, each CFG half padded to the batch
+        bucket; the scale as a 0-d device tensor), or None."""
+        if embeds is None:
+            return None
+        embeds = torch.as_tensor(embeds, device=self.device)
+        halves = 2 if use_cfg else 1
+        if embeds.shape[0] != halves * real_b:
+            raise ValueError(f"ip_adapter_embeds has {embeds.shape[0]} rows; the UNet's batch "
+                             f"is {halves * real_b}" + (" ([uncond; cond])" if use_cfg else ""))
+        if self._ccfg.batch_buckets:
+            embeds = torch.cat([pad_batch(h, self._ccfg.batch_buckets)[0]
+                                for h in embeds.chunk(halves)])
+        return embeds, self._dev_scalar(scale)
 
     def _generate(self, context, added, use_cfg, real_b, *, height, width, num_inference_steps,
-                  guidance_scale, seed, latents, image, strength, mask_image, output_type):
+                  guidance_scale, seed, latents, image, strength, mask_image, output_type,
+                  control=None, ip=None):
         """From the text conditioning to the output: the initial latents
         (drawn, given, or img2img's encoded and forward-noised image), the
         denoising loop, the decode.  ``added`` is SDXL's added conditioning,
-        None for SD."""
+        None for SD; ``control`` and ``ip`` are ``_control_input``'s and
+        ``_ip_input``'s, or None."""
         dev = self.device
         buckets = self._ccfg.batch_buckets
         sf = self.vae_scale_factor
@@ -424,13 +514,15 @@ class StableDiffusionPipeline:
 
         if self._ccfg.fuse_denoising_loop and start_index == 0 and keep_mask is None:
             loop = self._fused_loop(num_inference_steps, use_cfg, tcond_dim,
-                                    step_noise is not None)
-            latents = loop(latents, context, state, gs, step_noise, added)
+                                    step_noise is not None, control is not None, ip is not None)
+            latents = loop(latents, context, state, gs, step_noise, added, control, ip)
         else:
             tcond = lcm_timestep_cond(gs, tcond_dim, latents.shape[0])
+            if control is not None:  # embedded inside each ControlNet eval
+                control = (*control, None)
             for i in range(start_index, num_inference_steps):
                 eps = self._unet_eps(self.unet, sched, state, i, latents, context, gs, use_cfg,
-                                     tcond, added)
+                                     tcond, added, self.controlnet, control, ip)
                 if step_noise is not None:
                     latents, state = sched.step(state, eps, steps[i], latents,
                                                 noise=step_noise[i])

@@ -1,5 +1,5 @@
 """Image pre- and postprocessing: counterpart of ``sfast_tpu/utils/image.py``
-(``:69-119``, ``denormalize_to_uint8``)."""
+(``:35-119``, ``denormalize_to_uint8``)."""
 
 import numpy as np
 import torch
@@ -23,6 +23,27 @@ def preprocess_image(img, dtype: torch.dtype = torch.float32, device=None) -> to
     if img.dtype == np.uint8:
         img = img.astype(np.float32) / 127.5 - 1.0
     return torch.as_tensor(img).to(device=device, dtype=dtype)
+
+
+def preprocess_control_image(img, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """A ControlNet's control image → (B, H, W, C) in [0, 1] on ``device``
+    (diffusers' convention; the VAE's inputs are [-1, 1] instead).  Takes
+    PIL, a list of them, or a uint8 / float array or tensor, (B, H, W, C)
+    or (H, W, C).  A uint8 image crosses to the device raw and is divided
+    by 255 there in f32, then cast; a float image passes as it is (JAX
+    ``utils/image.py:35-66``)."""
+    if isinstance(img, torch.Tensor):
+        t = img
+    elif isinstance(img, (list, tuple)):
+        t = torch.from_numpy(np.stack([np.asarray(i) for i in img]))
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(np.asarray(img)))
+    if t.dim() == 3:
+        t = t[None]
+    t = t.to(device)
+    if t.dtype == torch.uint8:
+        t = t.float() / 255.0
+    return t.to(dtype)
 
 
 def preprocess_mask_image(mask, lh: int, lw: int, device=None) -> torch.Tensor:

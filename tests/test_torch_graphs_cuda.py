@@ -12,7 +12,11 @@ every step (ancestral Euler, LCM) reads it from a buffer drawn before the
 loop, so its graphed step equals the eager one and a new seed needs no
 new capture.  The VAE encode is graphed like
 the decode, and a LoRA swap reaches every graph that reads the UNet's
-weights without a new capture.  Every test skips without a
+weights without a new capture.  A ControlNet (its zero convs drawn at the
+init scale) and an IP-Adapter on the same UNet: the graphed image equals
+the eager one, new scales capture nothing (they are 0-d device tensors),
+and the fused loop, which embeds the control image once, equals the
+stepwise graphs.  Every test skips without a
 CUDA card.  The file imports no JAX, so on a machine without it run:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graphs_cuda.py
@@ -22,12 +26,12 @@ import numpy as np
 import pytest
 import torch
 
-from sfast_tpu_torch import CompilationConfig, lora
+from sfast_tpu_torch import CompilationConfig, ip_adapter, lora
 from sfast_tpu_torch.compilers import compile as compile_pipeline
 from sfast_tpu_torch.compilers import compile_unet
 from sfast_tpu_torch.models import (
-    TINY_TEST_VAE, TINY_TEXT_ENCODER, AutoencoderKL, CLIPTextModel, UNet2DConditionModel,
-    UNetConfig, init_weights_,
+    TINY_TEST_VAE, TINY_TEXT_ENCODER, AutoencoderKL, CLIPTextModel, ControlNetConfig,
+    ControlNetModel, UNet2DConditionModel, UNetConfig, init_controlnet_weights_, init_weights_,
 )
 from sfast_tpu_torch.pipelines import StableDiffusionPipeline
 from sfast_tpu_torch.runtime import cuda_build
@@ -301,3 +305,89 @@ def test_graphed_noisy_step_is_eager_and_a_new_seed_captures_nothing(pipe, dev, 
     pipe.set_compilation_config(CompilationConfig(enable_cuda_graph=False))
     assert torch.equal(graphed, pipe(**kw, seed=3).images)
     assert _rms_rel(fused, graphed) <= LOOP_RMS_REL
+
+
+# one stride-2 conv in the embedding: a 64² control image for 32² latents
+CONTROLNET = ControlNetConfig(unet=UNET, conditioning_embedding_out_channels=(16, 32))
+
+
+@pytest.fixture
+def cn_pipe(dev):
+    """The tiny pipeline with a ControlNet and an IP-Adapter on its UNet;
+    returns it with [zeros; tokens] IP tokens for the CFG batch."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    vae = init_weights_(AutoencoderKL(TINY_TEST_VAE, device=dev, dtype=BF16), g)
+    te = init_weights_(CLIPTextModel(TINY_TEXT_ENCODER, device=dev, dtype=BF16), g)
+    cn = init_controlnet_weights_(ControlNetModel(CONTROLNET, device=dev, dtype=BF16), g,
+                                  zero_conv_scale=1.0)
+    unet = _unet(dev)
+    proj = ip_adapter.load_ip_adapter(
+        unet, ip_adapter.init_ip_adapter_params(g, unet, clip_embed_dim=32))
+    with torch.inference_mode():
+        tokens = proj(torch.randn((1, 32), generator=g, device=dev))
+    pipe = compile_pipeline(StableDiffusionPipeline(
+        unet, vae, te, DPMSolverMultistepScheduler(), vae_encode=vae, controlnet=cn, device=dev,
+        dtype=BF16))
+    return pipe, torch.cat([torch.zeros_like(tokens), tokens])
+
+
+def _cn_kw(**extra):
+    ctrl = np.random.default_rng(10).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
+    return {**dict(prompt_ids=torch.ones((1, 77), dtype=torch.long), height=64, width=64,
+                   num_inference_steps=4, seed=3, output_type="latent", control_image=ctrl,
+                   controlnet_conditioning_scale=0.8), **extra}
+
+
+def _held(pipe):
+    return {n: m._call.graphs() for n, m in (("unet", pipe.unet), ("controlnet", pipe.controlnet))}
+
+
+def test_graphed_controlnet_image_is_eager_bit_for_bit(cn_pipe):
+    pipe, tokens = cn_pipe
+    for extra in ({}, {"ip_adapter_embeds": tokens, "ip_adapter_scale": 0.6}):
+        pipe.set_compilation_config(CompilationConfig())
+        cuda_build.reset_launch_counts()
+        graphed = pipe(**_cn_kw(**extra)).images
+        assert pipe.controlnet.cache_size == 1 and pipe.unet.cache_size == 1
+        assert cuda_build.launch_counts["flash_attention"] > 0  # K1 in the UNet and the ControlNet
+        pipe.set_compilation_config(CompilationConfig(enable_cuda_graph=False))
+        assert torch.equal(graphed, pipe(**_cn_kw(**extra)).images)
+
+
+def test_a_new_control_or_ip_scale_captures_nothing(cn_pipe):
+    """The scales are graph inputs: another scale replays the same graphs
+    and changes the image; control scale 0 gives the no-control image and IP
+    scale 0 the no-IP image, bit for bit."""
+    pipe, tokens = cn_pipe
+    both = pipe(**_cn_kw(ip_adapter_embeds=tokens, ip_adapter_scale=0.6)).images
+    held = _held(pipe)
+    other = pipe(**_cn_kw(ip_adapter_embeds=tokens, ip_adapter_scale=0.3,
+                          controlnet_conditioning_scale=0.5)).images
+    assert _held(pipe) == held and not torch.equal(both, other)
+    no_ip = pipe(**_cn_kw()).images
+    assert torch.equal(pipe(**_cn_kw(ip_adapter_embeds=tokens, ip_adapter_scale=0.0)).images,
+                       no_ip)
+    kw = _cn_kw()
+    del kw["control_image"], kw["controlnet_conditioning_scale"]
+    plain = pipe(**kw).images
+    assert torch.equal(pipe(**_cn_kw(controlnet_conditioning_scale=0.0)).images, plain)
+    assert pipe.controlnet.cache_size == 1
+
+
+def test_fused_controlnet_loop_matches_the_stepwise_graphs(cn_pipe):
+    pipe, tokens = cn_pipe
+    kw = _cn_kw(ip_adapter_embeds=tokens, ip_adapter_scale=0.6)
+    pipe(**kw)  # captures the stepwise graphs
+    cuda_build.reset_launch_counts()
+    stepwise = pipe(**kw).images
+    stepwise_launches = _launched()
+    pipe.set_compilation_config(CompilationConfig(fuse_denoising_loop=True))
+    pipe(**kw)  # captures the loop
+    cuda_build.reset_launch_counts()
+    fused = pipe(**kw).images
+    assert _launched() == stepwise_launches
+    (loop,) = pipe._fused_loops.values()
+    assert loop.name == "denoise_loop_4_cn_ip" and loop.cache_size == 1
+    fused_other = pipe(**dict(kw, controlnet_conditioning_scale=0.5)).images
+    assert loop.cache_size == 1 and not torch.equal(fused, fused_other)
+    assert _rms_rel(fused, stepwise) <= LOOP_RMS_REL

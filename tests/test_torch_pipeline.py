@@ -364,6 +364,8 @@ def test_port_imports_and_runs_without_jax():
         import sfast_tpu_torch.compilers, sfast_tpu_torch.schedulers.compile
         from sfast_tpu_torch.runtime import executable_cache, shape_bucket, signature, tracing
         import sfast_tpu_torch.lora, sfast_tpu_torch.text.clip_tokenizer, sfast_tpu_torch.utils.image
+        import sfast_tpu_torch.ip_adapter, sfast_tpu_torch.models.controlnet
+        import sfast_tpu_torch.models.clip_vision
         unet = init_weights_(UNet2DConditionModel(TINY_UNET, device="cpu", dtype=torch.float32),
                              torch.Generator().manual_seed(0))
         with torch.inference_mode():

@@ -82,7 +82,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     encoder (``compile_model``) graphed against eager; IP-Adapter tokens
     (4, scale 0.6) with IP scale 0 against the no-IP image; one ControlNet +
     IP image graphed against eager; one counted image of the ControlNet path
-    under the opt-in configuration.
+    under the opt-in configuration;
+13. Stable Video Diffusion (SVD-XT) at full width with seeded random
+    weights, after the SD1.5 modules are freed (phase 3 holds its kernels
+    at its shapes: K1 and K6 at (50, 5, 9216, 64) and (50, 10, 2304, 64)
+    against their plain versions on two batch rows, K2 and K3 at the
+    temporal decoder's 576×1024 and 288×512 maps for a chunk of 5 frames,
+    and every GroupNorm and K4 shape of the opt-in UNet eval): a
+    seeded uint8 576×1024 image to 25 frames
+    (EDM Euler 25 steps, guidance ramp 1.0 → 3.0, fps 7, motion bucket
+    127, noise aug 0.02, ``decode_chunk_size`` 5: JAX's tracked
+    configuration) through ``StableVideoDiffusionPipeline``: one eager
+    clip; graphed stepwise (captured by a 1-step clip, one counted and
+    timed clip against eager, the same clip profiled); 2-step clips with a
+    second guidance range and motion bucket, which capture nothing; one
+    decoded chunk graphed against eager bit for bit; the fused loop
+    (captured, then one counted clip against eager); one UNet eval of 2
+    frames and one decoded chunk of 5 on the kernel route against the
+    plain route; one counted opt-in clip and one opt-in UNet eval of 2
+    frames against the plain route.
 
 Each phase prints its seconds and the graphs its pipeline holds, with
 their nodes, capture and instantiate seconds, and the peak memory.
@@ -93,6 +111,7 @@ case under ``cases``.  The last is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
 """
 
+import gc
 import json
 import os
 import statistics
@@ -194,6 +213,74 @@ EXPECTED_CN_OPTIN_LAUNCHES = dict(
     EXPECTED_OPTIN_LAUNCHES, quantize_qkv=(5 + 2) * CN_STEPS,
     flash_attention_int8=(5 + 2) * CN_STEPS, group_norm_fused=(61 + 27) * CN_STEPS,
     linear_geglu=(11 + 5) * CN_STEPS)
+
+# Stable Video Diffusion, SVD-XT (JAX's tracked configuration,
+# benchmarks/bench_svd_xt_fullsize.py:26-30): 25 frames at 576×1024, batch
+# 1, EDM Euler 25 steps, CFG with the per-frame guidance ramp 1.0 → 3.0,
+# fps 7, motion bucket 127, noise aug 0.02, decode_chunk_size 5.  Each eval
+# (the CFG pair of 25 frames, batch 50) runs 5 spatial self-attentions at
+# 9,216 tokens (level 0) and 5 at 2,304 (level 1) through K1; each decoded
+# chunk of 5 frames 9 fused decoder resnets (144×256 to 576×1024: K2 twice,
+# K3 once) and 3 upsample convs, the conditioning image's encode at 576×1024
+# 6 fused encoder resnets.  Opt-in: 33 GEGLUs an eval pass K4's width rule
+# (K = 640, 1280), and of the 105 GroupNorms an eval `fused_plan` takes 84;
+# the other 21 (the temporal GroupNorms' folded (2, 25·H·W, C) shapes at
+# levels 0 and 1, and (50, 72·128, 960)) take K3 then K5.
+SVD_FRAMES, SVD_H, SVD_W, SVD_STEPS, SVD_CHUNK = 25, 576, 1024, 25, 5
+SVD_KW = dict(num_frames=SVD_FRAMES, height=SVD_H, width=SVD_W,
+              num_inference_steps=SVD_STEPS, min_guidance_scale=1.0, max_guidance_scale=3.0,
+              fps=7, motion_bucket_id=127, noise_aug_strength=0.02,
+              decode_chunk_size=SVD_CHUNK)
+SVD_CHUNKS = SVD_FRAMES // SVD_CHUNK
+EXPECTED_SVD_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=10 * SVD_STEPS,
+                             conv3x3=21 * SVD_CHUNKS + 12, group_norm_stats=9 * SVD_CHUNKS + 6)
+EXPECTED_SVD_OPTIN_LAUNCHES = dict(
+    EXPECTED_SVD_LAUNCHES, flash_attention=0, quantize_qkv=10 * SVD_STEPS,
+    flash_attention_int8=10 * SVD_STEPS, linear_geglu=33 * SVD_STEPS,
+    group_norm_fused=84 * SVD_STEPS, group_norm_apply=21 * SVD_STEPS,
+    group_norm_stats=21 * SVD_STEPS + 9 * SVD_CHUNKS + 6)
+# The route check's UNet eval: the CFG pair of 2 frames at 576×1024, its
+# 10 flash self-attentions (levels 0 and 1) through K1.  Opt-in, they take
+# K6, 33 GEGLUs K4, and of the 105 GroupNorms `fused_plan` takes 104 (the
+# temporal ones folded to (2, 2·H·W, C) among them); (4, 72·128, 960)
+# takes K3 then K5.
+SVD_ROUTE_FRAMES = 2
+SVD_ROUTE_LAUNCHES = {"flash_attention": 10}
+SVD_OPTIN_ROUTE_LAUNCHES = {"quantize_qkv": 10, "flash_attention_int8": 10, "linear_geglu": 33,
+                            "group_norm_fused": 104, "group_norm_stats": 1,
+                            "group_norm_apply": 1}
+# One decoded chunk of 5 frames: 9 fused resnets (K2 twice, K3 once) and 3
+# upsample convs
+SVD_DECODE_LAUNCHES = {"conv3x3": 21, "group_norm_stats": 9}
+# K1 at the SVD shapes (b, h, s, d); K2 and K3 at the temporal decoder's
+# for a chunk of frames (H, W, C, F, kind) and (H, W, C)
+SVD_ATTN = [(50, 5, 9216, 64), (50, 10, 2304, 64)]
+SVD_CONV = [(576, 1024, 256, 128, "conv1"), (576, 1024, 128, 128, "conv2"),
+            (576, 1024, 256, 256, "upsample"), (288, 512, 512, 256, "conv1"),
+            (288, 512, 256, 256, "conv2")]
+SVD_GN = [(576, 1024, 256), (576, 1024, 128), (288, 512, 512), (288, 512, 256)]
+# Every distinct UNet GroupNorm of the SVD opt-in path (25 frames, CFG):
+# ((N, H, W, C), act, times one eval runs it: 105 in all).  act None is a
+# transformer's norm (eps 1e-6); the temporal resnets' norms span the
+# frames, folded to (2, 25·H, W, C); `fused_plan` rejects the first two
+# of those and (50, 72, 128, 960), which take K3 then K5
+SVD_OPTIN_GN = [
+    ((2, 1800, 128, 320), "silu", 10), ((2, 900, 64, 640), "silu", 10),
+    ((2, 450, 32, 1280), "silu", 10), ((2, 225, 16, 1280), "silu", 14),
+    ((50, 72, 128, 320), None, 5), ((50, 72, 128, 320), "silu", 8),
+    ((50, 72, 128, 640), "silu", 2), ((50, 72, 128, 960), "silu", 1),
+    ((50, 36, 64, 320), "silu", 1), ((50, 36, 64, 640), None, 5),
+    ((50, 36, 64, 640), "silu", 6), ((50, 36, 64, 960), "silu", 1),
+    ((50, 36, 64, 1280), "silu", 1), ((50, 36, 64, 1920), "silu", 1),
+    ((50, 18, 32, 640), "silu", 1), ((50, 18, 32, 1280), None, 5),
+    ((50, 18, 32, 1280), "silu", 6), ((50, 18, 32, 1920), "silu", 1),
+    ((50, 18, 32, 2560), "silu", 2), ((50, 9, 16, 1280), None, 1),
+    ((50, 9, 16, 1280), "silu", 11), ((50, 9, 16, 2560), "silu", 3),
+]
+# K4's calls on the SVD opt-in path as (M, K, F, times one eval runs it):
+# the temporal ff_in and ff over 25 frames of each pixel and the spatial
+# ff over the pixels of each of 50 frames, at levels 1, 2 and mid
+SVD_GEGLU = [(115200, 640, 2560, 15), (28800, 1280, 5120, 15), (7200, 1280, 5120, 3)]
 
 KERNELS = {
     "flash_attention": ("sfast_tpu_torch/csrc/flash_attention.cu",
@@ -380,12 +467,19 @@ def record(out, name, case, max_abs, t, bnd, lib=None, **extra):
     out.setdefault(name, []).append(row)
 
 
-def time_pair(kernel, plain, bnd):
+def time_pair(kernel, plain, bnd, iters=20, plain_events=False):
     """(kernel ms, plain ms, kernel device ms, plain device ms): CUDA-event
-    medians timed in turns plain, kernel, kernel, plain, then device times,
-    each above ``bnd``, the function's bound."""
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2, device_ms(kernel, bnd[0]), device_ms(plain, bnd[0])
+    medians of ``iters`` calls timed in turns plain, kernel, kernel, plain,
+    then device times, each above ``bnd``, the function's bound.  With
+    ``plain_events`` the plain version's device time is CUDA events over
+    calls in a row (``events_ms``): at the SVD shapes its kernels are
+    milliseconds long, and the profiler's rows of them do not come in whole
+    calls."""
+    p1, k1, k2, p2 = (cuda_ms(fn, iters) for fn in (plain, kernel, kernel, plain))
+    dev_iters = min(iters, 10)
+    plain_dev = events_ms(plain, dev_iters) if plain_events else device_ms(plain, bnd[0],
+                                                                           dev_iters)
+    return (k1 + k2) / 2, (p1 + p2) / 2, device_ms(kernel, bnd[0], dev_iters), plain_dev
 
 
 def timing_text(t):
@@ -409,8 +503,6 @@ def check_kernels(torch, dev):
     import torch.nn.functional as F
 
     from sfast_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
-    from sfast_tpu_torch.ops.fused_conv import conv3x3_block, conv3x3_block_ref
-    from sfast_tpu_torch.ops.group_norm import group_norm_stats, group_norm_stats_ref
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
@@ -468,74 +560,112 @@ def check_kernels(torch, dev):
         (512, 128, 256, "encoder conv1"), (256, 256, 512, "encoder conv1"),
     ]
     for hw, c, f, kind in cases:
-        x = randn(1, hw, hw, c)
-        # HWIO view of (F, 3, 3, C) memory, as the modules pass their weights
-        w = (torch.randn((f, 3, 3, c), generator=g, device=dev) / (9 * c) ** 0.5).to(bf16)
-        w = w.permute(1, 2, 3, 0)
-        kw = {}
-        if kind != "upsample":
-            kw["gn_scale"] = torch.rand((1, c), generator=g, device=dev) + 0.5
-            kw["gn_shift"] = torch.randn((1, c), generator=g, device=dev) * 0.1
-        if kind.endswith("conv1"):
-            kw.update(bias_batch=torch.randn((1, f), generator=g, device=dev), emit_stats=True)
-        else:
-            kw["bias"] = torch.randn((f,), generator=g, device=dev)
-        if kind == "conv2":
-            kw["residual"] = randn(1, hw, hw, f)
-        got = conv3x3_block(x, w, **kw)
-        torch.cuda.synchronize()
-        ref = conv3x3_block_ref(x, w, **kw)
-        if kind.endswith("conv1"):
-            again = conv3x3_block(x, w, **kw)
-            got, s1, s2 = got
-            ref, r1, r2 = ref
-            if not (torch.equal(s1, again[1]) and torch.equal(s2, again[2])):
-                raise AssertionError("K2: two calls give different statistics")
-            stats_err = max(rel_errors(s1, r1)[1], rel_errors(s2, r2)[1])
-            if not stats_err <= STATS_REL:
-                raise AssertionError(f"K2 stats rel error {stats_err} > {STATS_REL}")
-        max_abs, max_rel, rms = rel_errors(got, ref)
-        flops, conv_bytes = 2 * hw * hw * 9 * c * f, 2 * (hw * hw * c + 9 * c * f + hw * hw * f)
-        bnd = bound(flops, conv_bytes + (2 * hw * hw * f if kind == "conv2" else 0))
-        t = time_pair(lambda: conv3x3_block(x, w, **kw), lambda: conv3x3_block_ref(x, w, **kw),
-                      bnd)
-        # cuDNN's bf16 conv with bias on the channels-last NCHW views: the
-        # same function where there is no GroupNorm in front (upsample), a
-        # lower floor where there is (conv1, conv2)
-        xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-        bc = kw.get("bias", kw.get("bias_batch", torch.zeros(1, f, device=dev))).reshape(f).to(bf16)
-        lib_ms = device_ms(lambda: F.conv2d(xc, wc, bc, padding=1), bound(flops, conv_bytes)[0])
-        extra = f" stats_rel {stats_err:.3e}" if kind.endswith("conv1") else ""
-        log(f"K2 conv3x3 {kind} {hw}²·{c}→{f}: max_rel {max_rel:.3e} rms_rel {rms:.3e}"
-            f"{extra}  {timing_text(t)}")
-        if not rms <= K2_RMS_REL:
-            raise AssertionError(f"K2 rms rel error {rms} > {K2_RMS_REL}")
-        record(out, "conv3x3", f"{kind} {hw}^2 {c}->{f}", max_abs, t, bnd,
-               (lib_ms, "F.conv2d + bias" + (", same function" if kind == "upsample"
-                                             else ", without the GroupNorm: a lower floor")))
+        conv_case(torch, dev, g, out, 1, hw, hw, c, f, kind)
 
     # K3: the fused-resnet entries' GroupNorm statistics (32 groups, eps
     # 1e-6): the decoder's, then the two the encoder adds, then SDXL's 1024²
     for hw, c in [(128, 512), (256, 512), (256, 256), (512, 256), (512, 128),
                   (256, 128), (128, 256), (1024, 128), (1024, 256)]:
-        x = randn(1, hw, hw, c) + 0.5
-        mean, rstd = group_norm_stats(x, groups=32, eps=1e-6)
-        torch.cuda.synchronize()
-        rm, rr = group_norm_stats_ref(x, groups=32, eps=1e-6)
-        em, er = rel_errors(mean, rm), rel_errors(rstd, rr)
-        bnd = bound(0, 2 * x.numel())
-        t = time_pair(lambda: group_norm_stats(x, groups=32, eps=1e-6),
-                      lambda: group_norm_stats_ref(x, groups=32, eps=1e-6), bnd)
-        log(f"K3 group_norm_stats {hw}²·{c}: mean max_rel {em[1]:.3e} rstd "
-            f"max_rel {er[1]:.3e}  {timing_text(t)}")
-        if not max(em[1], er[1]) <= STATS_REL:
-            raise AssertionError(f"K3 rel error {max(em[1], er[1])} > {STATS_REL}")
-        xg = x.view(1, hw * hw, 32, c // 32)
-        record(out, "group_norm_stats", f"K3 {hw}^2 {c}", max(em[0], er[0]), t, bnd,
-               (device_ms(lambda: torch.var_mean(xg, dim=(1, 3)), bnd[0]), "torch.var_mean"))
+        stats_case(torch, dev, g, out, 1, hw, hw, c)
 
     check_optin_kernels(torch, dev, randn, out)
+    svd = check_svd_kernels(torch, dev)
+    out["svd_group_norm_per_eval_ms"] = svd.pop("svd_group_norm_per_eval_ms")
+    for name, cases in svd.items():
+        out[name].extend(cases)
     return out
+
+
+def conv_case(torch, dev, g, out, n, hh, ww, c, f, kind, label="", iters=20):
+    """One K2 case against its plain version at (n, hh, ww, c) → f, timed
+    beside cuDNN's conv: ``kind`` is a fused resnet's conv1 (GN in,
+    per-batch bias, stats out) or conv2 (GN in, bias, residual in), or an
+    upsample conv (no GN).  Inputs are drawn from ``g``."""
+    import torch.nn.functional as F
+
+    from sfast_tpu_torch.ops.fused_conv import conv3x3_block, conv3x3_block_ref
+
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(bf16)
+
+    x = randn(n, hh, ww, c)
+    # HWIO view of (F, 3, 3, C) memory, as the modules pass their weights
+    w = (torch.randn((f, 3, 3, c), generator=g, device=dev) / (9 * c) ** 0.5).to(bf16)
+    w = w.permute(1, 2, 3, 0)
+    kw = {}
+    if kind != "upsample":
+        kw["gn_scale"] = torch.rand((n, c), generator=g, device=dev) + 0.5
+        kw["gn_shift"] = torch.randn((n, c), generator=g, device=dev) * 0.1
+    if kind.endswith("conv1"):
+        kw.update(bias_batch=torch.randn((n, f), generator=g, device=dev), emit_stats=True)
+    else:
+        kw["bias"] = torch.randn((f,), generator=g, device=dev)
+    if kind == "conv2":
+        kw["residual"] = randn(n, hh, ww, f)
+    got = conv3x3_block(x, w, **kw)
+    torch.cuda.synchronize()
+    ref = conv3x3_block_ref(x, w, **kw)
+    if kind.endswith("conv1"):
+        again = conv3x3_block(x, w, **kw)
+        got, s1, s2 = got
+        ref, r1, r2 = ref
+        if not (torch.equal(s1, again[1]) and torch.equal(s2, again[2])):
+            raise AssertionError("K2: two calls give different statistics")
+        stats_err = max(rel_errors(s1, r1)[1], rel_errors(s2, r2)[1])
+        if not stats_err <= STATS_REL:
+            raise AssertionError(f"K2 stats rel error {stats_err} > {STATS_REL}")
+    max_abs, max_rel, rms = rel_errors(got, ref)
+    del got, ref
+    px = n * hh * ww
+    flops, conv_bytes = 2 * px * 9 * c * f, 2 * (px * c + 9 * c * f + px * f)
+    bnd = bound(flops, conv_bytes + (2 * px * f if kind == "conv2" else 0))
+    t = time_pair(lambda: conv3x3_block(x, w, **kw), lambda: conv3x3_block_ref(x, w, **kw),
+                  bnd, iters, plain_events=bool(label))
+    # cuDNN's bf16 conv with bias on the channels-last NCHW views: the
+    # same function where there is no GroupNorm in front (upsample), a
+    # lower floor where there is (conv1, conv2)
+    xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    bc = kw.get("bias", kw.get("bias_batch", torch.zeros(1, f, device=dev))[0]).reshape(f).to(bf16)
+    lib_ms = device_ms(lambda: F.conv2d(xc, wc, bc, padding=1), bound(flops, conv_bytes)[0],
+                       iters=min(iters, 10))
+    extra = f" stats_rel {stats_err:.3e}" if kind.endswith("conv1") else ""
+    shape = f"{hh}²" if n == 1 and hh == ww else f"{n}×{hh}×{ww}"
+    log(f"K2 conv3x3 {label}{kind} {shape}·{c}→{f}: max_rel {max_rel:.3e} rms_rel {rms:.3e}"
+        f"{extra}  {timing_text(t)}")
+    if not rms <= K2_RMS_REL:
+        raise AssertionError(f"K2 rms rel error {rms} > {K2_RMS_REL}")
+    case = f"{hh}^2" if n == 1 and hh == ww else f"{n}x{hh}x{ww}"
+    record(out, "conv3x3", f"{label}{kind} {case} {c}->{f}", max_abs, t, bnd,
+           (lib_ms, "F.conv2d + bias" + (", same function" if kind == "upsample"
+                                         else ", without the GroupNorm: a lower floor")))
+
+
+def stats_case(torch, dev, g, out, n, hh, ww, c, label="", iters=20):
+    """One K3 case (32 groups, eps 1e-6: a fused resnet's entry) against
+    its plain version, timed beside ``torch.var_mean``."""
+    from sfast_tpu_torch.ops.group_norm import group_norm_stats, group_norm_stats_ref
+
+    x = torch.randn((n, hh, ww, c), generator=g, device=dev).to(torch.bfloat16) + 0.5
+    mean, rstd = group_norm_stats(x, groups=32, eps=1e-6)
+    torch.cuda.synchronize()
+    rm, rr = group_norm_stats_ref(x, groups=32, eps=1e-6)
+    em, er = rel_errors(mean, rm), rel_errors(rstd, rr)
+    bnd = bound(0, 2 * x.numel())
+    t = time_pair(lambda: group_norm_stats(x, groups=32, eps=1e-6),
+                  lambda: group_norm_stats_ref(x, groups=32, eps=1e-6), bnd, iters,
+                  plain_events=bool(label))
+    shape = f"{hh}²" if n == 1 and hh == ww else f"{n}×{hh}×{ww}"
+    log(f"K3 group_norm_stats {label}{shape}·{c}: mean max_rel {em[1]:.3e} rstd "
+        f"max_rel {er[1]:.3e}  {timing_text(t)}")
+    if not max(em[1], er[1]) <= STATS_REL:
+        raise AssertionError(f"K3 rel error {max(em[1], er[1])} > {STATS_REL}")
+    xg = x.view(n, hh * ww, 32, c // 32)
+    case = f"{hh}^2" if n == 1 and hh == ww else f"{n}x{hh}x{ww}"
+    record(out, "group_norm_stats", f"K3 {label}{case} {c}", max(em[0], er[0]), t, bnd,
+           (device_ms(lambda: torch.var_mean(xg, dim=(1, 3)), bnd[0], iters=min(iters, 10)),
+            "torch.var_mean"))
 
 
 def check_optin_kernels(torch, dev, randn, out):
@@ -814,10 +944,14 @@ def pipe_graphs(pipe):
     """Every graph ``pipe`` holds, by the name of what holds it: its
     compiled models, its compiled scheduler's step and its fused loops."""
     out = {}
-    for attr in ("text_encoder", "text_encoder_2", "unet", "controlnet", "vae", "vae_encode"):
+    for attr in ("text_encoder", "text_encoder_2", "image_encoder", "unet", "controlnet", "vae",
+                 "vae_encode"):
         call = getattr(getattr(pipe, attr, None), "_call", None)
         if call is not None and call.cache_size:
             out[attr] = call.graphs()
+    decode = getattr(pipe, "_decode_u8", None)  # the SVD pipeline's decode to uint8
+    if getattr(decode, "cache_size", 0):
+        out[decode.name] = decode.graphs()
     step = getattr(pipe.scheduler, "_step", None)
     if step is not None and step.cache_size:
         out["scheduler.step"] = step.graphs()
@@ -940,25 +1074,35 @@ def route_check(torch, dev, pipe, name, cfg, model_bound, unet_args, unet_kw, z)
     return {k: v for k, v in out.items() if k.endswith(("launches", "rms_rel"))}
 
 
-def profile_image(torch, run, name, tries=5):
+def profile_image(torch, run, name, tries=5, unprofiled=None):
     """One image under torch.profiler: device time, the device's idle share
     of the image's wall time and the count of CUDA kernels the image
     launches (every host dispatch that reaches the card).  The profiler now
     and then loses kernel rows; a trace whose rows of the port's kernels do
     not match the launches ``cuda_build`` counted during it is taken again,
-    and after ``tries`` such traces this raises."""
+    and after ``tries`` such traces this raises.  ``unprofiled``: (wall ms,
+    card text) of an unprofiled image of the same inputs that the caller
+    has just run (a video clip takes half a minute), else one is run here.
+
+    Tracing slows the card's kernels a little, so where the device is busy
+    throughout, the traced device time may exceed the unprofiled wall
+    time: the idle share is then below what this measures, and reads
+    ``None``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sfast_tpu_torch.runtime import cuda_build
 
-    run()  # an unprofiled image right before, for its wall time
-    torch.cuda.synchronize()
-    with CardSampler() as card:
-        t = time.perf_counter()
+    if unprofiled is None:  # an unprofiled image right before, for its wall time
         run()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
+        with CardSampler() as card:
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        unprofiled = (wall_ms, card.text())
+    wall_ms, card_text = unprofiled
     for _ in range(tries):
         cuda_build.reset_launch_counts()
         t = time.perf_counter()
@@ -981,27 +1125,32 @@ def profile_image(torch, run, name, tries=5):
         raise RuntimeError(f"[{name}] {tries} profiler traces of one image lost kernel rows")
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
     n_kernels = sum(e.count for e in rows)
+    idle = 1 - dev_ms / wall_ms if dev_ms < wall_ms else None
+    idle_text = (f"device idle {100 * idle:.1f}%" if idle is not None else
+                 "device idle not resolved (traced device time above the wall time)")
     log(f"[{name}] profile: device time {dev_ms:.1f} ms per image; unprofiled image "
-        f"{wall_ms:.1f} ms -> device idle {100 * (1 - dev_ms / wall_ms):.1f}%; "
+        f"{wall_ms:.1f} ms -> {idle_text}; "
         f"{n_kernels} CUDA kernels per image; the traced image took {traced_ms:.1f} ms; "
-        f"card during the unprofiled image: {card.text()}")
+        f"card during the unprofiled image: {card_text}")
     log(events.table(sort_by="self_device_time_total", row_limit=15))
-    return {"device_ms": dev_ms, "idle": 1 - dev_ms / wall_ms, "cuda_kernels": n_kernels,
+    return {"device_ms": dev_ms, "idle": idle, "cuda_kernels": n_kernels,
             "profiled_wall_ms": wall_ms, "traced_wall_ms": traced_ms}
 
 
-def synthetic_image(hw=512):
-    """(a seeded uint8 hw² RGB image, a mask whose right half is white:
-    repaint)."""
+def synthetic_image(hw=512, width=None):
+    """(a seeded uint8 RGB image of hw² pixels, or hw × ``width``, a mask
+    whose right half is white: repaint)."""
     import numpy as np
 
+    width = width or hw
     rng = np.random.default_rng(7)
     # smooth colour gradients plus noise, so the encoder sees structure
-    yy, xx = np.mgrid[0:hw, 0:hw] / hw
+    yy, xx = np.mgrid[0:hw, 0:width]
+    yy, xx = yy / hw, xx / width
     base = np.stack([yy, xx, 0.5 * (yy + xx)], axis=-1) * 200 + 20
     image = np.clip(base + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)[None]
-    mask = np.zeros((hw, hw), np.uint8)
-    mask[:, hw // 2:] = 255
+    mask = np.zeros((hw, width), np.uint8)
+    mask[:, width // 2:] = 255
     return image, mask
 
 
@@ -1672,8 +1821,491 @@ def run_controlnet(torch, dev, pipe):
     return res
 
 
+def check_svd_kernels(torch, dev):
+    """Phase 3, the kernels at the SVD path's shapes: K1 at batch 50
+    over 9,216 and 2,304 tokens (head dim 64), held against its plain
+    version on the first and last batch rows (the plain version's f32
+    scores at the full level-0 shape would take 85 GB), its plain time
+    taken on those rows; K2 and K3 at the temporal decoder's shapes for a
+    chunk of 5 frames.  Returns {kernel: [case, ...]}."""
+    import torch.nn.functional as F
+
+    from sfast_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(torch.bfloat16)
+
+    for b, h, sq, d in SVD_ATTN:
+        q, k, v = (randn(b, sq, h * d).view(b, sq, h, d).transpose(1, 2) for _ in range(3))
+        got = flash_attention(q, k, v)
+        again = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("K1 (SVD): two calls on the same inputs differ")
+        rows = [0, b - 1]
+        qs, ks, vs = (t[rows] for t in (q, k, v))
+        max_abs, max_rel, rms = rel_errors(got[rows], flash_attention_ref(qs, ks, vs))
+        del got, again
+        bnd = bound(4 * b * h * sq * sq * d, 2 * b * h * d * 4 * sq)
+        t = (cuda_ms(lambda: flash_attention(q, k, v), iters=5),
+             cuda_ms(lambda: flash_attention_ref(qs, ks, vs), iters=5),
+             device_ms(lambda: flash_attention(q, k, v), bnd[0], iters=3),
+             events_ms(lambda: flash_attention_ref(qs, ks, vs), calls=3))
+        sdpa_ms, names = device_ms(lambda: F.scaled_dot_product_attention(q, k, v), bnd[0],
+                                   iters=3, names=True)
+        log(f"K1 flash_attention svd q={tuple(q.shape)}: rows {rows} against the plain "
+            f"version: max_rel {max_rel:.3e} rms_rel {rms:.3e}; {timing_text(t)} (plain on "
+            f"those {len(rows)} rows)")
+        if not rms <= K1_RMS_REL:
+            raise AssertionError(f"K1 (SVD) rms rel error {rms} > {K1_RMS_REL}")
+        record(out, "flash_attention", f"svd ({b}, {h}, {sq}x{sq}, {d})", max_abs, t, bnd,
+               (sdpa_ms, f"F.scaled_dot_product_attention, {sdpa_backend(names)} backend"),
+               exp2_floor_ms=b * h * sq * sq / EXP2_PER_S * 1e3,
+               plain_on=f"({len(rows)}, {h}, {sq}x{sq}, {d})")
+        del q, k, v, qs, ks, vs
+    for hh, ww, c, f, kind in SVD_CONV:
+        conv_case(torch, dev, g, out, SVD_CHUNK, hh, ww, c, f, kind, "svd ", iters=5)
+    for hh, ww, c in SVD_GN:
+        stats_case(torch, dev, g, out, SVD_CHUNK, hh, ww, c, "svd ", iters=5)
+    check_svd_optin_kernels(torch, dev, g, randn, out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_svd_optin_kernels(torch, dev, g, randn, out):
+    """Phase 3, the SVD opt-in path's kernels at its shapes: every UNet
+    GroupNorm on the route the path gives it (the fused GroupNorm where
+    ``fused_plan`` accepts the shape, else K3 then K5) beside the library
+    GroupNorm, with both sums over one eval; K4 at its three GEMM shapes;
+    K6 at batch 50, held against its plain version on the first and last
+    batch rows as K1 is, and its pre-processing on the whole input."""
+    import torch.nn.functional as F
+
+    from sfast_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+    from sfast_tpu_torch.ops.flash_attention_int8 import (
+        flash_attention_int8,
+        flash_attention_int8_body,
+        flash_attention_int8_ref,
+        kernel_inputs,
+        kv_tile,
+        quantize_qkv_cuda,
+    )
+    from sfast_tpu_torch.ops.geglu import (
+        linear_geglu_fused,
+        linear_geglu_fused_ref,
+        linear_geglu_plain,
+    )
+    from sfast_tpu_torch.ops.group_norm import (
+        fused_plan,
+        group_norm_apply,
+        group_norm_apply_ref,
+        group_norm_fused,
+        group_norm_fused_ref,
+        group_norm_stats,
+        group_norm_stats_ref,
+    )
+
+    per_eval = {"kernels": 0.0, "library": 0.0}
+    for (n, hh, ww, c), act, count in SVD_OPTIN_GN:
+        eps = 1e-5 if act else 1e-6
+        x = randn(n, hh, ww, c) + 0.3
+        gamma = torch.rand((c,), generator=g, device=dev) + 0.5
+        beta = torch.randn((c,), generator=g, device=dev) * 0.2
+        kw = dict(groups=32, eps=eps, act=act)
+        case = f"svd ({n}, {hh}x{ww}, {c}) {act or 'none'}"
+        bnd, st_bnd = bound(0, 4 * x.numel()), bound(0, 2 * x.numel())
+        xc, gb, bb = x.permute(0, 3, 1, 2), gamma.to(x.dtype), beta.to(x.dtype)
+
+        def library():
+            o = F.group_norm(xc, 32, gb, bb, eps)
+            return F.silu(o) if act == "silu" else o
+
+        lib = (device_ms(library, bnd[0], iters=3),
+               "F.group_norm" + (" + F.silu" if act == "silu" else ""))
+        if fused_plan(n, hh * ww, c, 32) is not None:
+            route = "fused"
+            y, fm, fr = group_norm_fused(x, gamma, beta, stats=True, **kw)
+            again = group_norm_fused(x, gamma, beta, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                raise AssertionError(f"fused GroupNorm {case}: two calls differ")
+            ry, rm, rr = group_norm_fused_ref(x, gamma, beta, **kw)
+            stats_err = max(rel_errors(fm, rm)[1], rel_errors(fr, rr)[1])
+            max_abs, _, rms = rel_errors(y, ry)
+            del y, again, ry
+            t = time_pair(lambda: group_norm_fused(x, gamma, beta, **kw),
+                          lambda: group_norm_fused_ref(x, gamma, beta, **kw), bnd, iters=3,
+                          plain_events=True)
+            record(out, "group_norm_fused", case, max_abs, t, bnd, lib,
+                   stats_max_rel=stats_err, per_eval=count)
+            ms = t[2]
+        else:
+            route = "K3+K5"
+            mean, rstd = group_norm_stats(x, groups=32, eps=eps)
+            y = group_norm_apply(x, mean, rstd, gamma, beta, act=act)
+            torch.cuda.synchronize()
+            rm, rr = group_norm_stats_ref(x, groups=32, eps=eps)
+            stats_err = max(rel_errors(mean, rm)[1], rel_errors(rstd, rr)[1])
+            stats_abs = max(rel_errors(mean, rm)[0], rel_errors(rstd, rr)[0])
+            max_abs, _, rms = rel_errors(y, group_norm_apply_ref(x, mean, rstd, gamma, beta,
+                                                                 act=act))
+            del y
+            st = time_pair(lambda: group_norm_stats(x, groups=32, eps=eps),
+                           lambda: group_norm_stats_ref(x, groups=32, eps=eps), st_bnd, iters=3,
+                           plain_events=True)
+            t = time_pair(lambda: group_norm_apply(x, mean, rstd, gamma, beta, act=act),
+                          lambda: group_norm_apply_ref(x, mean, rstd, gamma, beta, act=act),
+                          bnd, iters=3, plain_events=True)
+            xg = x.view(n, hh * ww, 32, c // 32)
+            record(out, "group_norm_stats", "K3 " + case, stats_abs, st, st_bnd,
+                   (device_ms(lambda: torch.var_mean(xg, dim=(1, 3)), st_bnd[0], iters=3),
+                    "torch.var_mean"), per_eval=count)
+            record(out, "group_norm_apply", case, max_abs, t, bnd, per_eval=count,
+                   k3_k5_device_ms=st[2] + t[2], group_norm_library_ms=lib[0])
+            ms = st[2] + t[2]
+        per_eval["kernels"] += count * ms
+        per_eval["library"] += count * lib[0]
+        log(f"group_norm {case} ({route}, {count} an eval): stats_rel {stats_err:.3e} "
+            f"rms_rel {rms:.3e}; device {ms:.4f} ms, library {lib[0]:.4f} ms")
+        if not (rms <= K5_RMS_REL and stats_err <= STATS_REL):
+            raise AssertionError(f"GroupNorm {case} ({route}): rms rel {rms} > {K5_RMS_REL} or "
+                                 f"stats rel {stats_err} > {STATS_REL}")
+        del x, xc
+    log("GroupNorm device ms over one SVD opt-in eval's 105 GroupNorms: "
+        + ", ".join(f"{route} {ms:.4f}" for route, ms in per_eval.items()))
+    out["svd_group_norm_per_eval_ms"] = per_eval
+
+    for m, k, f, count in SVD_GEGLU:
+        x = randn(m, k)
+        w = (torch.randn((2 * f, k), generator=g, device=dev) / k**0.5).to(torch.bfloat16)
+        b = (torch.randn((2 * f,), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        got = linear_geglu_fused(x, w, b)
+        torch.cuda.synchronize()
+        max_abs, max_rel, rms = rel_errors(got, linear_geglu_fused_ref(x, w, b))
+        del got
+        bnd = bound(2 * m * k * 2 * f, 2 * (m * k + 2 * f * k + 2 * f + m * f))
+        t = time_pair(lambda: linear_geglu_fused(x, w, b),
+                      lambda: linear_geglu_fused_ref(x, w, b), bnd, iters=3, plain_events=True)
+        unfused_ms = device_ms(lambda: linear_geglu_plain(x, w, b), bnd[0], iters=3)
+        log(f"K4 linear_geglu svd M={m} K={k} F={f} ({count} an eval): max_rel {max_rel:.3e} "
+            f"rms_rel {rms:.3e}  {timing_text(t)}  (unfused bf16 erf route: device "
+            f"{unfused_ms:.4f} ms)")
+        if not rms <= K4_RMS_REL:
+            raise AssertionError(f"K4 (SVD) rms rel error {rms} > {K4_RMS_REL}")
+        record(out, "linear_geglu", f"svd M={m} K={k} F={f}", max_abs, t, bnd,
+               unfused_route_ms=unfused_ms, per_eval=count)
+        del x, w, b
+
+    for b, h, sq, d in SVD_ATTN:
+        q = randn(b, sq, h * d).view(b, sq, h, d).transpose(1, 2)
+        k = (randn(b, sq, h * d) + 0.5).view(b, sq, h, d).transpose(1, 2)
+        v = (randn(b, sq, h * d) - 0.3).view(b, sq, h, d).transpose(1, 2)
+        scale = d ** -0.5
+        got = flash_attention_int8(q, k, v)
+        again = flash_attention_int8(q, k, v)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("K6 (SVD): two calls on the same inputs differ")
+        rows = [0, b - 1]
+        qs, ks, vs = (t[rows] for t in (q, k, v))
+        max_abs, max_rel, rms = rel_errors(got[rows], flash_attention_int8_ref(
+            qs, ks, vs, block_k=kv_tile(d)))
+        exact = rel_errors(got[rows], flash_attention_ref(qs, ks, vs))[2]
+        del got, again
+        inputs = quantize_qkv_cuda(q, k, v, scale)
+        code_diff, code_share, f32_rel = prep_errors(
+            torch, inputs, kernel_inputs(q.float(), k.float(), v.float(), scale))
+        bnd = bound(4 * b * h * sq * sq * d, 2 * b * h * d * 4 * sq, PEAK_INT8)
+        t = (cuda_ms(lambda: flash_attention_int8(q, k, v), iters=3),
+             cuda_ms(lambda: flash_attention_int8_ref(qs, ks, vs, block_k=kv_tile(d)), iters=3),
+             device_ms(lambda: flash_attention_int8(q, k, v), bnd[0], iters=3),
+             events_ms(lambda: flash_attention_int8_ref(qs, ks, vs, block_k=kv_tile(d)),
+                       calls=2))
+        prep_bnd = bound(0, sum(x.numel() * x.element_size() for x in (q, k, v, *inputs)))
+        prep_t = time_pair(lambda: quantize_qkv_cuda(q, k, v, scale),
+                           lambda: kernel_inputs(q, k, v, scale), prep_bnd, iters=3,
+                           plain_events=True)
+        body_ms = device_ms(lambda: flash_attention_int8_body(inputs, q.shape), bnd[0], iters=3)
+        k1_ms = device_ms(lambda: flash_attention(q, k, v), bnd[0], iters=3)
+        exp2_floor = b * h * sq * sq / EXP2_PER_S * 1e3
+        log(f"K6 flash_attention_int8 svd q={tuple(q.shape)}: rows {rows} against the plain "
+            f"version: max_rel {max_rel:.3e} rms_rel {rms:.3e} (exact attention: rms_rel "
+            f"{exact:.3e}); pre-processing: codes off by {code_diff} on {code_share:.2e} of "
+            f"them, f32 max_rel {f32_rel:.2e}  {timing_text(t)} (plain on those {len(rows)} "
+            f"rows); device: pre-processing {prep_t[2]:.4f} ms, body {body_ms:.4f} ms, K1 at "
+            f"this shape {k1_ms:.4f} ms, exp2 floor {exp2_floor:.4f} ms")
+        if not rms <= K6_RMS_REL:
+            raise AssertionError(f"K6 (SVD) rms rel error {rms} > {K6_RMS_REL}")
+        if not exact <= K6_EXACT_RMS_REL:
+            raise AssertionError(f"K6 (SVD) vs exact attention: rms rel {exact} > "
+                                 f"{K6_EXACT_RMS_REL}")
+        if not (code_diff <= 1 and code_share <= PREP_CODE_SHARE and f32_rel <= PREP_F32_REL):
+            raise AssertionError(f"K6 (SVD) pre-processing: codes off by {code_diff} on "
+                                 f"{code_share} of them, f32 rel {f32_rel}")
+        case = f"svd ({b}, {h}, {sq}x{sq}, {d})"
+        record(out, "flash_attention_int8", case, max_abs, t, bnd, exp2_floor_ms=exp2_floor,
+               prep_device_ms=prep_t[2], body_device_ms=body_ms, k1_device_ms=k1_ms,
+               plain_on=f"({len(rows)}, {h}, {sq}x{sq}, {d})")
+        record(out, "quantize_qkv", case, float(code_diff), prep_t, prep_bnd,
+               code_mismatch_share=code_share, f32_max_rel=f32_rel)
+        del q, k, v, qs, ks, vs, inputs
+        torch.cuda.empty_cache()
+
+
+def build_svd_pipeline(torch, dev):
+    """SVD-XT at full width with seeded random weights (the mix factors
+    at JAX's 0.5 in the UNet and 0.0 in the decoder), the ViT-H image
+    encoder, through the entry points a user calls."""
+    import sfast_tpu_torch
+    from sfast_tpu_torch.models import (
+        SVD_UNET, SVD_VAE, VIT_H_IMAGE_ENCODER, AutoencoderKLTemporalDecoder, CLIPVisionModel,
+        UNetSpatioTemporalConditionModel, init_svd_unet_weights_, init_temporal_vae_weights_,
+        init_weights_,
+    )
+    from sfast_tpu_torch.pipelines import StableVideoDiffusionPipeline
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(42)
+    unet = init_svd_unet_weights_(
+        UNetSpatioTemporalConditionModel(SVD_UNET, device=dev, dtype=bf16), gen)
+    vae = init_temporal_vae_weights_(
+        AutoencoderKLTemporalDecoder(SVD_VAE, device=dev, dtype=bf16), gen)
+    enc = init_weights_(CLIPVisionModel(VIT_H_IMAGE_ENCODER, device=dev, dtype=bf16), gen)
+    pipe = sfast_tpu_torch.compile(StableVideoDiffusionPipeline(unet, vae, enc, device=dev,
+                                                                dtype=bf16))
+    torch.cuda.synchronize()
+    n_params = {k: sum(p.numel() for p in m.parameters()) / 1e6
+                for k, m in (("unet", unet), ("vae", vae), ("image_encoder", enc))}
+    log(f"[svd] models built: {n_params} M params in {time.perf_counter() - t0:.1f} s")
+    return pipe
+
+
+def svd_clip(torch, pipe, **kw):
+    """One clip of ``SVD_KW`` (updated by ``kw``): (uint8 frames on the
+    host, host ms until they are there)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    frames = pipe(synthetic_image(SVD_H, SVD_W)[0], **dict(SVD_KW, **kw)).images
+    return frames, (time.perf_counter() - t) * 1e3
+
+
+def frames_diff(a, b):
+    import numpy as np
+
+    return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+
+def svd_path(torch, pipe, label, cfg, expected, eager_frames, profile=False):
+    """One graphed path of the SVD pipeline: the capture (a 1-step clip,
+    whose graphs serve every step count, except the fused loop's, which is
+    captured by its own 25-step clip), the counted clip of seed 5 (its e2e;
+    held against the eager clip within 1 uint8 level where
+    ``eager_frames``) and, with ``profile``, the same clip profiled, its
+    idle share read against the counted clip's wall time; its graphs and
+    peak memory."""
+    from sfast_tpu_torch.runtime import cuda_build
+
+    pipe.set_compilation_config(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    capture = {} if cfg.fuse_denoising_loop else {"num_inference_steps": 1}
+    _, first_ms = svd_clip(torch, pipe, seed=0, **capture)  # captures the path's graphs
+    # a replay of the fused loop (150k nodes) takes a clip's time: the
+    # host ms of replay() is read for the stepwise path only
+    graphs = graph_summary(torch, pipe, replay=not cfg.fuse_denoising_loop)
+    log(f"[{label}] first clip ({capture or 'all steps'}) {first_ms:.1f} ms; graphs captured: "
+        f"{graphs_text(graphs)}")
+    if cfg.enable_cuda_graph and not graphs:
+        raise AssertionError(f"[{label}] no graph was captured")
+    cuda_build.reset_launch_counts()
+    with CardSampler() as card:
+        frames, ms = svd_clip(torch, pipe, seed=5)
+    counts = dict(cuda_build.launch_counts)
+    card_text = card.text()
+    log(f"[{label}] one clip {ms:.1f} ms; launches per clip: {counts}; card: {card_text}")
+    if counts != expected:
+        raise AssertionError(f"[{label}] launch counts {counts} != {expected}")
+    if frames.shape != (1, SVD_FRAMES, SVD_H, SVD_W, 3) or frames.dtype.name != "uint8" \
+            or frames.std() == 0:
+        raise AssertionError(f"[{label}] frames {frames.shape} {frames.dtype} are misshapen "
+                             "or constant")
+    res = {"counts": counts, "e2e_ms": ms, "first_ms": first_ms, "graphs": graphs}
+    if eager_frames is not None:
+        diff = frames_diff(frames, eager_frames)
+        log(f"[{label}] seed 5 against the eager clip: max uint8 difference {diff}")
+        if diff > 1:
+            raise AssertionError(f"[{label}] frames differ from eager by {diff} uint8 levels")
+        res["vs_eager"] = {"max_uint8_diff": diff}
+    if profile:
+        res.update(profile_image(torch, lambda: svd_clip(torch, pipe, seed=5), label,
+                                 unprofiled=(ms, card_text)))
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    log(f"[{label}] peak memory {res['peak_gib']:.2f} GiB allocated, "
+        f"{res['peak_reserved_gib']:.2f} GiB reserved (the graphs' pools included)")
+    res["frames"] = frames
+    return res
+
+
+def svd_no_capture(torch, pipe):
+    """With the stepwise graphs in place: a second guidance range and a
+    second motion bucket capture nothing and change the clip (2-step clips:
+    the graphs serve every step count)."""
+    short = {"seed": 5, "num_inference_steps": 2}
+    base, _ = svd_clip(torch, pipe, **short)
+    before = {n: len(v) for n, v in pipe_graphs(pipe).items()}
+    frames, _ = svd_clip(torch, pipe, min_guidance_scale=2.0, max_guidance_scale=5.0,
+                         motion_bucket_id=40, **short)
+    after = {n: len(v) for n, v in pipe_graphs(pipe).items()}
+    res = {"captured": after != before, "max_uint8_change": frames_diff(frames, base)}
+    log(f"[svd] 2-step clips, guidance 2.0 → 5.0 and motion bucket 40 after 1.0 → 3.0 and "
+        f"127: graphs {before} -> {after}; the clip changed by up to "
+        f"{res['max_uint8_change']} levels")
+    if res["captured"] or res["max_uint8_change"] == 0:
+        raise AssertionError(f"[svd] a second guidance range and motion bucket: {res}")
+    return res
+
+
+def svd_decode_check(torch, dev, pipe):
+    """One decoded chunk of 5 frames through the pipeline's graph against
+    the eager decoder, bit for bit."""
+    from sfast_tpu_torch.utils.image import denormalize_to_uint8
+
+    g = torch.Generator(device=dev).manual_seed(43)
+    z = torch.randn((SVD_CHUNK, SVD_H // 8, SVD_W // 8, 4), generator=g, device=dev)
+    z = (z / pipe.vae.config.scaling_factor).to(torch.bfloat16)
+    with torch.inference_mode():
+        graphed = pipe._decoder_u8()(z)
+        eager = denormalize_to_uint8(pipe.vae.module.decode(z, num_frames=SVD_CHUNK))
+        ms = cuda_ms(lambda: pipe._decoder_u8()(z), iters=3, warmup=1)
+    equal = torch.equal(graphed, eager)
+    log(f"[svd] one decoded chunk of {SVD_CHUNK} frames, graphed vs eager: bit for bit "
+        f"{equal}; {ms:.2f} ms a graphed chunk (CUDA events)")
+    if not equal:
+        raise AssertionError("[svd] the graphed decode of a chunk differs from eager")
+    return {"bit_equal": equal, "chunk_ms": ms}
+
+
+def svd_route_check(torch, dev, pipe, label, cfg, expected, model_bound):
+    """One UNet eval of the CFG pair of 2 frames at 576×1024 on the kernel
+    route of ``cfg`` against the plain route, graphed: the kernel route
+    launches ``expected``, the plain route no kernel."""
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.runtime import cuda_build
+
+    g = torch.Generator(device=dev).manual_seed(44)
+    f, lh, lw = SVD_ROUTE_FRAMES, SVD_H // 8, SVD_W // 8
+    x = torch.randn((2, f, lh, lw, 8), generator=g, device=dev).to(torch.bfloat16)
+    ctx = torch.randn((2, 1, 1024), generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.tensor([[6.0, 127.0, 0.02]] * 2, device=dev)
+    t = torch.tensor(0.25, device=dev)
+    out = {}
+    with torch.inference_mode():
+        for route, rcfg in (("kernels", cfg), ("plain", CompilationConfig(enable_kernels=False))):
+            pipe.set_compilation_config(rcfg)
+            pipe.unet(x, t, ctx, ids)  # the capture: its warm-ups count as launches
+            cuda_build.reset_launch_counts()
+            out[route] = pipe.unet(x, t, ctx, ids)
+            torch.cuda.synchronize()
+            out[route + " launches"] = {k: n for k, n in cuda_build.launch_counts.items() if n}
+    pipe.set_compilation_config(CompilationConfig.Default())
+    _, max_rel, rms = rel_errors(out["kernels"], out["plain"])
+    log(f"[{label}] UNet route check at {f} frames: kernel route launched "
+        f"{out['kernels launches']}, plain route {out['plain launches']}; kernel route vs "
+        f"plain route: max_rel {max_rel:.3e} rms_rel {rms:.3e}")
+    if out["kernels launches"] != expected or out["plain launches"]:
+        raise AssertionError(f"[{label}] route check launches: {out['kernels launches']} "
+                             f"(expected {expected}) / {out['plain launches']}")
+    if not 0 < rms <= model_bound:
+        raise AssertionError(f"[{label}] UNet rms rel {rms} not in (0, {model_bound}]")
+    return {"rms_rel": rms, "max_rel": max_rel, "kernel_launches": out["kernels launches"]}
+
+
+def svd_decode_route_check(torch, dev, pipe):
+    """One graphed decode of a chunk of 5 frames at 576×1024 on the kernel
+    route against the plain route: every K2 and K3 shape of the temporal
+    decoder in one call (``SVD_DECODE_LAUNCHES``); the plain route launches
+    no kernel."""
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.runtime import cuda_build
+
+    g = torch.Generator(device=dev).manual_seed(45)
+    z = torch.randn((SVD_CHUNK, SVD_H // 8, SVD_W // 8, 4), generator=g, device=dev)
+    z = (z / pipe.vae.config.scaling_factor).to(torch.bfloat16)
+    out, res = {}, {}
+
+    def decode():
+        return pipe.vae.decode(z, num_frames=SVD_CHUNK)
+
+    with torch.inference_mode():
+        for route, rcfg in (("kernels", CompilationConfig.Default()),
+                            ("plain", CompilationConfig(enable_kernels=False))):
+            pipe.set_compilation_config(rcfg)
+            decode()  # the capture: its warm-ups count as launches
+            cuda_build.reset_launch_counts()
+            out[route] = decode()
+            torch.cuda.synchronize()
+            out[route + " launches"] = {k: n for k, n in cuda_build.launch_counts.items() if n}
+            res[f"{route}_ms"] = cuda_ms(decode, iters=3, warmup=1)
+    pipe.set_compilation_config(CompilationConfig.Default())
+    _, max_rel, rms = rel_errors(out["kernels"], out["plain"])
+    log(f"[svd] decode route check, {SVD_CHUNK} frames: kernel route launched "
+        f"{out['kernels launches']} in {res['kernels_ms']:.2f} ms, plain route "
+        f"{out['plain launches']} in {res['plain_ms']:.2f} ms (CUDA events, graphed); "
+        f"kernel route vs plain route: max_rel {max_rel:.3e} rms_rel {rms:.3e}")
+    if out["kernels launches"] != SVD_DECODE_LAUNCHES or out["plain launches"]:
+        raise AssertionError(f"[svd] decode route check launches: {out['kernels launches']} "
+                             f"(expected {SVD_DECODE_LAUNCHES}) / {out['plain launches']}")
+    if not 0 < rms <= MODEL_RMS_REL:
+        raise AssertionError(f"[svd] decoded frames rms rel {rms} not in (0, {MODEL_RMS_REL}]")
+    return {"rms_rel": rms, "max_rel": max_rel, **res}
+
+
+def run_svd(torch, dev):
+    """Phase 13 (its kernels are held at its shapes in phase 3): SVD-XT
+    eager once, graphed stepwise, a second guidance range and motion
+    bucket, one decoded chunk, the fused loop, the UNet and decode route
+    checks, one opt-in clip and the opt-in UNet route check."""
+    from sfast_tpu_torch import CompilationConfig
+
+    res = {}
+    pipe = build_svd_pipeline(torch, dev)
+    pipe.set_compilation_config(CompilationConfig(enable_cuda_graph=False))
+    eager, ms = svd_clip(torch, pipe, seed=5)
+    res["eager"] = {"e2e_ms": ms}
+    log(f"[svd eager] one clip of seed 5: {ms:.1f} ms")
+    res["graphed"] = svd_path(torch, pipe, "svd graphed", CompilationConfig.Default(),
+                              EXPECTED_SVD_LAUNCHES, eager, profile=True)
+    res["no_capture"] = svd_no_capture(torch, pipe)
+    res["decode"] = svd_decode_check(torch, dev, pipe)
+    log_pools(torch, pipe, "svd stepwise")
+    res["fused"] = svd_path(torch, pipe, "svd fused loop",
+                            CompilationConfig(fuse_denoising_loop=True), EXPECTED_SVD_LAUNCHES,
+                            eager)
+    loop = res["fused"]["graphs"].get(f"svd_denoise_loop_{SVD_STEPS}_f{SVD_FRAMES}")
+    if loop is None:
+        raise AssertionError("svd fused loop: no svd_denoise_loop graph was captured")
+    res["route"] = svd_route_check(torch, dev, pipe, "svd", CompilationConfig.Default(),
+                                   SVD_ROUTE_LAUNCHES, MODEL_RMS_REL)
+    res["decode_route"] = svd_decode_route_check(torch, dev, pipe)
+    optin = CompilationConfig(enable_fused_group_norm=True, enable_fused_linear_geglu=True,
+                              enable_int8_attention=True)
+    res["optin"] = svd_path(torch, pipe, "svd opt-in graphed", optin,
+                            EXPECTED_SVD_OPTIN_LAUNCHES, None)
+    log_pools(torch, pipe, "svd")
+    res["optin_route"] = svd_route_check(torch, dev, pipe, "svd opt-in", optin,
+                                         SVD_OPTIN_ROUTE_LAUNCHES, OPTIN_MODEL_RMS_REL)
+    pipe.set_compilation_config(CompilationConfig.Default())  # drops every graph
+    for r in (res["graphed"], res["fused"], res["optin"]):
+        del r["frames"]
+    return res
+
+
 def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_res,
-                 prompt_res, cn, phase_s):
+                 prompt_res, cn, svd, phase_s):
     """The ``{"kernels": [...]}`` line: per kernel its launches per image on
     each path (``launches``: the stepwise paths' sum) and the main-path
     case's numbers, every case under ``cases``; then each path's numbers."""
@@ -1692,6 +2324,9 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
                       ("controlnet + ip-adapter graphed", "controlnet_ip"),
                       ("controlnet opt-in graphed", "optin")):
         paths[name] = cn[key]
+    for name, key in (("svd eager", "eager"), ("svd graphed", "graphed"),
+                      ("svd fused loop", "fused"), ("svd opt-in graphed", "optin")):
+        paths[name] = svd[key]
     keep = ("e2e_ms", "device_ms", "idle", "cuda_kernels", "profiled_wall_ms", "traced_wall_ms",
             "peak_gib", "peak_reserved_gib", "graphs", "vs_eager", "vs_default_eager",
             "vs_stepwise", "first_ms", "seed_6_differs")
@@ -1710,7 +2345,10 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
                      "controlnet": cn["graphed"]["counts"][name],
                      "controlnet_fused_loop": cn["fused"]["counts"][name],
                      "controlnet_ip": cn["controlnet_ip"]["counts"][name],
-                     "controlnet_optin": cn["optin"]["counts"][name]}
+                     "controlnet_optin": cn["optin"]["counts"][name],
+                     "svd": svd["graphed"]["counts"][name],
+                     "svd_fused_loop": svd["fused"]["counts"][name],
+                     "svd_optin": svd["optin"]["counts"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(n for p, n in per_image.items() if "fused_loop" not in p),
@@ -1722,6 +2360,7 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
         })
     return json.dumps({"kernels": kernels,
                        "group_norm_per_eval_ms": measured["group_norm_per_eval_ms"],
+                       "svd_group_norm_per_eval_ms": measured["svd_group_norm_per_eval_ms"],
                        "paths": {k: {f: v[f] for f in keep if f in v} for k, v in paths.items()},
                        "encode": {k: v for k, v in img2img.items() if k.startswith("encode_")},
                        "lora": lora_res, "prompt": prompt_res,
@@ -1729,6 +2368,8 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
                                 "plain_routes": sdxl["plain_routes"], "encode": sdxl["encode"]},
                        "controlnet": {k: cn[k] for k in ("eager_image_s", "route", "scales",
                                                          "image_encoder", "ip_scale_0")},
+                       "svd": {k: svd[k] for k in ("no_capture", "decode", "route",
+                                                   "decode_route", "optin_route")},
                        "phase_s": phase_s})
 
 
@@ -1794,9 +2435,17 @@ def main():
     sdxl = phase("10 sdxl", run_sdxl, torch, dev)
     scheds = phase("11 schedulers", run_schedulers, torch, dev, pipe)
     cn = phase("12 controlnet / ip-adapter", run_controlnet, torch, dev, pipe)
+    # SVD's graphs and activations need the room: the SD1.5 modules go
+    pipe.set_compilation_config(CompilationConfig.Default())
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"before phase 13: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    svd = phase("13 svd", run_svd, torch, dev)
 
     print(kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_res,
-                       prompt_res, cn, phase_s))
+                       prompt_res, cn, svd, phase_s))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ SD1.5 and SDXL text2img, img2img and inpainting (prompt strings through
 Euler, Euler ancestral, DDIM, EDM Euler and LCM, an LCM-distilled UNet
 included), and SD1.5 with a ControlNet (``models/controlnet.py``) and an
 IP-Adapter (``ip_adapter.py``, its CLIP vision encoder in
-``models/clip_vision.py``), on an NVIDIA H100 with PyTorch, through CUDA kernels written by
+``models/clip_vision.py``), and Stable Video Diffusion image-to-video
+(``pipelines/stable_video_diffusion.py``: the spatio-temporal UNet and the
+temporal VAE decoder), on an NVIDIA H100 with PyTorch, through CUDA kernels written by
 hand for Hopper, eight sources in ``csrc/``: flash attention
 (K1), the fused GroupNorm+SiLU→3×3 conv (K2), GroupNorm statistics (K3),
 GroupNorm apply (K5), the fused GroupNorm (K3′ and K5 in one launch),

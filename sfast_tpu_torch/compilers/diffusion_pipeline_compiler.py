@@ -12,9 +12,12 @@ config's kernel routes.  It compiles nothing itself: each graph is
 captured at its first call.  With ``enable_cuda_graph=False`` the models
 run eagerly.
 
-The pipeline holds no image encoder, as in JAX: an IP-Adapter caller
+The SD pipelines hold no image encoder, as in JAX: an IP-Adapter caller
 compiles its CLIP vision encoder alone, ``compile_model(image_encoder,
-name="image_encoder")``, as the reference's community example does.
+name="image_encoder")``, as the reference's community example does.  The
+SVD pipeline holds one in its ``image_encoder`` slot, compiled with the
+rest; its temporal VAE's ``decode(latents, num_frames)`` keys a graph by
+the chunk's shape and ``num_frames``'s value.
 """
 
 import logging

@@ -7,15 +7,19 @@ reads without importing JAX — into f32 state dicts for
 ``UNet2DConditionModel`` (SDXL's ``add_embedding`` and an LCM UNet's
 ``time_embedding.cond_proj`` included), ``ControlNetModel``,
 ``AutoencoderKL`` (both halves), ``CLIPTextModel`` (with
-``text_projection``) and ``CLIPVisionModel``, whose ``load_state_dict``
+``text_projection``), ``CLIPVisionModel``, the SVD
+``UNetSpatioTemporalConditionModel`` and ``AutoencoderKLTemporalDecoder``,
+whose ``load_state_dict``
 casts to the model's dtype; IP-Adapter trees into the UNet's added attn2
 keys and the image projection's; and LoRA trees into the port's LoRA
 layout (``sfast_tpu_torch/lora.py``).
 
 UNet and VAE follow ``sfast_tpu/interop/export_unet.py:16-126`` and
-``export_vae.py:16-63``; CLIP is the inverse of ``convert_clip.py:28-88``.
-JAX has no ControlNet, CLIP vision or IP-Adapter exporter; those here
-are the port's own, in diffusers' and transformers' names.
+``export_vae.py:16-63``, the temporal VAE ``export_vae.py:65-126``; CLIP
+is the inverse of ``convert_clip.py:28-88``, the SVD UNet of
+``convert_svd.py``.  JAX has no ControlNet, CLIP vision, IP-Adapter or
+SVD UNet exporter; those here are the port's own, in diffusers' and
+transformers' names.
 """
 
 from typing import Dict
@@ -38,6 +42,18 @@ def _put_lin(sd: StateDict, key: str, p) -> None:
 
 def _put_conv(sd: StateDict, key: str, p) -> None:  # HWIO → OIHW
     sd[key + ".weight"] = _t(np.asarray(p["w"], dtype=np.float32).transpose(3, 2, 0, 1))
+    sd[key + ".bias"] = _t(p["b"])
+
+
+def _put_conv3d(sd: StateDict, key: str, p) -> None:
+    """A temporal (3, 1, 1) conv → Conv3d's OIDHW (C_out, C_in, 3, 1, 1):
+    JAX keeps ``time_conv_out`` as DHWIO (3, 1, 1, C_in, C_out) and the
+    temporal resnets' kernels as (3, 1, C_in, C_out), without the
+    singleton W axis (``unet_spatio_temporal._conv_temporal2d``)."""
+    w = np.asarray(p["w"], dtype=np.float32)
+    if w.ndim == 4:
+        w = w[:, :, None]
+    sd[key + ".weight"] = _t(w.transpose(4, 3, 0, 1, 2))
     sd[key + ".bias"] = _t(p["b"])
 
 
@@ -164,6 +180,81 @@ def ip_adapter_state_dicts(unet_params, image_proj):
     return sd, proj
 
 
+def _put_st_resnet(sd: StateDict, pre: str, p) -> None:
+    """A SpatioTemporalResBlock: ``spatial_res_block``,
+    ``temporal_res_block`` and ``time_mixer.mix_factor`` (shape (1,), as
+    diffusers' AlphaBlender holds it)."""
+    _put_resnet(sd, pre + "spatial_res_block.", p["spatial"])
+    t = p["temporal"]
+    tp = pre + "temporal_res_block."
+    _put_norm(sd, tp + "norm1", t["norm1"])
+    _put_conv3d(sd, tp + "conv1", t["conv1"])
+    _put_norm(sd, tp + "norm2", t["norm2"])
+    _put_conv3d(sd, tp + "conv2", t["conv2"])
+    if "time_emb_proj" in t:
+        _put_lin(sd, tp + "time_emb_proj", t["time_emb_proj"])
+    sd[pre + "time_mixer.mix_factor"] = _t(p["mix_factor"]).reshape(1)
+
+
+def _put_st_transformer(sd: StateDict, pre: str, p) -> None:
+    _put_spatial_transformer(sd, pre, p)
+    for k, blk in enumerate(p["temporal_blocks"]):
+        bp = f"{pre}temporal_transformer_blocks.{k}."
+        _put_norm(sd, bp + "norm_in", blk["norm_in"])
+        _put_lin(sd, bp + "ff_in.net.0.proj", blk["ff_in"]["proj"])
+        _put_lin(sd, bp + "ff_in.net.2", blk["ff_in"]["out"])
+        for name in ("norm1", "norm2", "norm3"):
+            _put_norm(sd, bp + name, blk[name])
+        _put_attention(sd, bp + "attn1.", blk["attn1"])
+        _put_attention(sd, bp + "attn2.", blk["attn2"])
+        _put_lin(sd, bp + "ff.net.0.proj", blk["ff"]["proj"])
+        _put_lin(sd, bp + "ff.net.2", blk["ff"]["out"])
+    _put_time_pos_embed(sd, pre + "time_pos_embed.", p["time_pos_embed"])
+    sd[pre + "time_mixer.mix_factor"] = _t(p["mix_factor"]).reshape(1)
+
+
+def _put_time_pos_embed(sd: StateDict, pre: str, p) -> None:
+    """JAX's C → C → C frame-position embedding at diffusers' C → 4·C → C
+    width: ``linear_1``'s extra outputs and ``linear_2``'s extra inputs
+    are zeros, so the extra units are silu(0) = 0 and add nothing."""
+    _put_lin(sd, pre + "linear_1", p["linear_1"])
+    _put_lin(sd, pre + "linear_2", p["linear_2"])
+    w1, b1, w2 = (sd[pre + k] for k in ("linear_1.weight", "linear_1.bias", "linear_2.weight"))
+    extra = 4 * w2.shape[0] - w2.shape[1]
+    sd[pre + "linear_1.weight"] = torch.nn.functional.pad(w1, (0, 0, 0, extra))
+    sd[pre + "linear_1.bias"] = torch.nn.functional.pad(b1, (0, extra))
+    sd[pre + "linear_2.weight"] = torch.nn.functional.pad(w2, (0, extra))
+
+
+def svd_unet_state_dict(params) -> StateDict:
+    """``init_svd_unet_params`` tree → ``UNetSpatioTemporalConditionModel``
+    state dict (diffusers' names: JAX's ``convert_svd_unet_params`` reads it
+    back)."""
+    sd: StateDict = {}
+    _put_conv(sd, "conv_in", params["conv_in"])
+    for emb in ("time_embedding", "add_embedding"):
+        for name, p in params[emb].items():
+            _put_lin(sd, f"{emb}.{name}", p)
+    for part in ("down_blocks", "up_blocks"):
+        for i, blk in enumerate(params[part]):
+            pre = f"{part}.{i}."
+            for j, rn in enumerate(blk["resnets"]):
+                _put_st_resnet(sd, f"{pre}resnets.{j}.", rn)
+            for j, at in enumerate(blk.get("attentions", [])):
+                _put_st_transformer(sd, f"{pre}attentions.{j}.", at)
+            if "downsample" in blk:
+                _put_conv(sd, f"{pre}downsamplers.0.conv", blk["downsample"]["conv"])
+            if "upsample" in blk:
+                _put_conv(sd, f"{pre}upsamplers.0.conv", blk["upsample"]["conv"])
+    mid = params["mid_block"]
+    for j, rn in enumerate(mid["resnets"]):
+        _put_st_resnet(sd, f"mid_block.resnets.{j}.", rn)
+    _put_st_transformer(sd, "mid_block.attentions.0.", mid["attentions"][0])
+    _put_norm(sd, "conv_norm_out", params["conv_norm_out"])
+    _put_conv(sd, "conv_out", params["conv_out"])
+    return sd
+
+
 def _put_vae_mid(sd: StateDict, pre: str, mid) -> None:
     _put_resnet(sd, pre + "resnets.0.", mid["resnet1"])
     _put_attention(sd, pre + "attentions.0.", mid["attn"])
@@ -171,9 +262,7 @@ def _put_vae_mid(sd: StateDict, pre: str, mid) -> None:
     _put_resnet(sd, pre + "resnets.1.", mid["resnet2"])
 
 
-def vae_state_dict(params) -> StateDict:
-    """``init_vae_params`` tree → ``AutoencoderKL`` state dict, both halves."""
-    sd: StateDict = {}
+def _put_encoder(sd: StateDict, params) -> None:
     enc = params["encoder"]
     _put_conv(sd, "encoder.conv_in", enc["conv_in"])
     for i, blk in enumerate(enc["down_blocks"]):
@@ -187,6 +276,11 @@ def vae_state_dict(params) -> StateDict:
     _put_conv(sd, "encoder.conv_out", enc["conv_out"])
     _put_conv(sd, "quant_conv", params["quant_conv"])
 
+
+def vae_state_dict(params) -> StateDict:
+    """``init_vae_params`` tree → ``AutoencoderKL`` state dict, both halves."""
+    sd: StateDict = {}
+    _put_encoder(sd, params)
     dec = params["decoder"]
     _put_conv(sd, "post_quant_conv", params["post_quant_conv"])
     _put_conv(sd, "decoder.conv_in", dec["conv_in"])
@@ -199,6 +293,31 @@ def vae_state_dict(params) -> StateDict:
             _put_conv(sd, f"{pre}upsamplers.0.conv", blk["upsample"]["conv"])
     _put_norm(sd, "decoder.conv_norm_out", dec["norm_out"])
     _put_conv(sd, "decoder.conv_out", dec["conv_out"])
+    return sd
+
+
+def temporal_vae_state_dict(params) -> StateDict:
+    """``init_temporal_vae_params`` tree → ``AutoencoderKLTemporalDecoder``
+    state dict: ``AutoencoderKL``'s encoder and ``quant_conv``, the
+    temporal decoder (JAX ``export_temporal_vae_state_dict``'s names)."""
+    sd: StateDict = {}
+    _put_encoder(sd, params)
+    dec = params["decoder"]
+    _put_conv(sd, "decoder.conv_in", dec["conv_in"])
+    for j, rn in enumerate(dec["mid"]["resnets"]):
+        _put_st_resnet(sd, f"decoder.mid_block.resnets.{j}.", rn)
+    pre = "decoder.mid_block.attentions.0."
+    _put_attention(sd, pre, dec["mid"]["attn"])
+    _put_norm(sd, pre + "group_norm", dec["mid"]["attn"]["group_norm"])
+    for i, blk in enumerate(dec["up_blocks"]):
+        pre = f"decoder.up_blocks.{i}."
+        for j, rn in enumerate(blk["resnets"]):
+            _put_st_resnet(sd, f"{pre}resnets.{j}.", rn)
+        if "upsample" in blk:
+            _put_conv(sd, f"{pre}upsamplers.0.conv", blk["upsample"]["conv"])
+    _put_norm(sd, "decoder.conv_norm_out", dec["norm_out"])
+    _put_conv(sd, "decoder.conv_out", dec["conv_out"])
+    _put_conv3d(sd, "decoder.time_conv_out", dec["time_conv_out"])
     return sd
 
 

@@ -161,22 +161,10 @@ class Decoder(nn.Module):
         self.conv_out = Conv2d(cfg.block_out_channels[0], cfg.out_channels, 3, padding=1, **mk)
 
 
-class AutoencoderKL(nn.Module):
-    def __init__(self, cfg: VAEConfig = SD_VAE, *, device=None, dtype=None):
-        super().__init__()
-        self.config = cfg
-        self.compilation_config = CompilationConfig.Default()
-        device = resolve_device(device)
-        # decoder first: init_weights_ draws in module order, so the decoder
-        # takes the same random weights as when the module had no encoder
-        self.post_quant_conv = Conv2d(
-            cfg.latent_channels, cfg.latent_channels, 1, device=device, dtype=dtype
-        )
-        self.decoder = Decoder(cfg, device=device, dtype=dtype)
-        self.encoder = Encoder(cfg, device=device, dtype=dtype)
-        self.quant_conv = Conv2d(
-            2 * cfg.latent_channels, 2 * cfg.latent_channels, 1, device=device, dtype=dtype
-        )
+class KLEncoderHalf(nn.Module):
+    """What a KL autoencoder's encode runs: ``encoder`` and ``quant_conv``
+    (built by the subclass), and ``encode``.  ``AutoencoderKL`` and the
+    SVD ``AutoencoderKLTemporalDecoder`` share it."""
 
     def _conv_backend(self):
         # JAX's enable_pallas reaches only the GroupNorms; here enable_kernels
@@ -199,6 +187,24 @@ class AutoencoderKL(nn.Module):
         h = self.quant_conv(e.conv_out(e.conv_norm_out(h, act="silu")))
         mean, logvar = h.chunk(2, dim=-1)
         return mean, logvar.clamp(-30.0, 20.0)
+
+
+class AutoencoderKL(KLEncoderHalf):
+    def __init__(self, cfg: VAEConfig = SD_VAE, *, device=None, dtype=None):
+        super().__init__()
+        self.config = cfg
+        self.compilation_config = CompilationConfig.Default()
+        device = resolve_device(device)
+        # decoder first: init_weights_ draws in module order, so the decoder
+        # takes the same random weights as when the module had no encoder
+        self.post_quant_conv = Conv2d(
+            cfg.latent_channels, cfg.latent_channels, 1, device=device, dtype=dtype
+        )
+        self.decoder = Decoder(cfg, device=device, dtype=dtype)
+        self.encoder = Encoder(cfg, device=device, dtype=dtype)
+        self.quant_conv = Conv2d(
+            2 * cfg.latent_channels, 2 * cfg.latent_channels, 1, device=device, dtype=dtype
+        )
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """latents (B, h, w, latent_channels), already divided by the

@@ -84,9 +84,10 @@ class LayerNorm(nn.LayerNorm):
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights at the scales of JAX's ``init_*``
-    (``layers.py:118-137``): linear and conv weights N(0, 1/fan_in),
-    biases 0, norms (1, 0), embeddings and any parameter held bare by a
-    module of no other kind (CLIP vision's class token) N(0, 0.02²).
+    (``layers.py:118-137``): linear and conv weights N(0, 1/fan_in) (3·C
+    for a temporal (3, 1, 1) conv), biases 0, norms (1, 0), embeddings and
+    any parameter held bare by a module of no other kind (CLIP vision's
+    class token, an SVD ``mix_factor``) N(0, 0.02²).
     Values are drawn on ``generator``'s device in f32, in module order,
     then cast."""
 
@@ -95,7 +96,7 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         p.copy_(r * std)
 
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
             randn_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
             if m.bias is not None:
                 m.bias.zero_()
@@ -123,7 +124,9 @@ def timestep_embedding(
     freq_shift: float = 0.0,
     max_period: float = 10000.0,
 ) -> torch.Tensor:
-    """diffusers ``Timesteps``: (B,) timesteps → (B, dim) f32."""
+    """diffusers ``Timesteps``: (N,) timesteps → (N, dim) f32.  ``t`` may be
+    any positions: a video's frame indices too (the SVD UNet's
+    ``time_pos_embed``)."""
     half = dim // 2
     exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device)
     emb = torch.exp(exponent / (half - freq_shift))[None, :] * t.float()[:, None]
@@ -135,16 +138,17 @@ def timestep_embedding(
 
 
 class TimestepEmbedding(nn.Module):
-    """diffusers TimestepEmbedding; with ``cond_proj_dim``, the bias-free
-    ``cond_proj`` of an LCM-distilled UNet, which adds the projected
-    guidance embedding to the timestep embedding (JAX ``layers.py:293-320``)."""
+    """diffusers TimestepEmbedding (``out_dim``: ``linear_2``'s width, else
+    ``time_dim``); with ``cond_proj_dim``, the bias-free ``cond_proj`` of
+    an LCM-distilled UNet, which adds the projected guidance embedding to
+    the timestep embedding (JAX ``layers.py:293-320``)."""
 
-    def __init__(self, cin: int, time_dim: int, *, cond_proj_dim: Optional[int] = None,
-                 device=None, dtype=None):
+    def __init__(self, cin: int, time_dim: int, *, out_dim: Optional[int] = None,
+                 cond_proj_dim: Optional[int] = None, device=None, dtype=None):
         super().__init__()
         mk = dict(device=device, dtype=dtype)
         self.linear_1 = Linear(cin, time_dim, **mk)
-        self.linear_2 = Linear(time_dim, time_dim, **mk)
+        self.linear_2 = Linear(time_dim, out_dim or time_dim, **mk)
         self.cond_proj = (Linear(cond_proj_dim, cin, bias=False, **mk)
                           if cond_proj_dim is not None else None)
 

@@ -6,7 +6,7 @@ contiguous NHWC tensor is already a channels_last NCHW view, so cuDNN
 reads it without a copy and its output permutes back to contiguous NHWC.
 """
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -18,8 +18,9 @@ def conv2d(
     b: Optional[torch.Tensor] = None,
     *,
     stride: int = 1,
-    padding: int = 0,
+    padding: Union[int, Tuple[int, int]] = 0,
 ) -> torch.Tensor:
-    """``conv(x, w) + b`` — x: (N, H, W, Cin), w: (Cout, Cin, kh, kw)."""
+    """``conv(x, w) + b`` — x: (N, H, W, Cin), w: (Cout, Cin, kh, kw);
+    ``padding`` per side, one for both axes or (H, W)."""
     y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1)

@@ -46,6 +46,9 @@ _FUSED_THREADS = 512
 # safe while their replays run in turn on one stream, as one pipeline call
 # runs them; two replays at once on two streams would share the counters.
 _tickets = {}
+# Counters a larger set replaced: kept alive for the life of the process,
+# since a graph captured before the replacement holds their address.
+_retired_tickets = []
 
 
 class FusedPlan(NamedTuple):
@@ -198,10 +201,20 @@ def _ticket(x: torch.Tensor, n: int) -> torch.Tensor:
     """K3's per-sample counters for calls on x's device and current stream:
     zero between calls, since the block that folds a sample sets its
     counter back.  Calls on one stream run in turn, and each stream has
-    its own counters, so two calls never take each other's tickets."""
+    its own counters, so two calls never take each other's tickets.
+
+    A call of more samples than the set holds gets a larger set, and the
+    old one is never freed (``_retired_tickets``): a CUDA graph captured
+    before reads and writes the old set by its address on every replay,
+    and freed memory would go back to the caching allocator, to be handed
+    to some other tensor that the replay would then corrupt, or whose
+    values would break the fold.  The old set stays zero, since only its
+    graphs use it, each folding to zero."""
     key = (x.device, cuda_build.stream_ptr(x))
     t = _tickets.get(key)
     if t is None or t.numel() < n:
+        if t is not None:
+            _retired_tickets.append(t)
         t = _tickets[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=x.device)
     return t
 

@@ -86,41 +86,27 @@ class PipelineOutput:
         self.images = images
 
 
-class StableDiffusionPipeline:
-    def __init__(
-        self,
-        unet,
-        vae,
-        text_encoder,
-        scheduler,
-        *,
-        vae_encode=None,
-        tokenizer=None,
-        controlnet=None,
-        device=None,
-        dtype: torch.dtype = torch.bfloat16,
-    ):
-        """``vae_encode`` is what img2img encodes with: the VAE module itself
-        (its ``encode``), which ``sfast_tpu_torch.compile`` wraps as a model
-        of its own beside the decode.  ``controlnet`` is a
-        ``ControlNetModel``, run by ``control_image=``."""
-        self.unet = unet
-        self.controlnet = controlnet
-        self.vae = vae
-        self.vae_encode = vae_encode
-        self.text_encoder = text_encoder
-        self.tokenizer = tokenizer
+class PipelineBase:
+    """What every pipeline of the port shares: its compilation config and
+    its graphs (the fused loops of ``_fused_loops``, dropped on a new config
+    or scheduler), the scheduler states per step count, and device scalars.
+    A subclass sets the models and names them in ``_submodels``."""
+
+    def __init__(self, scheduler, device, dtype: torch.dtype):
         self.scheduler = scheduler
-        self.device = torch.device(device) if device is not None else unet.conv_in.weight.device
+        self.device = torch.device(device)
         self.dtype = dtype
         self._ccfg = CompilationConfig.Default()
-        # fused loops by (steps, CFG, LCM embedding width, step noise, then
-        # "cn" and "ip" where it runs those branches): a loop's graph bakes
-        # its trip count and branches in
+        # fused loops by their key (the SD loop's: steps, CFG, LCM embedding
+        # width, step noise, then "cn" and "ip" where it runs those
+        # branches): a loop's graph bakes its trip count and branches in
         self._fused_loops = {}
         self._sched_states = {}
         self._sched_obj = scheduler
         self._dev_scalars = {}
+
+    def _submodels(self):
+        raise NotImplementedError
 
     def set_compilation_config(self, ccfg: CompilationConfig) -> None:
         """Apply ``ccfg`` to every submodel and drop every graph — the fused
@@ -135,9 +121,6 @@ class StableDiffusionPipeline:
                 m.set_compilation_config(ccfg)
             elif m is not self.scheduler:
                 m.compilation_config = ccfg
-
-    def _submodels(self):
-        return (self.unet, self.controlnet, self.vae, self.vae_encode, self.text_encoder)
 
     def _drop_fused_loops(self) -> None:
         for loop in self._fused_loops.values():
@@ -178,6 +161,49 @@ class StableDiffusionPipeline:
             t = self._dev_scalars[v] = torch.tensor(v, dtype=torch.float32, device=self.device)
         return t
 
+    def _init_noise_sigma(self, state):
+        """What the initial noise is scaled by: the state's
+        ``init_noise_sigma`` where it holds one (Euler, EDM), else the
+        scheduler's attribute, else 1 (JAX ``:796``)."""
+        if "init_noise_sigma" in state:
+            return state["init_noise_sigma"]
+        return getattr(self.scheduler, "init_noise_sigma", 1.0)
+
+    @property
+    def vae_scale_factor(self) -> int:
+        return 2 ** (len(self.vae.config.block_out_channels) - 1)
+
+
+class StableDiffusionPipeline(PipelineBase):
+    def __init__(
+        self,
+        unet,
+        vae,
+        text_encoder,
+        scheduler,
+        *,
+        vae_encode=None,
+        tokenizer=None,
+        controlnet=None,
+        device=None,
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        """``vae_encode`` is what img2img encodes with: the VAE module itself
+        (its ``encode``), which ``sfast_tpu_torch.compile`` wraps as a model
+        of its own beside the decode.  ``controlnet`` is a
+        ``ControlNetModel``, run by ``control_image=``."""
+        super().__init__(scheduler, device if device is not None else unet.conv_in.weight.device,
+                         dtype)
+        self.unet = unet
+        self.controlnet = controlnet
+        self.vae = vae
+        self.vae_encode = vae_encode
+        self.text_encoder = text_encoder
+        self.tokenizer = tokenizer
+
+    def _submodels(self):
+        return (self.unet, self.controlnet, self.vae, self.vae_encode, self.text_encoder)
+
     def warmup(self, resolutions=((512, 512),), steps=(50,), batch_sizes=(1,)) -> None:
         """Capture every graph of a (H, W) × steps × batch grid by running
         one image of each (a capture needs its warm-up calls anyway)."""
@@ -187,10 +213,6 @@ class StableDiffusionPipeline:
                 for s in steps:
                     self(prompt_ids=ids, height=int(h), width=int(w),
                          num_inference_steps=int(s), output_type="pt")
-
-    @property
-    def vae_scale_factor(self) -> int:
-        return 2 ** (len(self.vae.config.block_out_channels) - 1)
 
     def tokenize(self, prompt: Union[str, List[str]]) -> torch.Tensor:
         """Prompt strings → (B, 77) token ids on the pipeline's device.
@@ -348,14 +370,6 @@ class StableDiffusionPipeline:
             (seed * _STEP_NOISE_MIX + 1) % 2**63)
         return torch.randn((num_steps, *shape), generator=gen, device=self.device,
                            dtype=torch.float32)
-
-    def _init_noise_sigma(self, state):
-        """What the initial noise is scaled by: the state's
-        ``init_noise_sigma`` where it holds one (Euler, EDM), else the
-        scheduler's attribute, else 1 (JAX ``:796``)."""
-        if "init_noise_sigma" in state:
-            return state["init_noise_sigma"]
-        return getattr(self.scheduler, "init_noise_sigma", 1.0)
 
     def _inpaint_blend(self, state, latents, keep_mask, init, noise, steps, i, num_steps):
         """After step ``i``, the kept region (``keep_mask`` 1) is the

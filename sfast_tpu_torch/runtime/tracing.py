@@ -5,9 +5,10 @@ Counterpart of ``sfast_tpu/runtime/tracing.py`` (``LazyCompiledFunction``,
 the role the reference gives its CUDA-graph cache (``cuda/graphs.py:16-157``,
 SURVEY.md §3.3).  Here it is that cache again, in the reference's order:
 
-- **miss**: three warm-up calls on the capture stream, static copies of the
-  tensor inputs, then the capture under double-checked locking, logged
-  with its seconds as JAX logs each compile.  The launches the capture
+- **miss**: three warm-up calls (``warmup_calls``) on the capture stream,
+  static copies of the tensor inputs, then the capture under
+  double-checked locking, logged with its seconds as JAX logs each
+  compile.  The launches the capture
   recorded (``cuda_build.launch_counts``) are kept, and taken back out of
   the counts: a capture launches nothing;
 - **hit**: ``copy_`` the inputs into the static inputs, ``replay()``, add
@@ -110,11 +111,18 @@ class CapturedGraph:
 
 class LazyCompiledFunction:
     """A callable that captures ``fn`` into one CUDA graph per input
-    signature on first use and replays it after."""
+    signature on first use and replays it after.  ``warmup_calls`` calls of
+    ``fn`` run before each capture (the reference's three by default); one
+    does every first-call setup, and a function that is itself many model
+    evals (a video's fused denoising loop) may take one."""
 
-    def __init__(self, fn: Callable, *, name: Optional[str] = None):
+    def __init__(self, fn: Callable, *, name: Optional[str] = None,
+                 warmup_calls: int = WARMUP_CALLS):
+        if warmup_calls < 1:
+            raise ValueError(f"warmup_calls must be at least 1, got {warmup_calls}")
         self.fn = fn
         self.name = name or getattr(fn, "__name__", "fn")
+        self.warmup_calls = warmup_calls
         self._lock = threading.Lock()
         self._cache: Dict[tuple, CapturedGraph] = {}
 
@@ -173,7 +181,7 @@ class LazyCompiledFunction:
         stream = capture_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            for _ in range(WARMUP_CALLS):
+            for _ in range(self.warmup_calls):
                 self.fn(*args, **kwargs)
         torch.cuda.current_stream(device).wait_stream(stream)
 

@@ -1,8 +1,55 @@
 """Image pre- and postprocessing: counterpart of ``sfast_tpu/utils/image.py``
-(``:35-119``, ``denormalize_to_uint8``)."""
+(``:35-119``, ``denormalize_to_uint8``), with the bilinear resize and the
+CLIP normalization of the SVD pipeline
+(``sfast_tpu/pipelines/stable_video_diffusion.py:35-41,160-172``)."""
 
 import numpy as np
 import torch
+
+# CLIP's image normalization (OpenAI's mean and std, which OpenCLIP's
+# ViT-H keeps)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_out, n_in) f32 weights of ``jax.image.resize``'s 'bilinear' along
+    one axis (``scale_and_translate``'s ``compute_weight_mat``): half-pixel
+    centres; a triangle kernel widened by n_in / n_out when downsampling
+    (antialiasing), not when upsampling; each output's weights normalized
+    to sum 1 over the input pixels (so an edge renormalizes); outputs whose
+    centre falls outside the input are 0."""
+    scale = n_out / n_in
+    inv = 1.0 / scale
+    kernel_scale = max(inv, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv - 0.5
+    x = (sample[:, None] - torch.arange(n_in, dtype=torch.float32, device=device)[None, :])
+    w = torch.clamp(1.0 - x.abs() / kernel_scale, min=0.0)
+    total = w.sum(dim=1, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None], w, 0.0)
+
+
+def resize_bilinear(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, H, W, C) f32 → (B, h, w, C) as ``jax.image.resize(img, (B, h, w,
+    C), "bilinear")``: antialiased when it downsamples (576×1024 → 224² for
+    the image encoder), which ``F.interpolate(antialias=False)`` is not.
+    An axis of unchanged size is left as it is, as JAX skips it."""
+    out = img.float()
+    if out.shape[1] != h:
+        out = torch.einsum("oh,bhwc->bowc", _resize_weights(out.shape[1], h, out.device), out)
+    if out.shape[2] != w:
+        out = torch.einsum("ow,bhwc->bhoc", _resize_weights(out.shape[2], w, out.device), out)
+    return out
+
+
+def clip_normalize(pixels: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) in [0, 1] → CLIP-normalized, (x − mean) / std per channel."""
+    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=pixels.device)
+    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=pixels.device)
+    return (pixels.float() - mean) / std
 
 
 def denormalize_to_uint8(image: torch.Tensor) -> torch.Tensor:

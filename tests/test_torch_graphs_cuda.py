@@ -16,7 +16,11 @@ weights without a new capture.  A ControlNet (its zero convs drawn at the
 init scale) and an IP-Adapter on the same UNet: the graphed image equals
 the eager one, new scales capture nothing (they are 0-d device tensors),
 and the fused loop, which embeds the control image once, equals the
-stepwise graphs.  Every test skips without a
+stepwise graphs.  Stable Video Diffusion at small widths where K1 (1,024
+tokens of head dim 64), K2 and K3 (a 128² decoder map) fire: the graphed
+clip equals the eager one, and a new guidance range or motion bucket
+captures nothing.  K3's ticket set that a graph holds outlives its
+replacement by a larger one.  Every test skips without a
 CUDA card.  The file imports no JAX, so on a machine without it run:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graphs_cuda.py
@@ -29,11 +33,17 @@ import torch
 from sfast_tpu_torch import CompilationConfig, ip_adapter, lora
 from sfast_tpu_torch.compilers import compile as compile_pipeline
 from sfast_tpu_torch.compilers import compile_unet
+from sfast_tpu_torch.compilers import compile_vae
 from sfast_tpu_torch.models import (
-    TINY_TEST_VAE, TINY_TEXT_ENCODER, AutoencoderKL, CLIPTextModel, ControlNetConfig,
-    ControlNetModel, UNet2DConditionModel, UNetConfig, init_controlnet_weights_, init_weights_,
+    TINY_TEST_VAE, TINY_TEXT_ENCODER, AutoencoderKL, AutoencoderKLTemporalDecoder,
+    CLIPTextModel, CLIPVisionConfig, CLIPVisionModel, ControlNetConfig, ControlNetModel,
+    SVDUNetConfig, TemporalVAEConfig, UNet2DConditionModel, UNetConfig,
+    UNetSpatioTemporalConditionModel, init_controlnet_weights_, init_svd_unet_weights_,
+    init_temporal_vae_weights_, init_weights_,
 )
-from sfast_tpu_torch.pipelines import StableDiffusionPipeline
+from sfast_tpu_torch.ops.group_norm import group_norm_stats
+from sfast_tpu_torch.pipelines import StableDiffusionPipeline, StableVideoDiffusionPipeline
+from sfast_tpu_torch.runtime.tracing import capture_stream
 from sfast_tpu_torch.runtime import cuda_build
 from sfast_tpu_torch.schedulers import (
     DPMSolverMultistepScheduler,
@@ -391,3 +401,96 @@ def test_fused_controlnet_loop_matches_the_stepwise_graphs(cn_pipe):
     fused_other = pipe(**dict(kw, controlnet_conditioning_scale=0.5)).images
     assert loop.cache_size == 1 and not torch.equal(fused, fused_other)
     assert _rms_rel(fused, stepwise) <= LOOP_RMS_REL
+
+
+# SVD at small widths: two levels of 320 and 640 channels (5 and 10 heads of
+# 64), 32² latents (1,024 tokens: K1), a 3-level temporal VAE whose last
+# level decodes at 128² (K2, K3)
+SVD_UNET = SVDUNetConfig(
+    block_out_channels=(320, 640),
+    down_block_types=("CrossAttnDownBlockSpatioTemporal",) * 2,
+    up_block_types=("CrossAttnUpBlockSpatioTemporal",) * 2,
+    layers_per_block=1, transformer_layers_per_block=(1, 1), num_heads=(5, 10),
+    cross_attention_dim=64, num_frames=3,
+)
+SVD_VAE = TemporalVAEConfig(block_out_channels=(64, 128, 128), layers_per_block=1)
+SVD_ENCODER = CLIPVisionConfig(image_size=32, patch_size=8, hidden_size=64,
+                               intermediate_size=128, num_layers=2, num_heads=4,
+                               projection_dim=64)
+
+
+@pytest.fixture
+def svd_pipe(dev):
+    g = torch.Generator(device=dev).manual_seed(11)
+    unet = init_svd_unet_weights_(
+        UNetSpatioTemporalConditionModel(SVD_UNET, device=dev, dtype=BF16), g)
+    vae = init_temporal_vae_weights_(AutoencoderKLTemporalDecoder(SVD_VAE, device=dev,
+                                                                  dtype=BF16), g)
+    enc = init_weights_(CLIPVisionModel(SVD_ENCODER, device=dev, dtype=BF16), g)
+    return compile_pipeline(StableVideoDiffusionPipeline(unet, vae, enc, device=dev,
+                                                         dtype=BF16))
+
+
+def _svd_kw(**extra):
+    image = np.random.default_rng(12).integers(0, 256, (1, 128, 128, 3), dtype=np.uint8)
+    return image, {**dict(num_frames=3, height=128, width=128, num_inference_steps=3,
+                          decode_chunk_size=2, seed=3), **extra}
+
+
+def test_graphed_svd_clip_is_eager_bit_for_bit(svd_pipe):
+    """The stepwise graphs and the fused loop against eager: the frames
+    bit for bit (chunks of 2 and 1 frames: two decode graphs), the fused
+    loop's latents within LOOP_RMS_REL of the stepwise graphs'."""
+    image, kw = _svd_kw()
+    cuda_build.reset_launch_counts()
+    graphed = svd_pipe(image, **kw).images
+    launched = _launched()
+    assert {"flash_attention", "conv3x3", "group_norm_stats"} <= set(launched)
+    assert svd_pipe.unet.cache_size == 1 and svd_pipe._decode_u8.cache_size == 2
+    stepwise = svd_pipe(image, **kw, output_type="latent").images
+    svd_pipe.set_compilation_config(CompilationConfig(fuse_denoising_loop=True))
+    fused = svd_pipe(image, **kw, output_type="latent").images
+    (loop,) = svd_pipe._fused_loops.values()
+    assert loop.name == "svd_denoise_loop_3_f3" and loop.cache_size == 1
+    assert _rms_rel(fused, stepwise) <= LOOP_RMS_REL
+    svd_pipe.set_compilation_config(CompilationConfig(enable_cuda_graph=False))
+    assert np.array_equal(graphed, svd_pipe(image, **kw).images)
+
+
+def test_a_new_guidance_range_or_motion_bucket_captures_nothing(svd_pipe):
+    image, kw = _svd_kw()
+    base = svd_pipe(image, **kw).images
+    held = {n: m._call.graphs() for n, m in (("unet", svd_pipe.unet),
+                                             ("image_encoder", svd_pipe.image_encoder))}
+    decode = svd_pipe._decode_u8.graphs()
+    other = svd_pipe(image, **kw, min_guidance_scale=2.0, max_guidance_scale=6.0,
+                     motion_bucket_id=30, fps=12).images
+    assert not np.array_equal(base, other)
+    assert {n: m._call.graphs() for n, m in (("unet", svd_pipe.unet),
+                                             ("image_encoder", svd_pipe.image_encoder))} == held
+    assert svd_pipe._decode_u8.graphs() == decode
+
+
+def test_k3_tickets_a_graph_holds_outlive_a_larger_set(dev):
+    """A decode graph holds K3's ticket set of its capture stream.  A call
+    of more samples on that stream replaces the set; the old one must not
+    go back to the allocator, where the small tensors allocated next on
+    that stream would take it and the replay's K3 would read their values
+    as tickets."""
+    vae = compile_vae(init_weights_(AutoencoderKL(TINY_TEST_VAE, device=dev, dtype=BF16),
+                                    torch.Generator(device=dev).manual_seed(13)))
+    z = torch.randn((1, 64, 64, 4), generator=torch.Generator(device=dev).manual_seed(14),
+                    device=dev).to(BF16)
+    with torch.inference_mode():
+        first = vae(z)  # the capture: the 128² decoder map takes K2 and K3
+        assert vae._call.graphs()[0].launches.get("group_norm_stats", 0) > 0
+        stream = capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            group_norm_stats(torch.randn((80, 8, 8, 64), device=dev).to(BF16), groups=32)
+            junk = [torch.full((64,), 7, dtype=torch.int32, device=dev) for _ in range(64)]
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        again = vae(z)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    del junk

@@ -506,3 +506,65 @@ def test_flash_attention_int8_rejects_what_it_cannot_run(dev):
         q = torch.zeros(1, 1, 64, d, device=dev, dtype=BF16)
         with pytest.raises(ValueError, match="head dim"):
             flash_attention_int8(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# Stable Video Diffusion's shapes: K1 at batch 50 (the CFG pair of 25
+# frames) over 576×1024's 9,216 and 2,304 tokens, K2 and K3 at the temporal
+# decoder's 576×1024 maps for a chunk of frames
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("h,s", [(5, 9216), (10, 2304)], ids=["level0", "level1"])
+def test_flash_attention_at_the_svd_shapes(dev, h, s):
+    """(50, h, s, 64) head-split views; the plain version on the first and
+    last batch rows (its f32 scores at the whole level-0 shape would take
+    85 GB).  Two calls agree bit for bit."""
+    b, d = 50, 64
+    q, k, v = (_randn(dev, b, s, h * d, seed=i).view(b, s, h, d).transpose(1, 2)
+               for i in (31, 32, 33))
+    got = flash_attention(q, k, v)
+    again = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    rows = [0, b - 1]
+    assert _rms_rel(got[rows], flash_attention_ref(q[rows], k[rows], v[rows])) <= 1e-2
+
+
+def _svd_conv1(dev, n, c, f, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(dev, n, 576, 1024, c, seed=seed + 1)
+    wt = (torch.randn((f, 3, 3, c), generator=g, device=dev) / (9 * c) ** 0.5).to(BF16)
+    kw = dict(gn_scale=torch.rand((n, c), generator=g, device=dev) + 0.5,
+              gn_shift=torch.randn((n, c), generator=g, device=dev) * 0.1,
+              bias_batch=torch.randn((n, f), generator=g, device=dev), emit_stats=True)
+    return x, wt.permute(1, 2, 3, 0), kw
+
+
+@pytest.mark.parametrize("n", [5, 25], ids=["chunk5", "chunk25"])
+def test_conv3x3_at_the_svd_decoder_shape(dev, n):
+    """The decoder's conv1 at 576×1024·256→128 for a chunk of 5 frames, and
+    of 25, whose input of 3.8·10⁹ elements is beyond 2³¹: the kernel's
+    offsets are 64-bit.  A conv is per frame, so the plain version runs on
+    3 frames of the 25."""
+    x, wt, kw = _svd_conv1(dev, n, 256, 128, 34)
+    got, s1, s2 = fused_conv.conv3x3_block(x, wt, **kw)
+    torch.cuda.synchronize()
+    frames = [0, n // 2, n - 1]
+    ref, r1, r2 = fused_conv.conv3x3_block_ref(
+        x[frames], wt, **{k: v[frames] if torch.is_tensor(v) else v for k, v in kw.items()})
+    assert got.shape == (n, 576, 1024, 128)
+    assert _rms_rel(got[frames], ref) <= 2e-2
+    assert _max_rel(s2[frames], r2) <= 1e-3
+    abs_sum = ref.float().abs().sum(dim=(1, 2)).max()
+    assert ((s1[frames] - r1).abs().max() / abs_sum).item() <= 1e-3
+
+
+@pytest.mark.parametrize("n,c", [(5, 128), (25, 256)], ids=["chunk5", "chunk25"])
+def test_group_norm_stats_at_the_svd_decoder_shape(dev, n, c):
+    x = _randn(dev, n, 576, 1024, c, seed=36) + 0.5
+    mean, rstd = group_norm_stats(x, groups=32, eps=1e-6)
+    torch.cuda.synchronize()
+    frames = [0, n - 1]
+    rm, rr = group_norm_stats_ref(x[frames], groups=32, eps=1e-6)
+    assert _max_rel(mean[frames], rm) <= 1e-3 and _max_rel(rstd[frames], rr) <= 1e-3

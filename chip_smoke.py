@@ -18,7 +18,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    reached.  K6 is timed whole and as its two parts, the pre-processing
    (``quantize_qkv``) and the body, beside K1 at the same shape; the fused
    GroupNorm beside K3+K5 and the library GroupNorm at every UNet
-   GroupNorm shape, with both routes' sums over one UNet eval;
+   GroupNorm shape, with both routes' sums over one UNet eval; SDXL's
+   opt-in shapes (K2 and K3 on the UNet's 128² resnets, its 46 GroupNorms
+   an eval, K4 at its two GEMMs, K6 at head dim 64); and the int8 products
+   of the quantized paths (``torch._int_mm`` and the W8A8 conv's im2col on
+   it, library calls: JAX computes them with XLA ops) at the largest
+   linear and conv sites of SD1.5 and SDXL, int32 equal to their plain
+   versions, timed beside the bf16 call they replace;
 4. run SD1.5 text2img at full width with seeded random weights — 512²,
    batch 1, DPM++ 50 steps, CFG 7.5 — through ``StableDiffusionPipeline``
    after ``sfast_tpu_torch.compile``, twice: eager (``enable_cuda_graph``
@@ -28,9 +34,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    instantiate seconds and the host time of one ``replay()``, then counts
    the kernel launches of one image, times 3 more (1 eager), keeps the
    latents and image of fixed initial latents, and profiles one more
-   (device time, the device's idle share and the count of CUDA kernels an
-   image launches; a trace whose rows of the port's kernels disagree with
-   the counted launches is taken again), with its peak memory and the
+   (device time, the device's idle share of the timed images' median
+   and the count of CUDA kernels an image launches; a trace whose rows
+   of the port's kernels disagree with the counted launches is taken
+   again), with its peak memory and the
    card's clocks, power and temperature during the timed images.  The
    graphed image is held against the eager one (within 1 uint8 level), and
    with the graphs in place one UNet eval and one VAE decode against the
@@ -62,14 +69,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     stepwise graphs, one UNet eval and one VAE decode on the kernel route
     against the plain route, img2img at strength 0.8 graphed against
     eager, and the plain routes this path keeps (the cross-attention at 77
-    keys, the VAE's 16,384-token mid-block attention) timed alone.  Phase 3
-    holds K1 at head dim 64 and K2 and K3 at the 1024² VAE shapes;
+    keys, the VAE's 16,384-token mid-block attention) timed alone; one
+    counted and timed image under the opt-in configuration and one with
+    ``enable_fused_conv`` added (K2 and K3 on the UNet's 128² resnets), the
+    latter's UNet eval and decode on the kernel route against the plain
+    route; a rank-8 LoRA swapped into the stepwise graphs (nothing
+    captured, swapped back bit for bit).  Phase 3 holds K1 at head dim 64
+    and K2 and K3 at the 1024² VAE shapes;
 11. the other schedulers on phase 4's SD1.5 pipeline: LCM 4 steps at
     guidance 1 (its noise drawn before the loop), graphed and as the fused
     loop, each bit for bit against eager, and two seeds apart; an
     LCM-distilled UNet (``time_cond_proj_dim=256``) at guidance 8, graphed
     against eager; ancestral Euler and DDIM at 50 steps, graphed against
-    eager;
+    eager; LCM with TAESD (``AutoencoderTiny``) in both VAE slots, graphed
+    and fused bit for bit against eager, its e2e against the KL-decoded LCM
+    image, TAESD's graphed decode and encode at 512², one img2img image;
 12. ControlNet and IP-Adapter on phase 4's SD1.5 modules with a full-width
     ``SD15_CONTROLNET`` (its zero convs drawn at the init scale times
     ``CN_ZERO_CONV_SCALE``, as a trained ControlNet's are nonzero): 512²,
@@ -82,7 +96,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     encoder (``compile_model``) graphed against eager; IP-Adapter tokens
     (4, scale 0.6) with IP scale 0 against the no-IP image; one ControlNet +
     IP image graphed against eager; one counted image of the ControlNet path
-    under the opt-in configuration;
+    under the opt-in configuration; a LoRA swapped into the ``controlnet``
+    slot; calibrated static W8A8 of the UNet (a fresh copy) and the
+    ControlNet, with convs, counted and timed against bf16;
 13. Stable Video Diffusion (SVD-XT) at full width with seeded random
     weights, after the SD1.5 modules are freed (phase 3 holds its kernels
     at its shapes: K1 and K6 at (50, 5, 9216, 64) and (50, 10, 2304, 64)
@@ -94,13 +110,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     127, noise aug 0.02, ``decode_chunk_size`` 5: JAX's tracked
     configuration) through ``StableVideoDiffusionPipeline``: one eager
     clip; graphed stepwise (captured by a 1-step clip, one counted and
-    timed clip against eager, the same clip profiled); 2-step clips with a
+    timed clip against eager, not profiled); 2-step clips with a
     second guidance range and motion bucket, which capture nothing; one
     decoded chunk graphed against eager bit for bit; the fused loop
     (captured, then one counted clip against eager); one UNet eval of 2
     frames and one decoded chunk of 5 on the kernel route against the
     plain route; one counted opt-in clip and one opt-in UNet eval of 2
-    frames against the plain route.
+    frames against the plain route; calibrated static W8A8 of the UNet
+    (temporal convs included), one graphed eval of 2 frames against bf16's;
+14. quantization (after phase 10 on the SDXL pipeline, after phase 12 on
+    the SD1.5 one): W8A16, dynamic W8A8 and calibrated static W8A8 (both
+    with convs; JAX's tracked setup), each on a fresh bf16 copy of the
+    UNet in the compiled slot: the quantized compiled pipeline captures
+    anew, launches as bf16, its image differs from bf16's, its graphed
+    10-step latents equal eager bit for bit; e2e against bf16 (the counted
+    image is the timed one), the UNet's weight bytes, the 10-step latents'
+    relative rms against bf16's (below 0.3).
 
 Each phase prints its seconds and the graphs its pipeline holds, with
 their nodes, capture and instantiate seconds, and the peak memory.
@@ -281,6 +306,66 @@ SVD_OPTIN_GN = [
 # the temporal ff_in and ff over 25 frames of each pixel and the spatial
 # ff over the pixels of each of 50 frames, at levels 1, 2 and mid
 SVD_GEGLU = [(115200, 640, 2560, 15), (28800, 1280, 5120, 15), (7200, 1280, 5120, 3)]
+
+# SDXL 1024² under the opt-in configuration (Euler 30, CFG 5): the 70
+# self-attentions an eval (head dim 64, 4,096 and 1,024 tokens) pass the
+# length rule and take K6; the 70 GEGLUs (K = 640, 1280) K4; of the 46
+# GroupNorms an eval (34 in resnets, 11 in transformers, conv_norm_out)
+# `fused_plan` takes 45, and the first up-level-2 resnet's 128²·960 entry
+# takes K3 then K5.  With enable_fused_conv added, the 5 resnets at 128²
+# (down level 0, up level 2) take K2 twice and K3 once, their 10 GroupNorms
+# leaving the GroupNorm route, and the upsample conv into 128² takes K2.
+SDXL_OPTIN_GN = [
+    ((2, 128, 128, 320), "silu", 8), ((2, 128, 128, 640), "silu", 2),
+    ((2, 128, 128, 960), "silu", 1), ((2, 64, 64, 320), "silu", 1),
+    ((2, 64, 64, 640), "silu", 6), ((2, 64, 64, 640), None, 5), ((2, 64, 64, 960), "silu", 1),
+    ((2, 64, 64, 1280), "silu", 1), ((2, 64, 64, 1920), "silu", 1),
+    ((2, 32, 32, 640), "silu", 1), ((2, 32, 32, 1280), "silu", 10),
+    ((2, 32, 32, 1280), None, 6), ((2, 32, 32, 1920), "silu", 1),
+    ((2, 32, 32, 2560), "silu", 2),
+]
+SDXL_GEGLU = [(8192, 640, 2560, 10), (2048, 1280, 5120, 60)]
+SDXL_INT8_ATTN = [(2, 10, 4096, 64), (2, 20, 1024, 64)]
+# K2 and K3 at the SDXL UNet's 128² resnets (batch 2) under enable_fused_conv:
+# (C_in, C_out, kind)
+SDXL_UNET_CONV = [(320, 320, "conv1"), (320, 320, "conv2"), (640, 320, "conv1"),
+                  (960, 320, "conv1"), (640, 640, "upsample")]
+SDXL_UNET_STATS = [320, 640, 960]
+EXPECTED_SDXL_OPTIN_LAUNCHES = dict(
+    EXPECTED_SDXL_LAUNCHES, flash_attention=0,
+    quantize_qkv=SDXL_ATTN_PER_EVAL * SDXL_STEPS,
+    flash_attention_int8=SDXL_ATTN_PER_EVAL * SDXL_STEPS,
+    linear_geglu=70 * SDXL_STEPS, group_norm_fused=45 * SDXL_STEPS,
+    group_norm_stats=1 * SDXL_STEPS + 14, group_norm_apply=1 * SDXL_STEPS)
+EXPECTED_SDXL_FUSED_CONV_LAUNCHES = dict(
+    EXPECTED_SDXL_OPTIN_LAUNCHES, group_norm_fused=36 * SDXL_STEPS,
+    group_norm_stats=5 * SDXL_STEPS + 14, group_norm_apply=0, conv3x3=11 * SDXL_STEPS + 31)
+# LCM with TAESD in both VAE slots: TAESD has no GroupNorm, so no K2 or K3;
+# img2img at strength 0.8 runs 3 of the 4 steps
+EXPECTED_LCM_TAESD_LAUNCHES = dict(EXPECTED_LCM_LAUNCHES, conv3x3=0, group_norm_stats=0)
+EXPECTED_LCM_TAESD_IMG2IMG_LAUNCHES = dict(EXPECTED_LCM_TAESD_LAUNCHES, flash_attention=5 * 3)
+# Quantization (phase 14, JAX's tracked setup, benchmarks/bench_w8a8.py:
+# 183-206): W8A16 (linears), dynamic W8A8 and calibrated static W8A8, both
+# with the resnet and resampling convs; the latents of 10 steps of seed 3
+# against bf16's.  The UNet's kernels launch as in bf16 (attention is not
+# quantized; the UNet's convs take cuDNN by default).
+QUANT_MODES = (("w8a16", dict(mode="w8a16")),
+               ("w8a8 dynamic", dict(mode="w8a8", quantize_convs=True)),
+               ("w8a8 static", dict(mode="w8a8", quantize_convs=True)))
+QUANT_LATENT_STEPS = 10
+# The quantized output's relative rms against bf16's (phase 14's latents,
+# phase 13's UNet eval) must stay below this: on an H100 80GB HBM3 at
+# 700 W the readings were 0.031 to 0.162 (phase 14) and 0.074 (phase 13),
+# so a broken int8 route, which lands near 1 or above, fails
+QUANT_RMS_REL = 0.3
+# The int8 products at the largest linear and conv sites of SD1.5 512²
+# and SDXL 1024² (batch 2): (label, M, K, N) for a linear (the level-0
+# GEGLU proj of SD1.5, the level-1 one of SDXL); (label, N, H, W, C, F)
+# for a 3×3 conv (the first resnet conv1 at the last up level)
+INT8_LINEARS = [("sd15 ff.net.0.proj level 0", 8192, 320, 2560),
+                ("sdxl ff.net.0.proj level 1", 8192, 640, 5120)]
+INT8_CONVS = [("sd15 up_blocks.3.resnets.0.conv1", 2, 64, 64, 960, 320),
+              ("sdxl up_blocks.2.resnets.0.conv1", 2, 128, 128, 960, 320)]
 
 KERNELS = {
     "flash_attention": ("sfast_tpu_torch/csrc/flash_attention.cu",
@@ -569,11 +654,107 @@ def check_kernels(torch, dev):
         stats_case(torch, dev, g, out, 1, hw, hw, c)
 
     check_optin_kernels(torch, dev, randn, out)
+    # SDXL's UNet at 128² under enable_fused_conv (batch 2), then SDXL's
+    # opt-in shapes: its 46 GroupNorms an eval, K4 at its two GEMMs, K6 at
+    # head dim 64 over 4,096 and 1,024 tokens
+    for c, f, kind in SDXL_UNET_CONV:
+        conv_case(torch, dev, g, out, 2, 128, 128, c, f, kind, "sdxl unet ", iters=10)
+    for c in SDXL_UNET_STATS:
+        stats_case(torch, dev, g, out, 2, 128, 128, c, "sdxl unet ", iters=10)
+    check_optin_shape_kernels(torch, dev, g, randn, out, "sdxl", SDXL_OPTIN_GN, SDXL_GEGLU,
+                              SDXL_INT8_ATTN)
+    out["int8"] = check_int8_ops(torch, dev)
     svd = check_svd_kernels(torch, dev)
     out["svd_group_norm_per_eval_ms"] = svd.pop("svd_group_norm_per_eval_ms")
     for name, cases in svd.items():
         out[name].extend(cases)
     return out
+
+
+def check_int8_ops(torch, dev):
+    """Phase 3, the int8 products of the quantized paths (library calls,
+    not TPU kernels: JAX computes them with XLA ops): ``int_mm``
+    (``torch._int_mm``) and the W8A8 conv (an im2col on it) at the largest
+    linear and conv sites of SD1.5 and SDXL, each int32 result equal to
+    its plain version (f64 products, exact), timed beside the bf16 call it
+    replaces and the whole quantized op (the activation's quantization and
+    the epilogue included), with its bound at the int8 peak."""
+    import torch.nn.functional as F
+
+    from sfast_tpu_torch.ops.quant import (
+        conv2d_w8a8, conv2d_w8a8_static, int_conv2d, int_conv2d_ref, int_mm, int_mm_ref,
+        linear_w8a8, linear_w8a8_static, quantize_conv_weight, quantize_weight,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(50)
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    for label, m, k, n in INT8_LINEARS:
+        x, w = randn(m, k), randn(n, k) / k ** 0.5
+        a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        wq, ws = quantize_weight(w)
+        got = int_mm(a, wq.t())
+        diff = (got.long() - int_mm_ref(a, wq.t()).long()).abs().max().item()
+        bnd = bound(2 * m * k * n, m * k + k * n + 4 * m * n, PEAK_INT8)
+        a_scale = (x.float().abs().amax() / 127).reshape(())
+        ms = device_ms(lambda: int_mm(a, wq.t()), bnd[0])
+        row = {"site": label, "shape": f"M={m} K={k} N={n}", "int32_max_diff": diff,
+               "int_mm_ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+               "share_of_bound": bnd[0] / ms,
+               "linear_w8a8_ms": device_ms(lambda: linear_w8a8(x, wq, ws), bnd[0]),
+               "linear_w8a8_static_ms": device_ms(lambda: linear_w8a8_static(x, wq, ws, a_scale),
+                                                  bnd[0]),
+               "library_ms": device_ms(lambda: F.linear(x, w), bound(2 * m * k * n, 0)[0]),
+               "library": "F.linear, bf16"}
+        rows.append(row)
+        log(f"int8 int_mm {label} {row['shape']}: int32 max diff {diff} against the plain "
+            f"version; device {ms:.4f} ms (bound {bnd[0]:.4f} ms, {bnd[1]}), whole W8A8 linear "
+            f"{row['linear_w8a8_ms']:.4f} dynamic / {row['linear_w8a8_static_ms']:.4f} static, "
+            f"bf16 F.linear {row['library_ms']:.4f} ms")
+        if diff != 0:
+            raise AssertionError(f"int_mm {label}: int32 differs from the plain version by {diff}")
+        del x, w, a, got
+    for label, n, hh, ww, c, f in INT8_CONVS:
+        x, w = randn(n, hh, ww, c), randn(f, c, 3, 3) / (9 * c) ** 0.5
+        wq, ws = quantize_conv_weight(w)
+        xq = torch.randint(-127, 128, (n, hh, ww, c), generator=g, device=dev, dtype=torch.int8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = int_conv2d(xq, wq, padding=1)
+        torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated() - base - got.numel() * 4) / 2**20
+        diff = (got.long() - int_conv2d_ref(xq, wq, padding=1).long()).abs().max().item()
+        px = n * hh * ww
+        bnd = bound(2 * px * 9 * c * f, px * c + 9 * c * f + 4 * px * f, PEAK_INT8)
+        a_scale = (x.float().abs().amax() / 127).reshape(())
+        ms = device_ms(lambda: int_conv2d(xq, wq, padding=1), bnd[0])
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.contiguous(memory_format=torch.channels_last)
+        row = {"site": label, "shape": f"{n}x{hh}x{ww}x{c}->{f} 3x3", "int32_max_diff": diff,
+               "int_conv2d_ms": ms, "im2col_extra_mib": extra, "bound_ms": bnd[0],
+               "bound_by": bnd[1], "share_of_bound": bnd[0] / ms,
+               "conv2d_w8a8_ms": device_ms(lambda: conv2d_w8a8(x, wq, ws, padding=1), bnd[0]),
+               "conv2d_w8a8_static_ms": device_ms(
+                   lambda: conv2d_w8a8_static(x, wq, ws, a_scale, padding=1), bnd[0]),
+               "library_ms": device_ms(lambda: F.conv2d(xc, wc, padding=1),
+                                       bound(2 * px * 9 * c * f, 0)[0]),
+               "library": "F.conv2d, bf16 (cuDNN)"}
+        rows.append(row)
+        log(f"int8 W8A8 conv {label} {row['shape']}: int32 max diff {diff} against the plain "
+            f"version; im2col + int_mm device {ms:.4f} ms (bound {bnd[0]:.4f} ms, {bnd[1]}), "
+            f"{extra:.0f} MiB of columns and padding above its output; whole W8A8 conv "
+            f"{row['conv2d_w8a8_ms']:.4f} dynamic / {row['conv2d_w8a8_static_ms']:.4f} static, "
+            f"bf16 cuDNN {row['library_ms']:.4f} ms")
+        if diff != 0:
+            raise AssertionError(f"W8A8 conv {label}: int32 differs from the plain version by "
+                                 f"{diff}")
+        del x, w, xq, got
+    torch.cuda.empty_cache()
+    return rows
 
 
 def conv_case(torch, dev, g, out, n, hh, ww, c, f, kind, label="", iters=20):
@@ -930,7 +1111,11 @@ def run_mode(torch, dev, pipe, label, cfg, expected, lat, base=None, timed_image
     image_f = pipe(**kw, **fixed, output_type="float").images
     if not bool(torch.isfinite(image_f).all()) or image_f.float().std().item() == 0.0:
         raise AssertionError(f"[{label}] decoded image is not finite or is constant")
-    prof = profile_image(torch, lambda: pipe(**kw, seed=4), label)
+    # a graphed image only: tracing an eager one takes many times its
+    # length, and its device time is the graphed image's.  Its idle share
+    # is read against the timed images' median wall time
+    prof = profile_image(torch, lambda: pipe(**kw, seed=4), label,
+                         unprofiled=(e2e, card.text())) if cfg.enable_cuda_graph else {}
     peak = torch.cuda.max_memory_allocated() / 2**30
     reserved = torch.cuda.max_memory_reserved() / 2**30
     log(f"[{label}] peak memory {peak:.2f} GiB allocated, {reserved:.2f} GiB reserved "
@@ -1074,15 +1259,15 @@ def route_check(torch, dev, pipe, name, cfg, model_bound, unet_args, unet_kw, z)
     return {k: v for k, v in out.items() if k.endswith(("launches", "rms_rel"))}
 
 
-def profile_image(torch, run, name, tries=5, unprofiled=None):
+def profile_image(torch, run, name, unprofiled, tries=5):
     """One image under torch.profiler: device time, the device's idle share
     of the image's wall time and the count of CUDA kernels the image
     launches (every host dispatch that reaches the card).  The profiler now
     and then loses kernel rows; a trace whose rows of the port's kernels do
     not match the launches ``cuda_build`` counted during it is taken again,
     and after ``tries`` such traces this raises.  ``unprofiled``: (wall ms,
-    card text) of an unprofiled image of the same inputs that the caller
-    has just run (a video clip takes half a minute), else one is run here.
+    card text) of the unprofiled images of the same inputs that the caller
+    has just timed.
 
     Tracing slows the card's kernels a little, so where the device is busy
     throughout, the traced device time may exceed the unprofiled wall
@@ -1093,15 +1278,6 @@ def profile_image(torch, run, name, tries=5, unprofiled=None):
 
     from sfast_tpu_torch.runtime import cuda_build
 
-    if unprofiled is None:  # an unprofiled image right before, for its wall time
-        run()
-        torch.cuda.synchronize()
-        with CardSampler() as card:
-            t = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        unprofiled = (wall_ms, card.text())
     wall_ms, card_text = unprofiled
     for _ in range(tries):
         cuda_build.reset_launch_counts()
@@ -1234,6 +1410,173 @@ def encode_route_check(torch, pipe, img, label, expected):
         if not 0 < rms <= MODEL_RMS_REL:
             raise AssertionError(f"[{label}] {what}: rms rel {rms} not in (0, {MODEL_RMS_REL}]")
         res[f"encode_{what}_rms_rel"] = rms
+    return res
+
+
+def module_bytes(module) -> int:
+    """Bytes of a module's parameters and buffers (a quantized site's int8
+    weight, scales and bias included)."""
+    return sum(t.numel() * t.element_size()
+               for t in (*module.parameters(), *module.buffers()))
+
+
+def fresh_unet(torch, dev, module, state):
+    """A new module of ``module``'s class and config holding ``state``
+    (IP-Adapter projections added where ``state`` has them)."""
+    from sfast_tpu_torch import ip_adapter
+
+    fresh = type(module)(module.config, device=dev, dtype=module.dtype)
+    if any(".to_k_ip." in k for k in state):
+        ip_adapter.add_ip_projections(fresh)
+    fresh.load_state_dict(state)
+    return fresh
+
+
+def lora_swap_check(torch, dev, pipe, slot, kw, expected, label):
+    """A seeded rank-8 LoRA on every attention projection of the module in
+    ``pipe``'s ``slot``, swapped into the stepwise graphs: the image
+    changes, the launches are ``expected``, no graph is captured, and
+    swapping back restores the base image bit for bit."""
+    from sfast_tpu_torch import CompilationConfig, lora
+    from sfast_tpu_torch.runtime import cuda_build
+
+    sub = getattr(pipe, slot)
+    base = {k: v.clone() for k, v in sub.module.state_dict().items()}
+    lo = lora.init_lora_params(torch.Generator(device=dev).manual_seed(12), base, rank=LORA_RANK)
+    g = torch.Generator(device=dev).manual_seed(13)
+    for f in lo.values():
+        f["b"] = torch.randn(f["b"].shape, generator=g, device=dev) * 0.02
+    pipe.set_compilation_config(CompilationConfig.Default())
+    pipe(**kw)  # captures the stepwise graphs
+    base_img = pipe(**kw).images
+    graphs = pipe_graphs(pipe)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lora.switch_lora(sub, base, lo)
+    host_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    img = pipe(**kw).images
+    counts = dict(cuda_build.launch_counts)
+    captured = pipe_graphs(pipe) != graphs
+    changed = (img.int() - base_img.int()).abs().max().item()
+    lora.switch_lora(sub, base, lo, 0.0)
+    restored = torch.equal(pipe(**kw).images, base_img)
+    row = {"lora_modules": len(lo), "swap_host_ms": host_ms, "image_max_uint8_change": changed,
+           "captured": captured, "restored_bit_for_bit": restored}
+    log(f"[{label}] {len(lo)} modules of the {slot}, rank {LORA_RANK}: swap {host_ms:.2f} ms on "
+        f"the host; image changed by up to {changed} uint8 levels; launches {counts}; a graph "
+        f"captured: {captured}; swapped back, base image bit for bit: {restored}")
+    if counts != expected or captured or changed == 0 or not restored:
+        raise AssertionError(f"[{label}] swap: launches {counts} (expected {expected}), "
+                             f"captured {captured}, change {changed}, restored {restored}")
+    del base
+    return row
+
+
+def quant_image(torch, pipe, label, kw, expected):
+    """A quantized pipeline's image path: the first image (which captures
+    anew: the quantization dropped the UNet's graphs), then the counted
+    image (``expected`` launches), which is also the timed one."""
+    from sfast_tpu_torch.runtime import cuda_build
+
+    def run(seed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pipe(**kw, seed=seed).images
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    if pipe.unet.cache_size or pipe._fused_loops:
+        raise AssertionError(f"[{label}] the quantization left graphs of the bf16 UNet")
+    _, first_ms = run(0)
+    captured = pipe.unet.cache_size
+    cuda_build.reset_launch_counts()
+    with CardSampler() as card:  # seed 0, as the caller's bf16 image
+        img, e2e = run(0)
+    counts = dict(cuda_build.launch_counts)
+    log(f"[{label}] first image {first_ms:.1f} ms (the UNet captured anew: {captured} graph); "
+        f"launches {counts}; e2e {e2e:.3f} ms; card: {card.text()}")
+    if counts != expected or not captured:
+        raise AssertionError(f"[{label}] launches {counts} (expected {expected}), "
+                             f"{captured} UNet graphs captured")
+    if img.float().std().item() == 0:
+        raise AssertionError(f"[{label}] constant image")
+    return {"counts": counts, "first_ms": first_ms, "e2e_ms": e2e, "img": img,
+            "graphs": graph_summary(torch, pipe, replay=False)}
+
+
+def run_quant(torch, dev, pipe, label, kw, expected, bf16_e2e, calibrate):
+    """Phase 14 on one pipeline: W8A16, dynamic W8A8 and calibrated static
+    W8A8 (both with convs) of its UNet, each on a fresh bf16 copy in the
+    compiled slot: the quantized compiled pipeline captures anew, its image
+    differs from bf16, its launches are bf16's, its graphed latents of 10
+    steps equal the eager ones bit for bit; e2e against bf16's, the UNet's
+    weight bytes after the bf16 weights are freed, and the latents' relative
+    rms against bf16's after 10 steps.  ``calibrate(pipe)`` gives the
+    static mode's Calibration."""
+    from sfast_tpu_torch import CompilationConfig, compile_model, quant
+
+    cfg = CompilationConfig.Default()
+    pipe.set_compilation_config(cfg)
+    kw = dict(kw, output_type="pt")
+    lat_kw = dict(kw, num_inference_steps=QUANT_LATENT_STEPS, seed=3, output_type="latent")
+    state = {k: v.clone() for k, v in pipe.unet.module.state_dict().items()}
+    bf16_img = pipe(**kw, seed=0).images  # the bf16 graphs, captured
+    bf16_lat = pipe(**lat_kw).images
+    res = {"bf16": {"e2e_ms": bf16_e2e, "unet_weight_bytes": module_bytes(pipe.unet.module)}}
+    for i, (mode, qkw) in enumerate(QUANT_MODES):
+        name = f"{label} {mode}"
+        if i:  # a fresh bf16 UNet of the same weights in the compiled slot
+            fresh = fresh_unet(torch, dev, pipe.unet.module, state)
+            pipe.unet = compile_model(fresh, cfg, name="unet")
+            pipe.set_compilation_config(cfg)
+            del fresh
+        had = pipe.unet.cache_size
+        t0 = time.perf_counter()
+        cal = calibrate(pipe) if mode.endswith("static") else None
+        cal_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quant.quantize_pipeline(pipe, act_scales=cal, **qkw)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        n_sites = sum(1 for m in pipe.unet.module.modules() if getattr(m, "w_scale", None)
+                      is not None)
+        n_static = sum(1 for m in pipe.unet.module.modules()
+                       if getattr(m, "a_scale", None) is not None)
+        del cal
+        gc.collect()
+        torch.cuda.empty_cache()
+        row = quant_image(torch, pipe, name, kw, expected)
+        img = row.pop("img")
+        changed = (img.int() - bf16_img.int()).abs().max().item()
+        lat = pipe(**lat_kw).images
+        pipe.set_compilation_config(CompilationConfig(enable_cuda_graph=False))
+        eager_lat = pipe(**lat_kw).images
+        pipe.set_compilation_config(cfg)
+        rms = rel_errors(lat, bf16_lat)[2]
+        row.update(sites=n_sites, static_sites=n_static, graphs_before=had,
+                   calibrate_s=cal_s, quantize_s=quant_s, image_max_uint8_vs_bf16=changed,
+                   unet_weight_bytes=module_bytes(pipe.unet.module),
+                   graphed_vs_eager_bit_equal=torch.equal(lat, eager_lat),
+                   latents_rms_rel_vs_bf16=rms, e2e_vs_bf16=row["e2e_ms"] / bf16_e2e)
+        log(f"[{name}] {n_sites} sites ({n_static} static; calibration {cal_s:.1f} s, "
+            f"quantization {quant_s:.2f} s); the bf16 slot held {had} UNet graphs; image vs "
+            f"bf16 up to {changed} uint8 levels; e2e {row['e2e_ms']:.3f} ms against bf16's "
+            f"{bf16_e2e:.3f} ({row['e2e_vs_bf16']:.3f}x); UNet weights "
+            f"{row['unet_weight_bytes'] / 2**30:.3f} GiB (bf16 "
+            f"{res['bf16']['unet_weight_bytes'] / 2**30:.3f}); {QUANT_LATENT_STEPS}-step latents "
+            f"rms_rel vs bf16 {rms:.4f}, graphed vs eager bit for bit "
+            f"{row['graphed_vs_eager_bit_equal']}")
+        if changed == 0 or not row["graphed_vs_eager_bit_equal"] or not 0 < rms < QUANT_RMS_REL:
+            raise AssertionError(f"[{name}] image change {changed}, graphed vs eager "
+                                 f"{row['graphed_vs_eager_bit_equal']}, latents rms {rms}")
+        if i == 0 and had == 0:
+            raise AssertionError(f"[{name}] the bf16 pipeline held no UNet graph to drop")
+        res[mode] = row
+    pipe.set_compilation_config(cfg)
+    del state
     return res
 
 
@@ -1497,7 +1840,7 @@ def run_sdxl(torch, dev):
                                               res["graphed"])
     res["fused"] = run_mode(torch, dev, pipe, "sdxl fused loop",
                             CompilationConfig(fuse_denoising_loop=True), EXPECTED_SDXL_LAUNCHES,
-                            None, base=kw)
+                            None, base=kw, timed_images=1)
     res["fused"]["vs_stepwise"] = compare_runs(torch, "sdxl fused loop vs stepwise graphs",
                                                res["graphed"], res["fused"])
     loop = res["fused"]["graphs"].get(f"denoise_loop_{SDXL_STEPS}")
@@ -1528,7 +1871,8 @@ def run_sdxl(torch, dev):
     image, _ = synthetic_image(SDXL_HW)
     extra = dict(image=image, strength=STRENGTH)
     res["img2img"] = run_mode(torch, dev, pipe, "sdxl img2img", CompilationConfig.Default(),
-                              EXPECTED_SDXL_IMG2IMG_LAUNCHES, None, base=kw, **extra)
+                              EXPECTED_SDXL_IMG2IMG_LAUNCHES, None, base=kw, timed_images=1,
+                              **extra)
     res["img2img"]["vs_eager"] = compare_runs(torch, "sdxl img2img graphed vs eager",
                                               eager_once(torch, pipe, dict(kw, **extra)),
                                               res["img2img"])
@@ -1536,9 +1880,31 @@ def run_sdxl(torch, dev):
     res["encode"] = encode_route_check(
         torch, pipe, preprocess_image(image, torch.bfloat16, dev), "sdxl encode",
         {"conv3x3": 20, "group_norm_stats": 10})
+
+    # the opt-in kernels (K6 at head dim 64, K4, the fused GroupNorm and K3
+    # + K5 at 128²·960), then with enable_fused_conv (K2 and K3 on the
+    # UNet's 128² resnets), each one counted and timed image
+    optin = CompilationConfig(enable_fused_group_norm=True, enable_fused_linear_geglu=True,
+                              enable_int8_attention=True)
+    fused_conv = optin.replace(enable_fused_conv=True)
+    res["optin"] = run_mode(torch, dev, pipe, "sdxl opt-in graphed", optin,
+                            EXPECTED_SDXL_OPTIN_LAUNCHES, None, base=kw, timed_images=1)
+    res["fused_conv"] = run_mode(torch, dev, pipe, "sdxl opt-in + fused conv graphed",
+                                 fused_conv, EXPECTED_SDXL_FUSED_CONV_LAUNCHES, None, base=kw,
+                                 timed_images=1)
+    log(f"[sdxl] e2e ms: default {res['graphed']['e2e_ms']:.3f}, opt-in "
+        f"{res['optin']['e2e_ms']:.3f}, opt-in + fused conv {res['fused_conv']['e2e_ms']:.3f}")
+    res["fused_conv_route"] = route_check(
+        torch, dev, pipe, "sdxl opt-in + fused conv", fused_conv, OPTIN_MODEL_RMS_REL,
+        (x, torch.tensor(801.0, device=dev), ctx), {"added_cond_kwargs": added}, z)
+    for r in (res["optin"], res["fused_conv"]):
+        del r["latents"], r["u8"]
+    res["lora"] = lora_swap_check(torch, dev, pipe, "unet", dict(kw, seed=0, output_type="pt"),
+                                  EXPECTED_SDXL_LAUNCHES, "sdxl lora")
+    log_pools(torch, pipe, "sdxl")
     pipe.set_compilation_config(CompilationConfig.Default())  # drops every graph
-    del pipe
     torch.cuda.empty_cache()
+    res["pipe"] = pipe  # phase 14 quantizes its UNet, then frees it
     return res
 
 
@@ -1629,8 +1995,66 @@ def run_schedulers(torch, dev, pipe):
         EXPECTED_LCM_LAUNCHES, kw, eager_once(torch, lpipe, kw))
     log_pools(torch, lpipe, "lcm-distilled unet")
     lpipe.set_compilation_config(CompilationConfig.Default())
+    res["taesd"] = run_taesd(torch, dev, pipe, res["lcm"]["e2e_ms"])
     for r in res.values():
-        r.pop("latents")
+        r.pop("latents", None)
+    return res
+
+
+def run_taesd(torch, dev, pipe, kl_lcm_ms):
+    """Phase 11 with TAESD (``AutoencoderTiny`` at full width, seeded random
+    weights) in both VAE slots of phase 4's SD1.5 modules: LCM 4 steps at
+    512², graphed and as the fused loop, each bit for bit against eager;
+    its e2e against the KL-decoded LCM image of this run; TAESD's graphed
+    decode and encode at 512² against the KL VAE's; one img2img image."""
+    import sfast_tpu_torch
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.models import TAESD, AutoencoderTiny, init_tiny_vae_weights_
+    from sfast_tpu_torch.pipelines import StableDiffusionPipeline
+    from sfast_tpu_torch.runtime import cuda_build
+    from sfast_tpu_torch.schedulers import LCMScheduler
+    from sfast_tpu_torch.utils.image import preprocess_image
+
+    bf16 = torch.bfloat16
+    taesd = init_tiny_vae_weights_(AutoencoderTiny(TAESD, device=dev, dtype=bf16),
+                                   torch.Generator(device=dev).manual_seed(25))
+    tpipe = sfast_tpu_torch.compile(StableDiffusionPipeline(
+        pipe.unet.module, taesd, pipe.text_encoder.module, LCMScheduler(), vae_encode=taesd,
+        device=dev, dtype=bf16))
+    kw = call_kwargs(torch, num_inference_steps=LCM_STEPS, guidance_scale=1.0)
+    eager = eager_once(torch, tpipe, kw)
+    res = {"graphed": graphed_check(torch, tpipe, "lcm taesd graphed", CompilationConfig.Default(),
+                                    EXPECTED_LCM_TAESD_LAUNCHES, kw, eager, bit=True)}
+    res["fused"] = graphed_check(torch, tpipe, "lcm taesd fused loop",
+                                 CompilationConfig(fuse_denoising_loop=True),
+                                 EXPECTED_LCM_TAESD_LAUNCHES, kw, eager, bit=True)
+    tpipe.set_compilation_config(CompilationConfig.Default())
+    g = torch.Generator(device=dev).manual_seed(26)
+    z = torch.randn((1, 64, 64, 4), generator=g, device=dev)
+    image, _ = synthetic_image(512)
+    px = preprocess_image(image, bf16, dev)
+    with torch.inference_mode():
+        tpipe.vae.decode(z), tpipe.vae_encode.encode(px), pipe.vae.decode(z)  # the captures
+        times = {"taesd_decode_ms": cuda_ms(lambda: tpipe.vae.decode(z)),
+                 "taesd_encode_ms": cuda_ms(lambda: tpipe.vae_encode.encode(px)),
+                 "kl_decode_ms": cuda_ms(lambda: pipe.vae.decode(z))}
+    res.update(times, kl_lcm_e2e_ms=kl_lcm_ms)
+    i2i = dict(kw, image=image, strength=STRENGTH, seed=0, output_type="pt")
+    tpipe(**i2i)  # captures the UNet graph anew (the config switch above dropped it)
+    cuda_build.reset_launch_counts()
+    out = tpipe(**i2i).images
+    counts = dict(cuda_build.launch_counts)
+    res["img2img"] = {"counts": counts, "std": out.float().std().item()}
+    log(f"[lcm taesd] e2e {res['graphed']['e2e_ms']:.1f} ms graphed, "
+        f"{res['fused']['e2e_ms']:.1f} ms fused, against {kl_lcm_ms:.1f} ms with the KL VAE; "
+        f"graphed TAESD decode {times['taesd_decode_ms']:.3f} ms and encode "
+        f"{times['taesd_encode_ms']:.3f} ms at 512² (KL decode {times['kl_decode_ms']:.3f} ms, "
+        f"CUDA events); img2img at {STRENGTH}: launches {counts}")
+    if counts != EXPECTED_LCM_TAESD_IMG2IMG_LAUNCHES or res["img2img"]["std"] == 0:
+        raise AssertionError(f"[lcm taesd img2img] launches {counts} (expected "
+                             f"{EXPECTED_LCM_TAESD_IMG2IMG_LAUNCHES}), std {res['img2img']['std']}")
+    log_pools(torch, tpipe, "lcm taesd")
+    tpipe.set_compilation_config(CompilationConfig.Default())
     return res
 
 
@@ -1815,10 +2239,51 @@ def run_controlnet(torch, dev, pipe):
     res["optin"] = run_mode(torch, dev, cpipe, "controlnet opt-in graphed", optin,
                             EXPECTED_CN_OPTIN_LAUNCHES, None, base=kw, timed_images=1)
     log_pools(torch, cpipe, "controlnet")
+    res["lora"] = lora_swap_check(torch, dev, cpipe, "controlnet",
+                                  dict(kw, seed=0, output_type="pt"), EXPECTED_CN_LAUNCHES,
+                                  "controlnet lora")
+    res["w8a8"] = controlnet_w8a8(torch, dev, cpipe, kw, no_ip, res["graphed"]["e2e_ms"])
     cpipe.set_compilation_config(CompilationConfig.Default())  # drops every graph
     for r in (res["graphed"], res["fused"], res["controlnet_ip"], res["optin"]):
         del r["latents"], r["u8"]
     return res
+
+
+def controlnet_w8a8(torch, dev, cpipe, kw, bf16_img, bf16_e2e):
+    """Calibrated static W8A8 of the UNet and the ControlNet with their
+    convs (JAX's tracked ``sd15_controlnet_512_30step_w8a8``), on a fresh
+    bf16 copy of the UNet (phase 4's stays bf16): counted and timed against
+    the bf16 ControlNet image of this run."""
+    from sfast_tpu_torch import CompilationConfig, compile_model, quant
+
+    cfg = CompilationConfig.Default()
+    cpipe.set_compilation_config(cfg)
+    state = cpipe.unet.module.state_dict()
+    cpipe.unet = compile_model(fresh_unet(torch, dev, cpipe.unet.module, state), cfg, name="unet")
+    cpipe.set_compilation_config(cfg)
+    del state
+    hw = kw["height"]
+    t0 = time.perf_counter()
+    ucal, ccal = quant.calibrate_controlnet_pipeline(cpipe, kw["prompt_ids"],
+                                                     kw["control_image"], height=hw, width=hw)
+    cal_s = time.perf_counter() - t0
+    quant.quantize_pipeline(cpipe, mode="w8a8", quantize_convs=True, act_scales=ucal,
+                            quantize_controlnet=True, controlnet_act_scales=ccal)
+    row = quant_image(torch, cpipe, "controlnet w8a8 static", dict(kw, output_type="pt"),
+                      EXPECTED_CN_LAUNCHES)
+    img = row.pop("img")
+    row.update(calibrate_s=cal_s, unet_sites=len(ucal.amax), controlnet_sites=len(ccal.amax),
+               image_max_uint8_vs_bf16=(img.int() - bf16_img.int()).abs().max().item(),
+               bf16_e2e_ms=bf16_e2e, e2e_vs_bf16=row["e2e_ms"] / bf16_e2e,
+               controlnet_weight_bytes=module_bytes(cpipe.controlnet.module),
+               unet_weight_bytes=module_bytes(cpipe.unet.module))
+    log(f"[controlnet w8a8 static] calibration {cal_s:.1f} s ({len(ucal.amax)} UNet and "
+        f"{len(ccal.amax)} ControlNet sites); e2e {row['e2e_ms']:.3f} ms against bf16's "
+        f"{bf16_e2e:.3f} ({row['e2e_vs_bf16']:.3f}x); image vs bf16 up to "
+        f"{row['image_max_uint8_vs_bf16']} uint8 levels")
+    if row["image_max_uint8_vs_bf16"] == 0:
+        raise AssertionError("[controlnet w8a8 static] the image is the bf16 image")
+    return row
 
 
 def check_svd_kernels(torch, dev):
@@ -1870,18 +2335,23 @@ def check_svd_kernels(torch, dev):
         conv_case(torch, dev, g, out, SVD_CHUNK, hh, ww, c, f, kind, "svd ", iters=5)
     for hh, ww, c in SVD_GN:
         stats_case(torch, dev, g, out, SVD_CHUNK, hh, ww, c, "svd ", iters=5)
-    check_svd_optin_kernels(torch, dev, g, randn, out)
+    check_optin_shape_kernels(torch, dev, g, randn, out, "svd", SVD_OPTIN_GN, SVD_GEGLU,
+                              SVD_ATTN)
     torch.cuda.empty_cache()
     return out
 
 
-def check_svd_optin_kernels(torch, dev, g, randn, out):
-    """Phase 3, the SVD opt-in path's kernels at its shapes: every UNet
-    GroupNorm on the route the path gives it (the fused GroupNorm where
+def check_optin_shape_kernels(torch, dev, g, randn, out, label, gn_shapes, geglu_shapes,
+                              attn_shapes):
+    """Phase 3, an opt-in path's kernels at its shapes (``label`` 'svd':
+    SVD-XT's; 'sdxl': SDXL 1024²'s): every UNet GroupNorm of
+    ``gn_shapes`` on the route the path gives it (the fused GroupNorm where
     ``fused_plan`` accepts the shape, else K3 then K5) beside the library
-    GroupNorm, with both sums over one eval; K4 at its three GEMM shapes;
-    K6 at batch 50, held against its plain version on the first and last
-    batch rows as K1 is, and its pre-processing on the whole input."""
+    GroupNorm, with both sums over one eval; K4 at the GEMM shapes of
+    ``geglu_shapes``; K6 at ``attn_shapes``, held against its plain version
+    on the first and last batch rows as K1 is (at SVD's batch 50 the plain
+    version's f32 scores would not fit), and its pre-processing on the
+    whole input."""
     import torch.nn.functional as F
 
     from sfast_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
@@ -1909,13 +2379,13 @@ def check_svd_optin_kernels(torch, dev, g, randn, out):
     )
 
     per_eval = {"kernels": 0.0, "library": 0.0}
-    for (n, hh, ww, c), act, count in SVD_OPTIN_GN:
+    for (n, hh, ww, c), act, count in gn_shapes:
         eps = 1e-5 if act else 1e-6
         x = randn(n, hh, ww, c) + 0.3
         gamma = torch.rand((c,), generator=g, device=dev) + 0.5
         beta = torch.randn((c,), generator=g, device=dev) * 0.2
         kw = dict(groups=32, eps=eps, act=act)
-        case = f"svd ({n}, {hh}x{ww}, {c}) {act or 'none'}"
+        case = f"{label} ({n}, {hh}x{ww}, {c}) {act or 'none'}"
         bnd, st_bnd = bound(0, 4 * x.numel()), bound(0, 2 * x.numel())
         xc, gb, bb = x.permute(0, 3, 1, 2), gamma.to(x.dtype), beta.to(x.dtype)
 
@@ -1974,11 +2444,12 @@ def check_svd_optin_kernels(torch, dev, g, randn, out):
             raise AssertionError(f"GroupNorm {case} ({route}): rms rel {rms} > {K5_RMS_REL} or "
                                  f"stats rel {stats_err} > {STATS_REL}")
         del x, xc
-    log("GroupNorm device ms over one SVD opt-in eval's 105 GroupNorms: "
+    log(f"GroupNorm device ms over one {label} opt-in eval's "
+        f"{sum(n for _, _, n in gn_shapes)} GroupNorms: "
         + ", ".join(f"{route} {ms:.4f}" for route, ms in per_eval.items()))
-    out["svd_group_norm_per_eval_ms"] = per_eval
+    out[f"{label}_group_norm_per_eval_ms"] = per_eval
 
-    for m, k, f, count in SVD_GEGLU:
+    for m, k, f, count in geglu_shapes:
         x = randn(m, k)
         w = (torch.randn((2 * f, k), generator=g, device=dev) / k**0.5).to(torch.bfloat16)
         b = (torch.randn((2 * f,), generator=g, device=dev) * 0.1).to(torch.bfloat16)
@@ -1990,16 +2461,16 @@ def check_svd_optin_kernels(torch, dev, g, randn, out):
         t = time_pair(lambda: linear_geglu_fused(x, w, b),
                       lambda: linear_geglu_fused_ref(x, w, b), bnd, iters=3, plain_events=True)
         unfused_ms = device_ms(lambda: linear_geglu_plain(x, w, b), bnd[0], iters=3)
-        log(f"K4 linear_geglu svd M={m} K={k} F={f} ({count} an eval): max_rel {max_rel:.3e} "
+        log(f"K4 linear_geglu {label} M={m} K={k} F={f} ({count} an eval): max_rel {max_rel:.3e} "
             f"rms_rel {rms:.3e}  {timing_text(t)}  (unfused bf16 erf route: device "
             f"{unfused_ms:.4f} ms)")
         if not rms <= K4_RMS_REL:
-            raise AssertionError(f"K4 (SVD) rms rel error {rms} > {K4_RMS_REL}")
-        record(out, "linear_geglu", f"svd M={m} K={k} F={f}", max_abs, t, bnd,
+            raise AssertionError(f"K4 ({label}) rms rel error {rms} > {K4_RMS_REL}")
+        record(out, "linear_geglu", f"{label} M={m} K={k} F={f}", max_abs, t, bnd,
                unfused_route_ms=unfused_ms, per_eval=count)
         del x, w, b
 
-    for b, h, sq, d in SVD_ATTN:
+    for b, h, sq, d in attn_shapes:
         q = randn(b, sq, h * d).view(b, sq, h, d).transpose(1, 2)
         k = (randn(b, sq, h * d) + 0.5).view(b, sq, h, d).transpose(1, 2)
         v = (randn(b, sq, h * d) - 0.3).view(b, sq, h, d).transpose(1, 2)
@@ -2008,7 +2479,7 @@ def check_svd_optin_kernels(torch, dev, g, randn, out):
         again = flash_attention_int8(q, k, v)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
-            raise AssertionError("K6 (SVD): two calls on the same inputs differ")
+            raise AssertionError(f"K6 ({label}): two calls on the same inputs differ")
         rows = [0, b - 1]
         qs, ks, vs = (t[rows] for t in (q, k, v))
         max_abs, max_rel, rms = rel_errors(got[rows], flash_attention_int8_ref(
@@ -2031,21 +2502,21 @@ def check_svd_optin_kernels(torch, dev, g, randn, out):
         body_ms = device_ms(lambda: flash_attention_int8_body(inputs, q.shape), bnd[0], iters=3)
         k1_ms = device_ms(lambda: flash_attention(q, k, v), bnd[0], iters=3)
         exp2_floor = b * h * sq * sq / EXP2_PER_S * 1e3
-        log(f"K6 flash_attention_int8 svd q={tuple(q.shape)}: rows {rows} against the plain "
+        log(f"K6 flash_attention_int8 {label} q={tuple(q.shape)}: rows {rows} against the plain "
             f"version: max_rel {max_rel:.3e} rms_rel {rms:.3e} (exact attention: rms_rel "
             f"{exact:.3e}); pre-processing: codes off by {code_diff} on {code_share:.2e} of "
             f"them, f32 max_rel {f32_rel:.2e}  {timing_text(t)} (plain on those {len(rows)} "
             f"rows); device: pre-processing {prep_t[2]:.4f} ms, body {body_ms:.4f} ms, K1 at "
             f"this shape {k1_ms:.4f} ms, exp2 floor {exp2_floor:.4f} ms")
         if not rms <= K6_RMS_REL:
-            raise AssertionError(f"K6 (SVD) rms rel error {rms} > {K6_RMS_REL}")
+            raise AssertionError(f"K6 ({label}) rms rel error {rms} > {K6_RMS_REL}")
         if not exact <= K6_EXACT_RMS_REL:
-            raise AssertionError(f"K6 (SVD) vs exact attention: rms rel {exact} > "
+            raise AssertionError(f"K6 ({label}) vs exact attention: rms rel {exact} > "
                                  f"{K6_EXACT_RMS_REL}")
         if not (code_diff <= 1 and code_share <= PREP_CODE_SHARE and f32_rel <= PREP_F32_REL):
-            raise AssertionError(f"K6 (SVD) pre-processing: codes off by {code_diff} on "
+            raise AssertionError(f"K6 ({label}) pre-processing: codes off by {code_diff} on "
                                  f"{code_share} of them, f32 rel {f32_rel}")
-        case = f"svd ({b}, {h}, {sq}x{sq}, {d})"
+        case = f"{label} ({b}, {h}, {sq}x{sq}, {d})"
         record(out, "flash_attention_int8", case, max_abs, t, bnd, exp2_floor_ms=exp2_floor,
                prep_device_ms=prep_t[2], body_device_ms=body_ms, k1_device_ms=k1_ms,
                plain_on=f"({len(rows)}, {h}, {sq}x{sq}, {d})")
@@ -2099,14 +2570,13 @@ def frames_diff(a, b):
     return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
 
 
-def svd_path(torch, pipe, label, cfg, expected, eager_frames, profile=False):
+def svd_path(torch, pipe, label, cfg, expected, eager_frames):
     """One graphed path of the SVD pipeline: the capture (a 1-step clip,
     whose graphs serve every step count, except the fused loop's, which is
     captured by its own 25-step clip), the counted clip of seed 5 (its e2e;
     held against the eager clip within 1 uint8 level where
-    ``eager_frames``) and, with ``profile``, the same clip profiled, its
-    idle share read against the counted clip's wall time; its graphs and
-    peak memory."""
+    ``eager_frames``); its graphs and peak memory.  No clip is profiled:
+    a traced clip takes half a minute."""
     from sfast_tpu_torch.runtime import cuda_build
 
     pipe.set_compilation_config(cfg)
@@ -2139,9 +2609,6 @@ def svd_path(torch, pipe, label, cfg, expected, eager_frames, profile=False):
         if diff > 1:
             raise AssertionError(f"[{label}] frames differ from eager by {diff} uint8 levels")
         res["vs_eager"] = {"max_uint8_diff": diff}
-    if profile:
-        res.update(profile_image(torch, lambda: svd_clip(torch, pipe, seed=5), label,
-                                 unprofiled=(ms, card_text)))
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     res["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
     log(f"[{label}] peak memory {res['peak_gib']:.2f} GiB allocated, "
@@ -2224,6 +2691,50 @@ def svd_route_check(torch, dev, pipe, label, cfg, expected, model_bound):
     return {"rms_rel": rms, "max_rel": max_rel, "kernel_launches": out["kernels launches"]}
 
 
+def svd_quant_check(torch, dev, pipe):
+    """Calibrated static W8A8 (with convs, the temporal ones included) of
+    the SVD UNet, calibrated at 2 frames: one graphed UNet eval of the CFG
+    pair of 2 frames against the bf16 eval (relative rms), equal to the
+    eager quantized module bit for bit."""
+    from sfast_tpu_torch import CompilationConfig, quant
+
+    g = torch.Generator(device=dev).manual_seed(45)
+    f, lh, lw = SVD_ROUTE_FRAMES, SVD_H // 8, SVD_W // 8
+    x = torch.randn((2, f, lh, lw, 8), generator=g, device=dev).to(torch.bfloat16)
+    ctx = torch.randn((2, 1, 1024), generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.tensor([[6.0, 127.0, 0.02]] * 2, device=dev)
+    t = torch.tensor(0.25, device=dev)
+    pipe.set_compilation_config(CompilationConfig.Default())
+    with torch.inference_mode():
+        bf16 = pipe.unet(x, t, ctx, ids)
+    bf16_bytes = module_bytes(pipe.unet.module)
+    t0 = time.perf_counter()
+    cal = quant.calibrate_svd_pipeline(pipe, synthetic_image(SVD_H, SVD_W)[0], num_frames=f,
+                                       height=SVD_H, width=SVD_W, num_inference_steps=SVD_STEPS,
+                                       step_indices=(0, 8, 16, 24))
+    cal_s = time.perf_counter() - t0
+    quant.quantize_pipeline(pipe, mode="w8a8", quantize_convs=True, act_scales=cal)
+    if pipe.unet.cache_size:
+        raise AssertionError("[svd w8a8] the quantization left the bf16 UNet's graphs")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        q = pipe.unet(x, t, ctx, ids)
+        eager = pipe.unet.module(x, t, ctx, ids)
+    _, max_rel, rms = rel_errors(q, bf16)
+    row = {"calibrate_s": cal_s, "sites": len(cal.amax), "rms_rel_vs_bf16": rms,
+           "graphed_vs_eager_bit_equal": torch.equal(q, eager),
+           "unet_weight_bytes": module_bytes(pipe.unet.module), "bf16_unet_weight_bytes": bf16_bytes}
+    log(f"[svd w8a8 static] calibration at {f} frames {cal_s:.1f} s ({len(cal.amax)} sites); one "
+        f"UNet eval of {f} frames vs bf16: max_rel {max_rel:.3e} rms_rel {rms:.3e}; graphed vs "
+        f"eager bit for bit {row['graphed_vs_eager_bit_equal']}; UNet weights "
+        f"{row['unet_weight_bytes'] / 2**30:.3f} GiB (bf16 {bf16_bytes / 2**30:.3f})")
+    if not (0 < rms < QUANT_RMS_REL and row["graphed_vs_eager_bit_equal"]
+            and bool(torch.isfinite(q).all())):
+        raise AssertionError(f"[svd w8a8 static] {row}")
+    return row
+
+
 def svd_decode_route_check(torch, dev, pipe):
     """One graphed decode of a chunk of 5 frames at 576×1024 on the kernel
     route against the plain route: every K2 and K3 shape of the temporal
@@ -2278,7 +2789,7 @@ def run_svd(torch, dev):
     res["eager"] = {"e2e_ms": ms}
     log(f"[svd eager] one clip of seed 5: {ms:.1f} ms")
     res["graphed"] = svd_path(torch, pipe, "svd graphed", CompilationConfig.Default(),
-                              EXPECTED_SVD_LAUNCHES, eager, profile=True)
+                              EXPECTED_SVD_LAUNCHES, eager)
     res["no_capture"] = svd_no_capture(torch, pipe)
     res["decode"] = svd_decode_check(torch, dev, pipe)
     log_pools(torch, pipe, "svd stepwise")
@@ -2298,6 +2809,7 @@ def run_svd(torch, dev):
     log_pools(torch, pipe, "svd")
     res["optin_route"] = svd_route_check(torch, dev, pipe, "svd opt-in", optin,
                                          SVD_OPTIN_ROUTE_LAUNCHES, OPTIN_MODEL_RMS_REL)
+    res["w8a8"] = svd_quant_check(torch, dev, pipe)
     pipe.set_compilation_config(CompilationConfig.Default())  # drops every graph
     for r in (res["graphed"], res["fused"], res["optin"]):
         del r["frames"]
@@ -2305,7 +2817,7 @@ def run_svd(torch, dev):
 
 
 def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_res,
-                 prompt_res, cn, svd, phase_s):
+                 prompt_res, cn, svd, quant_res, phase_s):
     """The ``{"kernels": [...]}`` line: per kernel its launches per image on
     each path (``launches``: the stepwise paths' sum) and the main-path
     case's numbers, every case under ``cases``; then each path's numbers."""
@@ -2318,8 +2830,18 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
     paths["img2img"], paths["inpaint"] = img2img["img2img"], img2img["inpaint"]
     paths["sdxl graphed"], paths["sdxl fused loop"] = sdxl["graphed"], sdxl["fused"]
     paths["sdxl img2img"] = sdxl["img2img"]
+    paths["sdxl opt-in graphed"] = sdxl["optin"]
+    paths["sdxl opt-in + fused conv graphed"] = sdxl["fused_conv"]
+    scheds = dict(scheds)
+    taesd = scheds.pop("taesd")
     for name, r in scheds.items():
         paths[name.replace("_", " ")] = r
+    paths["lcm taesd graphed"], paths["lcm taesd fused loop"] = taesd["graphed"], taesd["fused"]
+    paths["controlnet w8a8 static"] = cn["w8a8"]
+    for model, res in quant_res.items():
+        for mode, r in res.items():
+            if mode != "bf16":
+                paths[f"{model} {mode}"] = r
     for name, key in (("controlnet graphed", "graphed"), ("controlnet fused loop", "fused"),
                       ("controlnet + ip-adapter graphed", "controlnet_ip"),
                       ("controlnet opt-in graphed", "optin")):
@@ -2348,7 +2870,14 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
                      "controlnet_optin": cn["optin"]["counts"][name],
                      "svd": svd["graphed"]["counts"][name],
                      "svd_fused_loop": svd["fused"]["counts"][name],
-                     "svd_optin": svd["optin"]["counts"][name]}
+                     "svd_optin": svd["optin"]["counts"][name],
+                     "sdxl_optin": sdxl["optin"]["counts"][name],
+                     "sdxl_optin_fused_conv": sdxl["fused_conv"]["counts"][name],
+                     "lcm_taesd": taesd["graphed"]["counts"][name],
+                     "controlnet_w8a8": cn["w8a8"]["counts"][name],
+                     **{f"{model}_{mode}".replace(" ", "_").replace(".", ""): r["counts"][name]
+                        for model, res in quant_res.items() for mode, r in res.items()
+                        if mode != "bf16"}}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(n for p, n in per_image.items() if "fused_loop" not in p),
@@ -2361,15 +2890,21 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
     return json.dumps({"kernels": kernels,
                        "group_norm_per_eval_ms": measured["group_norm_per_eval_ms"],
                        "svd_group_norm_per_eval_ms": measured["svd_group_norm_per_eval_ms"],
+                       "sdxl_group_norm_per_eval_ms": measured["sdxl_group_norm_per_eval_ms"],
+                       "int8": measured["int8"],
                        "paths": {k: {f: v[f] for f in keep if f in v} for k, v in paths.items()},
                        "encode": {k: v for k, v in img2img.items() if k.startswith("encode_")},
                        "lora": lora_res, "prompt": prompt_res,
-                       "sdxl": {"eager_image_s": sdxl["eager_image_s"], "route": sdxl["route"],
-                                "plain_routes": sdxl["plain_routes"], "encode": sdxl["encode"]},
+                       "sdxl": {k: sdxl[k] for k in ("eager_image_s", "route", "plain_routes",
+                                                     "encode", "fused_conv_route", "lora")},
+                       "taesd": {k: v for k, v in taesd.items() if k not in ("graphed", "fused")},
+                       "quant": {model: {mode: {k: v for k, v in r.items() if k != "graphs"}
+                                         for mode, r in res.items()}
+                                 for model, res in quant_res.items()},
                        "controlnet": {k: cn[k] for k in ("eager_image_s", "route", "scales",
-                                                         "image_encoder", "ip_scale_0")},
+                                                         "image_encoder", "ip_scale_0", "lora")},
                        "svd": {k: svd[k] for k in ("no_capture", "decode", "route",
-                                                   "decode_route", "optin_route")},
+                                                   "decode_route", "optin_route", "w8a8")},
                        "phase_s": phase_s})
 
 
@@ -2379,7 +2914,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch import CompilationConfig, quant
     from sfast_tpu_torch.runtime import cuda_build
 
     smi = subprocess.run(
@@ -2433,8 +2968,25 @@ def main():
     prompt_res = phase("9 prompt string", run_prompt_string, torch, pipe)
     log_pools(torch, pipe, "sd1.5 phases 4 to 9")
     sdxl = phase("10 sdxl", run_sdxl, torch, dev)
+    quant_res = {}
+    sdxl_pipe = sdxl.pop("pipe")
+    sdxl_kw = sdxl_kwargs(torch)
+    quant_res["sdxl"] = phase(
+        "14 quantization (sdxl)", run_quant, torch, dev, sdxl_pipe, "sdxl", sdxl_kw,
+        EXPECTED_SDXL_LAUNCHES, sdxl["graphed"]["e2e_ms"],
+        lambda p: quant.calibrate_pipeline(p, sdxl_kw["prompt_ids"], height=SDXL_HW,
+                                           width=SDXL_HW))
+    sdxl_pipe.set_compilation_config(CompilationConfig.Default())
+    del sdxl_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     scheds = phase("11 schedulers", run_schedulers, torch, dev, pipe)
     cn = phase("12 controlnet / ip-adapter", run_controlnet, torch, dev, pipe)
+    sd_kw = call_kwargs(torch)
+    quant_res["sd15"] = phase(
+        "14 quantization (sd1.5)", run_quant, torch, dev, pipe, "sd1.5", sd_kw,
+        EXPECTED_LAUNCHES, default["graphed"]["e2e_ms"],
+        lambda p: quant.calibrate_pipeline(p, sd_kw["prompt_ids"], height=512, width=512))
     # SVD's graphs and activations need the room: the SD1.5 modules go
     pipe.set_compilation_config(CompilationConfig.Default())
     del pipe
@@ -2445,7 +2997,7 @@ def main():
     svd = phase("13 svd", run_svd, torch, dev)
 
     print(kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_res,
-                       prompt_res, cn, svd, phase_s))
+                       prompt_res, cn, svd, quant_res, phase_s))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -19,10 +19,14 @@ importing the package builds and loads nothing.
 
 ``compile`` wraps the pipeline's models so that each replays a CUDA graph
 per input signature (``runtime/tracing.py``); ``compile_model`` wraps one
-model alone (an IP-Adapter's image encoder).
+model alone (an IP-Adapter's image encoder).  ``quant`` quantizes a
+pipeline's UNet and ControlNet to int8 (W8A16, dynamic W8A8, or static
+W8A8 from a calibration); ``models.AutoencoderTiny`` (TAESD) can take the
+VAE's slots.
 """
 
+from sfast_tpu_torch import quant
 from sfast_tpu_torch.compilers import compile, compile_model
 from sfast_tpu_torch.config import CompilationConfig
 
-__all__ = ["CompilationConfig", "compile", "compile_model"]
+__all__ = ["CompilationConfig", "compile", "compile_model", "quant"]

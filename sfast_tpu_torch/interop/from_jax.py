@@ -6,7 +6,7 @@ functions turn such a tree — numpy arrays, or JAX arrays, which numpy
 reads without importing JAX — into f32 state dicts for
 ``UNet2DConditionModel`` (SDXL's ``add_embedding`` and an LCM UNet's
 ``time_embedding.cond_proj`` included), ``ControlNetModel``,
-``AutoencoderKL`` (both halves), ``CLIPTextModel`` (with
+``AutoencoderKL`` (both halves), ``AutoencoderTiny``, ``CLIPTextModel`` (with
 ``text_projection``), ``CLIPVisionModel``, the SVD
 ``UNetSpatioTemporalConditionModel`` and ``AutoencoderKLTemporalDecoder``,
 whose ``load_state_dict``
@@ -28,6 +28,25 @@ import numpy as np
 import torch
 
 StateDict = Dict[str, torch.Tensor]
+
+# JAX keys whose module takes another name in the port (diffusers'), in the
+# writers below and in ``jax_key``, which ``sfast_tpu_torch.quant`` reads to
+# select JAX's quantization sites among the port's modules
+PORT_NAMES = {"to_out": "to_out.0", "proj": "net.0.proj", "out": "net.2",
+              "blocks": "transformer_blocks"}
+_JAX_KEYS = {v: k for k, v in PORT_NAMES.items() if k != "blocks"}
+
+
+def jax_key(module_name: str):
+    """The key under which JAX keeps the weight of the port's module
+    ``module_name``: ``...attn1.to_out.0`` → ``'to_out'``, ``...ff.net.0.proj``
+    → ``'proj'``, ``...ff.net.2`` → ``'out'``, ``controlnet_down_blocks.3`` →
+    3, else the name's last part."""
+    for suffix, key in _JAX_KEYS.items():
+        if module_name == suffix or module_name.endswith("." + suffix):
+            return key
+    last = module_name.rsplit(".", 1)[-1]
+    return int(last) if last.isdigit() else last
 
 
 def _t(x) -> torch.Tensor:
@@ -76,7 +95,7 @@ def _put_resnet(sd: StateDict, pre: str, p) -> None:
 def _put_attention(sd: StateDict, pre: str, p) -> None:
     for name in ("to_q", "to_k", "to_v"):
         _put_lin(sd, pre + name, p[name])
-    _put_lin(sd, pre + "to_out.0", p["to_out"])
+    _put_lin(sd, pre + PORT_NAMES["to_out"], p["to_out"])
 
 
 def _put_spatial_transformer(sd: StateDict, pre: str, p) -> None:
@@ -86,14 +105,19 @@ def _put_spatial_transformer(sd: StateDict, pre: str, p) -> None:
     put(sd, pre + "proj_in", p["proj_in"])
     put(sd, pre + "proj_out", p["proj_out"])
     for k, blk in enumerate(p["blocks"]):
-        bp = f"{pre}transformer_blocks.{k}."
+        bp = f"{pre}{PORT_NAMES['blocks']}.{k}."
         _put_norm(sd, bp + "norm1", blk["norm1"])
         _put_attention(sd, bp + "attn1.", blk["attn1"])
         _put_norm(sd, bp + "norm2", blk["norm2"])
         _put_attention(sd, bp + "attn2.", blk["attn2"])
         _put_norm(sd, bp + "norm3", blk["norm3"])
-        _put_lin(sd, bp + "ff.net.0.proj", blk["ff"]["proj"])
-        _put_lin(sd, bp + "ff.net.2", blk["ff"]["out"])
+        _put_ff(sd, bp + "ff.", blk["ff"])
+
+
+def _put_ff(sd: StateDict, pre: str, p) -> None:
+    """A feed-forward: GEGLU's fused ``proj`` and the ``out`` linear."""
+    _put_lin(sd, pre + PORT_NAMES["proj"], p["proj"])
+    _put_lin(sd, pre + PORT_NAMES["out"], p["out"])
 
 
 def _put_trunk(sd: StateDict, params) -> None:
@@ -201,14 +225,12 @@ def _put_st_transformer(sd: StateDict, pre: str, p) -> None:
     for k, blk in enumerate(p["temporal_blocks"]):
         bp = f"{pre}temporal_transformer_blocks.{k}."
         _put_norm(sd, bp + "norm_in", blk["norm_in"])
-        _put_lin(sd, bp + "ff_in.net.0.proj", blk["ff_in"]["proj"])
-        _put_lin(sd, bp + "ff_in.net.2", blk["ff_in"]["out"])
+        _put_ff(sd, bp + "ff_in.", blk["ff_in"])
         for name in ("norm1", "norm2", "norm3"):
             _put_norm(sd, bp + name, blk[name])
         _put_attention(sd, bp + "attn1.", blk["attn1"])
         _put_attention(sd, bp + "attn2.", blk["attn2"])
-        _put_lin(sd, bp + "ff.net.0.proj", blk["ff"]["proj"])
-        _put_lin(sd, bp + "ff.net.2", blk["ff"]["out"])
+        _put_ff(sd, bp + "ff.", blk["ff"])
     _put_time_pos_embed(sd, pre + "time_pos_embed.", p["time_pos_embed"])
     sd[pre + "time_mixer.mix_factor"] = _t(p["mix_factor"]).reshape(1)
 
@@ -321,6 +343,41 @@ def temporal_vae_state_dict(params) -> StateDict:
     return sd
 
 
+def _put_tiny_block(sd: StateDict, pre: str, p) -> None:
+    for j, name in ((0, "conv1"), (2, "conv2"), (4, "conv3")):
+        _put_conv(sd, f"{pre}conv.{j}", p[name])
+
+
+def tiny_vae_state_dict(params) -> StateDict:
+    """``init_tiny_vae_params`` tree → ``AutoencoderTiny`` state dict
+    (diffusers' ``encoder.layers.{i}`` / ``decoder.layers.{i}``; the
+    decoder's ReLU after ``conv_in`` and each upsample hold an index and
+    no weight)."""
+    sd: StateDict = {}
+    enc, dec = params["encoder"], params["decoder"]
+    i = 0
+    # each stage starts with a conv: conv_in, then the previous stage's down
+    convs = [enc["conv_in"]] + [stage["down"] for stage in enc["stages"][:-1]]
+    for conv, stage in zip(convs, enc["stages"]):
+        _put_conv(sd, f"encoder.layers.{i}", conv)
+        i += 1
+        for blk in stage["blocks"]:
+            _put_tiny_block(sd, f"encoder.layers.{i}.", blk)
+            i += 1
+    _put_conv(sd, f"encoder.layers.{i}", enc["conv_out"])
+    _put_conv(sd, "decoder.layers.0", dec["conv_in"])
+    i = 2
+    for stage in dec["stages"]:
+        for blk in stage["blocks"]:
+            _put_tiny_block(sd, f"decoder.layers.{i}.", blk)
+            i += 1
+        if "up_conv" in stage:
+            _put_conv(sd, f"decoder.layers.{i + 1}", stage["up_conv"])
+            i += 2
+    _put_conv(sd, f"decoder.layers.{i}", dec["conv_out"])
+    return sd
+
+
 def _put_clip_layers(sd: StateDict, pre: str, layers) -> None:
     for i, lyr in enumerate(layers):
         lp = f"{pre}{i}."
@@ -370,7 +427,7 @@ def _lora_module_name(path) -> str:
     """A JAX LoRA path, ``("down_blocks", 0, "attentions", 0, "blocks", 0,
     "attn1", "to_out", "w")``, → the port's module name,
     ``down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_out.0``."""
-    names = {"blocks": "transformer_blocks", "to_out": "to_out.0"}
+    names = {k: PORT_NAMES[k] for k in ("blocks", "to_out")}
     return ".".join(names.get(p, str(p)) for p in path[:-1])
 
 
@@ -380,3 +437,51 @@ def lora_params(lora) -> Dict[str, Dict[str, torch.Tensor]]:
     the port's, keyed by module name with the same orientation."""
     return {_lora_module_name(path): {"a": _t(f["a"]), "b": _t(f["b"])}
             for path, f in lora.items()}
+
+
+# ---------------------------------------------------------------------------
+# JAX weight paths → the port's module names, and calibrations
+# ---------------------------------------------------------------------------
+
+
+def _rebuild(tree, fn, path=()):
+    """``tree`` with each leaf replaced by ``fn(path, leaf)``, the path as
+    JAX's calibration keys a weight leaf (dict keys and list indices)."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, fn, path + (i,)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def module_names(params, state_dict_fn=unet_state_dict) -> Dict[tuple, str]:
+    """JAX path of each weight leaf (``(..., "attn1", "to_out", "w")``) →
+    the port's module name (``...attn1.to_out.0``), read from the writer
+    ``state_dict_fn`` itself: it is given a tree whose every leaf, of
+    shape (1,)·ndim, holds its own index, so the map cannot drift from
+    the state dicts."""
+    paths = []
+
+    def index_leaf(path, leaf):
+        paths.append(path)
+        return np.full((1,) * np.ndim(leaf), len(paths), np.float32)
+
+    sd = state_dict_fn(_rebuild(params, index_leaf))
+    out = {}
+    for key, t in sd.items():
+        path = paths[int(t.reshape(-1)[0].item()) - 1]
+        if path[-1] == "w":
+            out[path] = key.rsplit(".", 1)[0]
+    return out
+
+
+def calibration_from_jax(cal, params, state_dict_fn=unet_state_dict):
+    """A JAX ``quant.calibrate.Calibration`` (amax keyed by weight path) →
+    the port's (keyed by module name), through :func:`module_names`."""
+    from sfast_tpu_torch.quant.calibrate import Calibration
+
+    names = module_names(params, state_dict_fn)
+    missing = [p for p in cal.amax if p not in names]
+    if missing:
+        raise KeyError(f"calibration_from_jax: no port module for {missing[:3]}")
+    return Calibration(amax={names[p]: float(v) for p, v in cal.amax.items()})

@@ -133,7 +133,8 @@ def init_ip_adapter_params(generator: torch.Generator, unet, *, clip_embed_dim: 
 
     ip_sd = {}
     for n, name in enumerate(attn2_paths_in_diffusers_order(module.config)):
-        dim, ctx = module.get_submodule(name).to_k.weight.shape
+        to_k = module.get_submodule(name).to_k  # its weight is None once quantized
+        dim, ctx = to_k.out_features, to_k.in_features
         ip_sd[f"{2 * n + 1}.to_k_ip.weight"] = randn(dim, ctx)
         ip_sd[f"{2 * n + 1}.to_v_ip.weight"] = randn(dim, ctx)
     cross = module.config.cross_attention_dim

@@ -82,6 +82,9 @@ def switch_lora(compiled_model, base_state: Mapping[str, torch.Tensor], lora: Lo
     ``base_state`` that holds them would take each swap in."""
     own = compiled_model.module.state_dict()
     for mod in lora:
+        if mod + ".w_q" in own or mod + ".w_q8" in own:
+            raise ValueError(f"switch_lora: {mod} is quantized (int8, quant.quantize_pipeline); "
+                             "a LoRA merges into bf16 weights: swap before quantizing")
         key = mod + ".weight"
         if key in own and key in base_state and \
                 base_state[key].data_ptr() == own[key].data_ptr():

@@ -1,5 +1,5 @@
 """The models of the port: CLIP text encoders, UNet, VAE (SD1.5, SD2.x,
-SDXL), ControlNet, the CLIP vision encoder (IP-Adapter, SVD), and Stable
+SDXL), the Tiny VAE (TAESD), ControlNet, the CLIP vision encoder (IP-Adapter, SVD), and Stable
 Video Diffusion's spatio-temporal UNet and temporal VAE."""
 
 from sfast_tpu_torch.models.autoencoder_kl import (
@@ -8,6 +8,13 @@ from sfast_tpu_torch.models.autoencoder_kl import (
     TINY_TEST_VAE,
     AutoencoderKL,
     VAEConfig,
+)
+from sfast_tpu_torch.models.autoencoder_tiny import (
+    TAESD,
+    TINY_TEST_TAESD,
+    AutoencoderTiny,
+    TinyVAEConfig,
+    init_tiny_vae_weights_,
 )
 from sfast_tpu_torch.models.autoencoder_kl_temporal import (
     SVD_VAE,
@@ -56,7 +63,8 @@ from sfast_tpu_torch.models.unet_2d_condition import (
 )
 
 __all__ = [
-    "AutoencoderKL", "AutoencoderKLTemporalDecoder", "CLIPTextConfig", "CLIPTextModel",
+    "AutoencoderKL", "AutoencoderKLTemporalDecoder", "AutoencoderTiny", "TAESD",
+    "TINY_TEST_TAESD", "TinyVAEConfig", "init_tiny_vae_weights_", "CLIPTextConfig", "CLIPTextModel",
     "CLIPVisionConfig", "CLIPVisionModel", "ControlNetConfig", "ControlNetModel",
     "SD15_CONTROLNET", "SD15_TEXT_ENCODER", "SD15_UNET", "SD21_TEXT_ENCODER", "SD21_UNET",
     "SDXL_TEXT_ENCODER_2", "SDXL_UNET", "SDXL_VAE", "SD_VAE", "SVDUNetConfig", "SVD_UNET",

@@ -7,6 +7,14 @@ conv OIHW); activations stay NHWC, as in JAX, and every op goes through
 ``sfast_tpu_torch.ops``.  Normalization parameters are f32 whatever the
 model's dtype, as JAX keeps them.
 
+A ``Linear`` or a conv quantized in place (``quant/dynamic_quant.py``) has
+no ``weight``; it holds ``w_q`` (W8A16) or ``w_q8`` (W8A8), ``w_scale`` and
+maybe a calibrated ``a_scale``, and its forward routes by what it holds,
+as JAX's ``apply_linear`` / ``apply_conv`` (``layers.py:147-185``):
+``ops.quant``'s W8A16 linear, or its W8A8 linear and conv, static where
+``a_scale`` is held.  JAX keeps a W8A8 conv's weight under ``w_q``; here
+``w_q8`` names int8 compute for both.
+
 Routing, as in JAX (``layers.py:472-486, 576-590, 614-636, 693-696``):
 ``attn_backend`` (``ops.attention``: ``None``, ``'int8'``, ``'flash_int8'``
 or ``'plain'``), ``conv_backend`` (``None`` = auto rule or ``'plain'``),
@@ -35,14 +43,43 @@ from sfast_tpu_torch.ops.geglu import linear_geglu
 from sfast_tpu_torch.ops.group_norm import group_norm
 from sfast_tpu_torch.ops.layer_norm import layer_norm
 from sfast_tpu_torch.ops.linear import linear
+from sfast_tpu_torch.ops.quant import (
+    conv2d_w8a8,
+    conv2d_w8a8_static,
+    int8_linear,
+    linear_w8a8,
+    linear_w8a8_static,
+)
 
 # ---------------------------------------------------------------------------
 # Parameter-holding leaves: PyTorch's modules with NHWC forwards
 # ---------------------------------------------------------------------------
 
 
+def quantized_linear(m: nn.Linear, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+    """A quantized linear's forward, by what it holds (JAX ``apply_linear``)."""
+    a_scale = getattr(m, "a_scale", None)
+    if getattr(m, "w_q8", None) is not None:
+        if a_scale is not None:
+            return linear_w8a8_static(x, m.w_q8, m.w_scale, a_scale, m.bias, act=act)
+        return linear_w8a8(x, m.w_q8, m.w_scale, m.bias, act=act)
+    return int8_linear(x, m.w_q, m.w_scale, m.bias, act=act)
+
+
+def quantized_conv(m: nn.Module, x: torch.Tensor, stride: int, padding) -> torch.Tensor:
+    """A W8A8 conv's forward (JAX ``apply_conv``): x NHWC, ``w_q8`` (F, C,
+    kh, kw) int8, static where ``a_scale`` is held."""
+    a_scale = getattr(m, "a_scale", None)
+    if a_scale is not None:
+        return conv2d_w8a8_static(x, m.w_q8, m.w_scale, a_scale, m.bias, stride=stride,
+                                  padding=padding)
+    return conv2d_w8a8(x, m.w_q8, m.w_scale, m.bias, stride=stride, padding=padding)
+
+
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+        if self.weight is None:
+            return quantized_linear(self, x, act)
         return linear(x, self.weight, self.bias, act=act)
 
 
@@ -57,6 +94,8 @@ class Conv2d(nn.Conv2d):
         self.weight.data = self.weight.data.contiguous(memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight is None:
+            return quantized_conv(self, x, self.stride[0], self.padding)
         return conv2d(
             x, self.weight, self.bias, stride=self.stride[0], padding=self.padding[0]
         )
@@ -209,7 +248,9 @@ def fused_conv_ok(
 
 
 def _fused_ok(conv: Conv2d, x: torch.Tensor, backend: Optional[str]) -> bool:
-    return fused_conv_ok(x.shape, x.dtype, x.device.type, conv.kernel_size, backend)
+    """K2 takes a bf16 weight: a quantized conv never (JAX ``layers.py:399``)."""
+    return conv.weight is not None and fused_conv_ok(
+        x.shape, x.dtype, x.device.type, conv.kernel_size, backend)
 
 
 class ResnetBlock2D(nn.Module):
@@ -253,7 +294,7 @@ class ResnetBlock2D(nn.Module):
         those sums and adds the skip and the output scale."""
         groups, eps = self.norm1.num_groups, self.norm1.eps
         use_temb = temb is not None and self.time_emb_proj is not None
-        if _fused_ok(self.conv1, x, conv_backend):
+        if _fused_ok(self.conv1, x, conv_backend) and _fused_ok(self.conv2, x, conv_backend):
             n, hh, ww, _ = x.shape
             sc1, sh1 = gn_affine(x, self.norm1.weight, self.norm1.bias, groups=groups, eps=eps)
             bias_b = self.conv1.bias.float()[None, :]
@@ -321,10 +362,11 @@ class Attention(nn.Module):
     def add_ip_projections(self) -> None:
         """Give this attention the IP-Adapter's two projections, on its own
         device and dtype (zero until loaded)."""
-        w = self.to_k.weight
-        mk = dict(device=w.device, dtype=w.dtype)
-        self.to_k_ip = Linear(w.shape[1], w.shape[0], bias=False, **mk)
-        self.to_v_ip = Linear(w.shape[1], w.shape[0], bias=False, **mk)
+        k = self.to_k  # maybe quantized: read its sizes, and to_out's bias for the rest
+        b = self.to_out[0].bias
+        mk = dict(device=b.device, dtype=b.dtype)
+        self.to_k_ip = Linear(k.in_features, k.out_features, bias=False, **mk)
+        self.to_v_ip = Linear(k.in_features, k.out_features, bias=False, **mk)
         with torch.no_grad():
             self.to_k_ip.weight.zero_()
             self.to_v_ip.weight.zero_()
@@ -370,6 +412,11 @@ class GEGLU(nn.Module):
         self.proj = Linear(dim, inner * 2, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, backend: Optional[str] = None) -> torch.Tensor:
+        if self.proj.weight is None:
+            # quantized: the int8 linear, then hidden · gelu(gate) with the
+            # erf GELU in f32; never K4 (JAX layers.py:578-590)
+            h, gate = self.proj(x).chunk(2, dim=-1)
+            return (h.float() * F.gelu(gate.float())).to(x.dtype)
         return linear_geglu(x, self.proj.weight, self.proj.bias, backend=backend)
 
 

@@ -45,6 +45,7 @@ from sfast_tpu_torch.models.layers import (
     TimestepEmbedding,
     Upsample2D,
     init_weights_,
+    quantized_conv,
     timestep_embedding,
 )
 from sfast_tpu_torch.models.unet_2d_condition import _Block, backends
@@ -114,7 +115,9 @@ class TemporalConv3d(nn.Conv3d):
     plane (JAX ``_conv_temporal2d``): one cuDNN call, f32 accumulation,
     the input's dtype out.  The (C_out, C_in, 3, 1, 1) weight is kept
     channels_last_3d, so that its (C_out, C_in, 3, 1) view is the
-    channels_last layout cuDNN reads for an NHWC input."""
+    channels_last layout cuDNN reads for an NHWC input.  Quantized (W8A8),
+    it holds a (C_out, C_in, 3, 1) ``w_q8``, JAX's 4-D temporal kernel, and
+    runs the int8 (3, 1) conv of the same plane."""
 
     def __init__(self, cin: int, cout: int, *, device=None, dtype=None):
         super().__init__(cin, cout, (3, 1, 1), padding=(1, 0, 0), device=device, dtype=dtype)
@@ -122,7 +125,11 @@ class TemporalConv3d(nn.Conv3d):
 
     def forward(self, x5: torch.Tensor) -> torch.Tensor:
         b, f, hh, ww, c = x5.shape
-        y = conv2d(x5.reshape(b, f, hh * ww, c), self.weight[..., 0], self.bias, padding=(1, 0))
+        plane = x5.reshape(b, f, hh * ww, c)
+        if self.weight is None:
+            y = quantized_conv(self, plane, 1, (1, 0))
+        else:
+            y = conv2d(plane, self.weight[..., 0], self.bias, padding=(1, 0))
         return y.reshape(b, f, hh, ww, y.shape[-1])
 
 

@@ -175,6 +175,11 @@ class PipelineBase:
 
 
 class StableDiffusionPipeline(PipelineBase):
+    # the conditioning: the CLIP's last hidden state ('last', SD1.5) or its
+    # penultimate one ('penultimate', SD2.x), for both CFG halves (JAX
+    # ``stable_diffusion.py:57-58, 278-304``)
+    clip_skip_mode = "last"
+
     def __init__(
         self,
         unet,
@@ -248,12 +253,15 @@ class StableDiffusionPipeline(PipelineBase):
         return ids
 
     def encode_prompt(self, prompt_ids, negative_prompt_ids=None, do_cfg: bool = True):
-        """Text embeddings: (2B, S, D) as [uncond; cond] with CFG, else (B, S, D)."""
-        if not do_cfg:
-            return self.text_encoder(prompt_ids)
-        if negative_prompt_ids is None:
-            negative_prompt_ids = self._empty_prompt_ids(prompt_ids)
-        return self.text_encoder(torch.cat([negative_prompt_ids, prompt_ids]))
+        """Text embeddings: (2B, S, D) as [uncond; cond] with CFG, else (B,
+        S, D), from the hidden state ``clip_skip_mode`` names."""
+        if self.clip_skip_mode not in ("last", "penultimate"):
+            raise ValueError(f"clip_skip_mode {self.clip_skip_mode!r}: 'last' or 'penultimate'")
+        if do_cfg:
+            if negative_prompt_ids is None:
+                negative_prompt_ids = self._empty_prompt_ids(prompt_ids)
+            prompt_ids = torch.cat([negative_prompt_ids, prompt_ids])
+        return self.text_encoder(prompt_ids, output=self.clip_skip_mode)
 
     @property
     def _lcm_cond_dim(self) -> Optional[int]:
@@ -342,7 +350,8 @@ class StableDiffusionPipeline(PipelineBase):
                         + (f"_tc{tcond_dim}" if tcond_dim else "")
                         + ("_noise" if needs_noise else ""))
                 loop = global_executable_cache().register(
-                    name, LazyCompiledFunction(denoise_loop, name=name))
+                    name, LazyCompiledFunction(denoise_loop, name=name,
+                                               reads=(unet, controlnet)))
             self._fused_loops[key] = loop
         return loop
 

@@ -156,7 +156,8 @@ class StableVideoDiffusionPipeline(PipelineBase):
                 # 700 W, chip_smoke.py phase 13)
                 name = f"svd_denoise_loop_{num_steps}_f{num_frames}"
                 loop = global_executable_cache().register(
-                    name, LazyCompiledFunction(svd_denoise_loop, name=name, warmup_calls=1))
+                    name, LazyCompiledFunction(svd_denoise_loop, name=name, warmup_calls=1,
+                                               reads=(unet,)))
             self._fused_loops[key] = loop
         return loop
 
@@ -174,7 +175,8 @@ class StableVideoDiffusionPipeline(PipelineBase):
             fn = svd_decode_u8
             if self._ccfg.enable_cuda_graph:
                 fn = global_executable_cache().register(
-                    "svd_decode_u8", LazyCompiledFunction(svd_decode_u8, name="svd_decode_u8"))
+                    "svd_decode_u8",
+                    LazyCompiledFunction(svd_decode_u8, name="svd_decode_u8", reads=(vae,)))
             self._decode_u8 = fn
         return self._decode_u8
 

@@ -22,6 +22,14 @@ capture that fails raises: unlike JAX's ``CompiledModel._cannot_compile``
 this falls back to nothing.  Each graph has its own memory pool, so two
 graphs never share the buffers of their outputs.
 
+A graph reads the tensors of the modules it ran by address, so it is
+stale once a module's tensors are replaced rather than copied into (int8
+quantization swaps a weight for new buffers; ``update_params`` copies and
+keeps them).  Whoever replaces them calls :func:`bump_weights_version` on
+the module, and every function that lists the module in ``reads`` drops
+its graphs at its next call: every pipeline that holds the module, not
+only the one that changed it.
+
 Everything one-time (the nvcc build and load, ``cudaFuncSetAttribute``
 behind statics, the driver entry lookup of ``cuTensorMapEncodeTiled``,
 K3's ticket buffer, allocated per stream) first happens in the warm-up
@@ -32,7 +40,7 @@ import ctypes
 import logging
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.utils._pytree as pytree
@@ -84,6 +92,17 @@ def _node_count(graph: "torch.cuda.CUDAGraph") -> int:
     return n.value
 
 
+def weights_version(module: torch.nn.Module) -> int:
+    """How many times ``module``'s tensors were replaced."""
+    return module.__dict__.get("_weights_version", 0)
+
+
+def bump_weights_version(module: torch.nn.Module) -> None:
+    """Record that ``module``'s tensors were replaced: the graphs of every
+    function that reads it are dropped at that function's next call."""
+    module.__dict__["_weights_version"] = weights_version(module) + 1
+
+
 class CapturedGraph:
     """One captured graph: its static inputs and outputs, the kernel
     launches one replay makes, and what its capture cost."""
@@ -114,17 +133,29 @@ class LazyCompiledFunction:
     signature on first use and replays it after.  ``warmup_calls`` calls of
     ``fn`` run before each capture (the reference's three by default); one
     does every first-call setup, and a function that is itself many model
-    evals (a video's fused denoising loop) may take one."""
+    evals (a video's fused denoising loop) may take one.  ``reads``: the
+    modules whose tensors the graphs read (a module's bound method reads
+    its module where None); a new :func:`weights_version` of one of them
+    drops every graph."""
 
     def __init__(self, fn: Callable, *, name: Optional[str] = None,
-                 warmup_calls: int = WARMUP_CALLS):
+                 warmup_calls: int = WARMUP_CALLS,
+                 reads: Optional[Sequence[torch.nn.Module]] = None):
         if warmup_calls < 1:
             raise ValueError(f"warmup_calls must be at least 1, got {warmup_calls}")
         self.fn = fn
         self.name = name or getattr(fn, "__name__", "fn")
         self.warmup_calls = warmup_calls
+        if reads is None:
+            owner = getattr(fn, "__self__", None)
+            reads = (owner,) if isinstance(owner, torch.nn.Module) else ()
+        self.reads = tuple(m for m in reads if m is not None)
+        self._versions = self._read_versions()
         self._lock = threading.Lock()
         self._cache: Dict[tuple, CapturedGraph] = {}
+
+    def _read_versions(self) -> tuple:
+        return tuple(weights_version(m) for m in self.reads)
 
     @property
     def cache_size(self) -> int:
@@ -159,6 +190,11 @@ class LazyCompiledFunction:
         return any(isinstance(x, torch.Tensor) and x.is_cuda for x in leaves)
 
     def _get_graph(self, args, kwargs, leaves, spec) -> CapturedGraph:
+        versions = self._read_versions()
+        if versions != self._versions:  # a module's tensors were replaced
+            with self._lock:
+                self._cache.clear()
+                self._versions = versions
         key = call_signature(args, kwargs)
         entry = self._cache.get(key)
         if entry is None:

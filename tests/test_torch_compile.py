@@ -31,7 +31,9 @@ from sfast_tpu_torch.pipelines import StableDiffusionPipeline
 from sfast_tpu_torch.runtime import cuda_build, shape_bucket
 from sfast_tpu_torch.runtime.executable_cache import ExecutableCache, global_executable_cache
 from sfast_tpu_torch.runtime.signature import arg_signature, call_signature
-from sfast_tpu_torch.runtime.tracing import CapturedGraph, LazyCompiledFunction
+from sfast_tpu_torch.runtime.tracing import (
+    CapturedGraph, LazyCompiledFunction, bump_weights_version,
+)
 from sfast_tpu_torch.schedulers import CompiledScheduler, DPMSolverMultistepScheduler
 
 # ---------------------------------------------------------------------------
@@ -184,6 +186,26 @@ def test_warmup_captures_without_running(recorder):
     assert f.cache_size == 1 and recorder == ["capture"] and not calls
     f(torch.zeros(8))
     assert recorder == ["capture", "run"]
+
+
+def test_a_new_weights_version_drops_the_graphs_that_read_it(recorder):
+    """A module's bound method reads its module; a closure reads what it is
+    told.  Bumping the module's version drops those graphs at their next
+    call, and no other."""
+    lin = torch.nn.Linear(4, 4)
+    f = LazyCompiledFunction(lin.forward)
+    g = LazyCompiledFunction(lambda x: lin(x) * 2, reads=(lin, None))
+    h = LazyCompiledFunction(lambda x: x + 1)
+    assert f.reads == g.reads == (lin,) and h.reads == ()
+    x = torch.ones(2, 4)
+    for fn in (f, g, h):
+        fn(x)
+    assert recorder.count("capture") == 3
+    bump_weights_version(lin)
+    for fn in (f, g, h):
+        fn(x)
+        fn(x)
+    assert recorder.count("capture") == 5 and f.cache_size == g.cache_size == h.cache_size == 1
 
 
 def test_clear_cache(recorder):

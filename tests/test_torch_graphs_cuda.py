@@ -20,7 +20,9 @@ stepwise graphs.  Stable Video Diffusion at small widths where K1 (1,024
 tokens of head dim 64), K2 and K3 (a 128² decoder map) fire: the graphed
 clip equals the eager one, and a new guidance range or motion bucket
 captures nothing.  K3's ticket set that a graph holds outlives its
-replacement by a larger one.  Every test skips without a
+replacement by a larger one.  Quantizing a compiled pipeline drops the
+UNet's graphs and the next image captures anew; TAESD's graphed decode and
+encode equal eager.  Every test skips without a
 CUDA card.  The file imports no JAX, so on a machine without it run:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graphs_cuda.py
@@ -494,3 +496,72 @@ def test_k3_tickets_a_graph_holds_outlive_a_larger_set(dev):
     torch.cuda.synchronize()
     assert torch.equal(first, again)
     del junk
+
+
+# ---------------------------------------------------------------------------
+# quantization and TAESD under graphs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode,convs", [("w8a16", False), ("w8a8", True)])
+def test_quantizing_a_compiled_pipeline_captures_anew(pipe, mode, convs):
+    """The quantization drops the UNet's graphs; the next image captures
+    anew, is not the bf16 image, and its graphed latents equal the eager
+    quantized ones bit for bit."""
+    from sfast_tpu_torch import quant
+
+    kw = dict(prompt_ids=torch.ones((1, 77), dtype=torch.long), height=64, width=64,
+              num_inference_steps=3, seed=2, output_type="latent")
+    bf16 = pipe(**kw).images
+    assert pipe.unet.cache_size == 1
+    quant.quantize_pipeline(pipe, mode=mode, quantize_convs=convs)
+    assert pipe.unet.cache_size == 0
+    graphed = pipe(**kw).images
+    assert pipe.unet.cache_size == 1 and not torch.equal(graphed, bf16)
+    pipe.set_compilation_config(CompilationConfig(enable_cuda_graph=False))
+    assert torch.equal(pipe(**kw).images, graphed)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_quantizing_a_shared_unet_recaptures_the_other_pipeline(pipe, dev, fused):
+    """A second compiled pipeline over the same modules holds graphs of the
+    bf16 UNet when the first is quantized: its next image captures anew (a
+    replay would read the freed bf16 weights), is not its bf16 image, and
+    equals its eager quantized image bit for bit."""
+    from sfast_tpu_torch import quant
+
+    unet, vae, te = (s.module for s in (pipe.unet, pipe.vae, pipe.text_encoder))
+    other = compile_pipeline(StableDiffusionPipeline(
+        unet, vae, te, DPMSolverMultistepScheduler(), vae_encode=vae, device=dev, dtype=BF16))
+    other.set_compilation_config(CompilationConfig(fuse_denoising_loop=fused))
+    kw = dict(prompt_ids=torch.ones((1, 77), dtype=torch.long), height=64, width=64,
+              num_inference_steps=3, seed=2, output_type="latent")
+    bf16 = other(**kw).images
+    quant.quantize_pipeline(pipe, mode="w8a8", quantize_convs=True)
+    torch.cuda.empty_cache()
+    graphed = other(**kw).images
+    assert not torch.equal(graphed, bf16)
+    other.set_compilation_config(CompilationConfig(enable_cuda_graph=False))
+    assert torch.equal(other(**kw).images, graphed)
+
+
+def test_graphed_taesd_is_eager_bit_for_bit(dev):
+    from sfast_tpu_torch.models import TAESD, AutoencoderTiny, init_tiny_vae_weights_
+
+    vae = init_tiny_vae_weights_(AutoencoderTiny(TAESD, device=dev, dtype=BF16),
+                                 torch.Generator(device=dev).manual_seed(3))
+
+    class Pipe:
+        pass
+
+    p = Pipe()
+    p.vae, p.vae_encode = vae, vae
+    compile_pipeline(p)
+    g = torch.Generator(device=dev).manual_seed(4)
+    z = torch.randn((1, 64, 64, 4), generator=g, device=dev)
+    img = (torch.rand((1, 512, 512, 3), generator=g, device=dev) * 2 - 1).to(BF16)
+    with torch.inference_mode():
+        for graphed, eager in ((p.vae.decode(z), vae.decode(z)),
+                               (p.vae_encode.encode(img)[0], vae.encode(img)[0])):
+            assert torch.equal(graphed, eager)
+    assert p.vae.cache_size == p.vae_encode.cache_size == 1

@@ -8,6 +8,11 @@ without it run:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
+The int8 products of the quantized paths (``torch._int_mm``, a library
+call, and the W8A8 conv's im2col on it) equal their plain f64 versions
+exactly; the quantized ops on the card are within 2^-7 of their largest
+output (a bf16 rounding or two) of the same ops on the CPU.
+
 Tolerances are those of ``chip_smoke.py``: relative rms 1e-2 for K1 and
 2e-2 for K2 outputs in bf16, 1e-3 relative for the f32 statistics (Σy
 against Σ|y|, since Σy may cancel); K5 and K4 within 1e-2 rms of their
@@ -231,7 +236,8 @@ def test_conv3x3_block_rejects_what_it_cannot_run(dev):
 @pytest.mark.parametrize(
     "n,h,w,c,groups",
     [(2, 37, 45, 64, 32), (1, 9, 7, 40, 4), (3, 64, 64, 320, 32),
-     (2, 8, 8, 1280, 32), (2, 64, 64, 960, 32), (2, 8, 8, 2560, 32)],  # UNet: K3′
+     (2, 8, 8, 1280, 32), (2, 64, 64, 960, 32), (2, 8, 8, 2560, 32),  # UNet: K3′
+     (2, 128, 128, 960, 32)],  # SDXL's 128²·960, which the fused GroupNorm does not take
 )
 def test_group_norm_stats_matches_plain(dev, n, h, w, c, groups):
     x = _randn(dev, n, h, w, c, seed=7) + 0.5
@@ -364,7 +370,8 @@ def test_group_norm_stats_on_two_streams_at_once(dev):
     [(1, 9, 7, 320, 32, "silu", 1e-5), (3, 5, 3, 256, 32, "gelu", 1e-6),  # batch 3, C = 8·G
      (2, 15, 17, 960, 32, None, 1e-6), (1, 1, 1, 64, 8, "silu", 1e-5),
      (2, 8, 8, 2560, 32, "silu", 1e-5), (2, 64, 64, 960, 32, "silu", 1e-5),
-     (1, 128, 128, 512, 32, None, 1e-6), (2, 33, 31, 640, 16, "gelu", 1e-5)],
+     (1, 128, 128, 512, 32, None, 1e-6), (2, 33, 31, 640, 16, "gelu", 1e-5),
+     (2, 128, 128, 320, 32, "silu", 1e-5), (2, 128, 128, 640, 32, "silu", 1e-5)],  # SDXL 128²
 )
 def test_group_norm_fused_matches_plain(dev, n, h, w, c, groups, act, eps):
     x = _randn(dev, n, h, w, c, seed=11) + 0.3
@@ -568,3 +575,126 @@ def test_group_norm_stats_at_the_svd_decoder_shape(dev, n, c):
     frames = [0, n - 1]
     rm, rr = group_norm_stats_ref(x[frames], groups=32, eps=1e-6)
     assert _max_rel(mean[frames], rm) <= 1e-3 and _max_rel(rstd[frames], rr) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the int8 products of the quantized paths (torch._int_mm, a library call)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (8192, 640, 5120),  # SDXL's level-1 GEGLU proj
+    (4, 1024, 320),     # SVD's to_k on one image token at 2 frames: M at most 16
+    (50, 12, 20),       # K and N not multiples of 8
+])
+def test_int_mm_is_exact_at_every_shape(dev, m, k, n):
+    """cuBLASLt's int32 sums equal the plain f64 product; ``_int_mm``'s shape
+    rules (M above 16, K and N multiples of 8) are met by zero padding."""
+    from sfast_tpu_torch.ops.quant import int_mm, int_mm_ref
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    got = int_mm(a, w.t())
+    assert got.shape == (m, n) and got.dtype == torch.int32
+    assert torch.equal(got, int_mm_ref(a, w.t()))
+
+
+@pytest.mark.parametrize("n,h,w,c,f,kh,kw,stride,pad", [
+    (2, 64, 64, 960, 320, 3, 3, 1, 1),    # SD1.5's up_blocks.3.resnets.0.conv1
+    (2, 32, 32, 320, 320, 3, 3, 2, 1),    # a downsampler
+    (2, 16, 16, 640, 320, 1, 1, 1, 0),    # a conv_shortcut
+    (2, 4, 1152, 320, 320, 3, 1, 1, (1, 0)),  # SVD's temporal conv on the folded plane
+])
+def test_w8a8_conv_is_exact(dev, n, h, w, c, f, kh, kw, stride, pad):
+    from sfast_tpu_torch.ops.quant import int_conv2d, int_conv2d_ref
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    xq = torch.randint(-127, 128, (n, h, w, c), generator=g, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (f, c, kh, kw), generator=g, device=dev, dtype=torch.int8)
+    wq = wq.contiguous(memory_format=torch.channels_last)
+    got = int_conv2d(xq, wq, stride=stride, padding=pad)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, int_conv2d_ref(xq, wq, stride=stride, padding=pad))
+
+
+def test_quantized_linears_and_convs_match_their_cpu_route(dev):
+    """The W8A16, dynamic and static W8A8 ops on the card against the same
+    ops on the CPU (the plain int32 product): int8 codes and int32 sums are
+    the same, so bf16 outputs agree to one bf16 rounding."""
+    from sfast_tpu_torch.ops import quant as q
+
+    x = _randn(dev, 2, 77, 640, seed=5)
+    w = _randn(dev, 1280, 640, seed=6) / 25
+    b = _randn(dev, 1280, seed=7)
+    wq, ws = q.quantize_weight(w)
+    a = (x.float().abs().amax() / 127).reshape(())
+    for fn in (lambda *t: q.linear_w8a8(t[0], t[1], t[2], t[3], act="gelu"),
+               lambda *t: q.linear_w8a8_static(t[0], t[1], t[2], t[4], t[3]),
+               lambda *t: q.int8_linear(t[0], t[1], t[2], t[3])):
+        got = fn(x, wq, ws, b, a)
+        ref = fn(*(t.cpu() for t in (x, wq, ws, b, a)))
+        assert _max_rel(got.cpu(), ref) <= 2 ** -7
+    xc = _randn(dev, 2, 32, 32, 320, seed=8)
+    cw = _randn(dev, 320, 320, 3, 3, seed=9) / 54
+    cq, cs = q.quantize_conv_weight(cw)
+    got = q.conv2d_w8a8(xc, cq, cs, b[:320], padding=1, act="silu")
+    ref = q.conv2d_w8a8(xc.cpu(), cq.cpu(), cs.cpu(), b[:320].cpu(), padding=1, act="silu")
+    assert _max_rel(got.cpu(), ref) <= 2 ** -7
+
+
+# ---------------------------------------------------------------------------
+# SDXL 1024² under the opt-in configuration: K4, K6 at head dim 64, K2 on
+# the UNet's 128² resnets
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,f", [(8192, 640, 2560), (2048, 1280, 5120)])
+def test_linear_geglu_at_the_sdxl_shapes(dev, m, k, f):
+    g = torch.Generator(device=dev).manual_seed(40)
+    x = _randn(dev, m, k, seed=41)
+    w = (torch.randn((2 * f, k), generator=g, device=dev) / k**0.5).to(BF16)
+    b = (torch.randn((2 * f,), generator=g, device=dev) * 0.1).to(BF16)
+    got = linear_geglu_fused(x, w, b)
+    torch.cuda.synchronize()
+    assert _rms_rel(got, linear_geglu_fused_ref(x, w, b)) <= 1e-2
+
+
+@pytest.mark.parametrize("b,h,s", [(2, 10, 4096), (2, 20, 1024)], ids=["64^2", "32^2"])
+def test_flash_attention_int8_at_the_sdxl_shapes(dev, b, h, s):
+    d = 64
+    q, k, v = (_randn(dev, b, s, h * d, seed=i).view(b, s, h, d).transpose(1, 2) + off
+               for i, off in ((42, 0.0), (43, 0.5), (44, -0.3)))
+    got = flash_attention_int8(q, k, v)
+    again = flash_attention_int8(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rms_rel(got, flash_attention_int8_ref(q, k, v, block_k=kv_tile(d))) <= 2e-2
+    assert _rms_rel(got, flash_attention_ref(q, k, v)) <= 0.015
+
+
+@pytest.mark.parametrize("c,f,kind", [(960, 320, "conv1"), (320, 320, "conv2"),
+                                      (640, 640, "upsample")])
+def test_conv3x3_at_the_sdxl_unet_shapes(dev, c, f, kind):
+    g = torch.Generator(device=dev).manual_seed(45)
+    n = 2
+    x = _randn(dev, n, 128, 128, c, seed=46)
+    wt = (torch.randn((f, 3, 3, c), generator=g, device=dev) / (9 * c) ** 0.5).to(BF16)
+    wt = wt.permute(1, 2, 3, 0)
+    kw = {}
+    if kind != "upsample":
+        kw.update(gn_scale=torch.rand((n, c), generator=g, device=dev) + 0.5,
+                  gn_shift=torch.randn((n, c), generator=g, device=dev) * 0.1)
+    if kind == "conv1":
+        kw.update(bias_batch=torch.randn((n, f), generator=g, device=dev), emit_stats=True)
+    else:
+        kw["bias"] = torch.randn((f,), generator=g, device=dev)
+    if kind == "conv2":
+        kw["residual"] = _randn(dev, n, 128, 128, f, seed=47)
+    got = fused_conv.conv3x3_block(x, wt, **kw)
+    torch.cuda.synchronize()
+    ref = fused_conv.conv3x3_block_ref(x, wt, **kw)
+    if kind == "conv1":
+        (got, s1, s2), (ref, r1, r2) = got, ref
+        assert _max_rel(s1, r1) <= 1e-3 and _max_rel(s2, r2) <= 1e-3
+    assert _rms_rel(got, ref) <= 2e-2

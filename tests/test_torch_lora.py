@@ -1,5 +1,6 @@
 """The port's LoRA against sfast_tpu's (CPU): initialisation, merging,
-diffusers / kohya conversion, and the hot-swap of a compiled model.
+diffusers / kohya conversion, and the hot-swap of a compiled model, on
+SD1.5's UNet, SDXL's and the ControlNet slot.
 
 The tiny UNets share weights (``interop.from_jax``); a JAX LoRA tree reaches
 the port through ``from_jax.lora_params``.  Tolerance: 1e-4 relative to the
@@ -20,6 +21,7 @@ from sfast_tpu_torch import lora
 from sfast_tpu_torch.compilers import compile_unet
 from sfast_tpu_torch.interop import from_jax
 from sfast_tpu_torch.models import TINY_UNET, UNet2DConditionModel
+from tests.test_torch_compile import recorder  # noqa: F401  (a fixture)
 from tests.test_torch_pipeline import tiny_pipes
 
 F32 = dict(device="cpu", dtype=torch.float32)
@@ -186,3 +188,81 @@ def test_switch_lora_reaches_the_pipeline_and_its_fused_loop():
         assert not torch.allclose(out[fused], base_lat)
         torch.testing.assert_close(tpipe(**kw).images, base_lat, rtol=0, atol=0)
     torch.testing.assert_close(out[True], out[False], rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# SDXL's UNet and the ControlNet slot
+# ---------------------------------------------------------------------------
+
+
+def _xl_and_cn():
+    from tests.test_torch_controlnet import J_CN64, jax_controlnet_params
+    from tests.test_torch_sdxl import J_TINY_XL_UNET
+
+    return {"sdxl": (junet.init_unet_params(0, J_TINY_XL_UNET), from_jax.unet_state_dict),
+            "controlnet": (jax_controlnet_params(J_CN64, 3), from_jax.controlnet_state_dict)}
+
+
+@pytest.mark.parametrize("model", ["sdxl", "controlnet"])
+def test_merge_matches_jax_on_sdxl_and_the_controlnet(model):
+    """JAX's LoRA tree over SDXL's UNet (transformer depth 2) and over a
+    ControlNet (its trunk's attentions) merges as JAX merges it."""
+    p, writer = _xl_and_cn()[model]
+    state = writer(p)
+    jl = _jax_lora(p)
+    lo = from_jax.lora_params(jl)
+    assert lo and all(mod + ".weight" in state for mod in lo)
+    merged = lora.merge_lora(state, lo, 0.7)
+    ref = writer(jlora.merge_lora(p, jl, 0.7))
+    for k in state:
+        torch.testing.assert_close(merged[k], ref[k], rtol=0, atol=1e-6)
+    assert sum(not torch.equal(merged[k], state[k]) for k in state) == len(lo)
+
+
+@pytest.mark.parametrize("model", ["sdxl", "controlnet"])
+def test_switch_lora_on_sdxl_and_the_controlnet_slot_captures_nothing(recorder, model):
+    """A swap into SDXL's ``unet`` slot or the ``controlnet`` slot of a
+    compiled pipeline (captures recorded) changes the image and captures
+    nothing; scale 0 swaps back bit for bit."""
+    import sfast_tpu_torch
+    from sfast_tpu_torch.models import (
+        TINY_TEST_VAE, TINY_TEXT_ENCODER, AutoencoderKL, CLIPTextModel, ControlNetModel,
+        init_controlnet_weights_, init_weights_,
+    )
+    from sfast_tpu_torch.pipelines import StableDiffusionPipeline, StableDiffusionXLPipeline
+    from sfast_tpu_torch.schedulers import DPMSolverMultistepScheduler, EulerDiscreteScheduler
+    from tests.test_torch_controlnet import CN64, UNET64
+    from tests.test_torch_sdxl import TE2, TINY_XL_UNET
+
+    g = torch.Generator().manual_seed(6)
+    vae = init_weights_(AutoencoderKL(TINY_TEST_VAE, **F32), g)
+    te = init_weights_(CLIPTextModel(TINY_TEXT_ENCODER, **F32), g)
+    kw = dict(prompt_ids=np.ones((1, 77), np.int64), height=32, width=32,
+              num_inference_steps=2, seed=1, output_type="latent")
+    if model == "sdxl":
+        tpipe = sfast_tpu_torch.compile(StableDiffusionXLPipeline(
+            init_weights_(UNet2DConditionModel(TINY_XL_UNET, **F32), g), vae, te,
+            init_weights_(CLIPTextModel(TE2, **F32), g), EulerDiscreteScheduler(),
+            device="cpu", dtype=torch.float32))
+        slot = tpipe.unet
+    else:
+        cn = init_controlnet_weights_(ControlNetModel(CN64, **F32), g, zero_conv_scale=1.0)
+        tpipe = sfast_tpu_torch.compile(StableDiffusionPipeline(
+            init_weights_(UNet2DConditionModel(UNET64, **F32), g), vae, te,
+            DPMSolverMultistepScheduler(), controlnet=cn, device="cpu", dtype=torch.float32))
+        slot = tpipe.controlnet
+        kw.update(control_image=np.full((1, 32, 32, 3), 128, np.uint8),
+                  controlnet_conditioning_scale=0.8)
+    state = {k: v.clone() for k, v in slot.module.state_dict().items()}
+    lo = lora.init_lora_params(torch.Generator().manual_seed(4), state, rank=2)
+    for f in lo.values():
+        f["b"] = torch.randn(f["b"].shape, generator=torch.Generator().manual_seed(5)) * 0.1
+    base_lat = tpipe(**kw).images
+    captures = recorder.count("capture")
+    lora.switch_lora(slot, state, lo)
+    swapped = tpipe(**kw).images
+    lora.switch_lora(slot, state, lo, scale=0.0)
+    back = tpipe(**kw).images
+    assert recorder.count("capture") == captures
+    assert not torch.allclose(swapped, base_lat)
+    torch.testing.assert_close(back, base_lat, rtol=0, atol=0)

@@ -267,6 +267,36 @@ def test_scheduler_swap_drops_fused_loops_and_cached_state(pipes):
     torch.testing.assert_close(a, c, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_penultimate_conditioning_matches_jax(pipes, fused):
+    """SD2.x conditioning (``clip_skip_mode = "penultimate"``, JAX
+    ``stable_diffusion.py:278-304``): both CFG halves read the CLIP's
+    penultimate hidden state, stepwise and in the fused loop, and the
+    latents differ from the last hidden state's.  Tolerance: the
+    pipeline's, 2e-3 relative to the latents' scale."""
+    jpipe, tpipe = pipes
+    jp = JaxPipeline(unet=jpipe.unet, vae=jpipe.vae, text_encoder=jpipe.text_encoder,
+                     scheduler=JaxDPM(), dtype=jnp.float32)
+    if fused:
+        sfast_tpu.compile(jp, JaxConfig(enable_pallas=False, fuse_denoising_loop=True))
+    jp.clip_skip_mode = "penultimate"
+    ids, lat = _latent_kw(8)
+    kw = dict(height=HW, width=HW, num_inference_steps=STEPS, guidance_scale=7.5,
+              output_type="latent")
+    jlat = np.asarray(jp(prompt_ids=jnp.asarray(ids), latents=jnp.asarray(lat), **kw).images)
+    try:
+        tpipe.set_compilation_config(CompilationConfig(fuse_denoising_loop=fused))
+        tpipe.clip_skip_mode = "penultimate"
+        tlat = tpipe(prompt_ids=ids, latents=torch.from_numpy(lat), **kw).images
+        tpipe.clip_skip_mode = "last"
+        last = tpipe(prompt_ids=ids, latents=torch.from_numpy(lat), **kw).images
+    finally:
+        tpipe.clip_skip_mode = "last"
+        tpipe.set_compilation_config(CompilationConfig.Default())
+    np.testing.assert_allclose(tlat.numpy(), jlat, rtol=0, atol=2e-3 * np.abs(jlat).max())
+    assert (last - tlat).abs().max() > 1e-3 * last.abs().max()
+
+
 @pytest.mark.parametrize("batch,buckets", [(1, (2,)), (3, (2, 4))])
 def test_batch_buckets_drop_padded_rows(pipes, batch, buckets):
     """Padded to its bucket, a batch gives the unpadded run's rows: from
@@ -365,7 +395,8 @@ def test_port_imports_and_runs_without_jax():
         from sfast_tpu_torch.runtime import executable_cache, shape_bucket, signature, tracing
         import sfast_tpu_torch.lora, sfast_tpu_torch.text.clip_tokenizer, sfast_tpu_torch.utils.image
         import sfast_tpu_torch.ip_adapter, sfast_tpu_torch.models.controlnet
-        import sfast_tpu_torch.models.clip_vision
+        import sfast_tpu_torch.models.clip_vision, sfast_tpu_torch.models.autoencoder_tiny
+        import sfast_tpu_torch.quant, sfast_tpu_torch.ops.quant
         unet = init_weights_(UNet2DConditionModel(TINY_UNET, device="cpu", dtype=torch.float32),
                              torch.Generator().manual_seed(0))
         with torch.inference_mode():

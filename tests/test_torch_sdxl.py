@@ -14,6 +14,8 @@ modules 1e-4 of their output's scale, latents 2e-3, uint8 images 1 level
 """
 
 import dataclasses
+import importlib
+import types
 import functools
 
 import jax
@@ -317,3 +319,102 @@ def test_zero_uncond_and_time_ids(pipes):
     assert added["text_embeds"][:2].eq(0).all() and added["time_ids"].shape == (4, 6)
     assert added["time_ids"][0].tolist() == [40, 48, 0, 0, HW, HW]
     assert ctx1.shape == (2, 77, 128) and added1["time_ids"].shape == (2, 6)
+
+
+# ---------------------------------------------------------------------------
+# the opt-in routing rules at SDXL 1024²'s shapes (batch 2), against JAX's
+# ---------------------------------------------------------------------------
+
+
+def _on_tpu(monkeypatch):
+    """JAX's rules read "on TPU" where the port's read "on CUDA"."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+
+
+@pytest.mark.parametrize("m,k,f", [(8192, 640, 2560), (2048, 1280, 5120)],
+                         ids=["64^2", "32^2"])
+def test_sdxl_geglu_rule_matches_jax(monkeypatch, m, k, f):
+    """Every one of the 70 GEGLUs an eval (levels 1 and 2) takes K4."""
+    from sfast_tpu_torch.ops.geglu import geglu_ok
+
+    j_geglu = importlib.import_module("sfast_tpu.ops.geglu")
+    _on_tpu(monkeypatch)
+    seen = []
+    monkeypatch.setattr(j_geglu, "linear_geglu_pallas", lambda *a, **kw: seen.append("pallas"))
+    monkeypatch.setattr(j_geglu, "linear_geglu_xla", lambda *a, **kw: seen.append("xla"))
+    j_geglu.linear_geglu(jax.ShapeDtypeStruct((m, k), jnp.bfloat16),
+                         jax.ShapeDtypeStruct((k, 2 * f), jnp.bfloat16))
+    assert seen == ["pallas"] and geglu_ok((m, k), (2 * f, k), torch.bfloat16, "cuda")
+
+
+@pytest.mark.parametrize("h,sq,sk,int8", [(10, 4096, 4096, True), (20, 1024, 1024, True),
+                                          (10, 4096, 77, False), (20, 1024, 77, False)])
+def test_sdxl_int8_attention_rule_matches_jax(monkeypatch, h, sq, sk, int8):
+    """At head dim 64 the length rule takes 1,024 tokens: both levels'
+    self-attentions take K6, the cross-attentions at 77 keys the plain
+    route."""
+    from sfast_tpu_torch.ops.attention import flash_ok
+
+    j_attention = importlib.import_module("sfast_tpu.ops.attention")
+    _on_tpu(monkeypatch)
+    seen = []
+    for name in ("flash_attention", "flash_attention_int8", "xla_attention"):
+        monkeypatch.setattr(j_attention, name, lambda *a, _n=name, **kw: seen.append(_n))
+    q = jax.ShapeDtypeStruct((2, h, sq, 64), jnp.bfloat16)
+    kv = jax.ShapeDtypeStruct((2, h, sk, 64), jnp.bfloat16)
+    j_attention.dot_product_attention(q, kv, kv, backend="int8")
+    assert seen == ["flash_attention_int8" if int8 else "xla_attention"]
+    assert flash_ok(q.shape, kv.shape, torch.bfloat16, "cuda") is int8
+
+
+@pytest.mark.parametrize("c,fused", [(320, True), (640, True), (960, False)])
+def test_sdxl_128_group_norms_take_a_kernel_route(monkeypatch, c, fused):
+    """JAX's opt-in GroupNorm is its Pallas pair at every shape; the port's
+    is the fused GroupNorm where ``fused_plan`` takes the shape, else K3
+    then K5, the same pair.  At 128² the 960-channel entry of up level 2's
+    first resnet does not fit a cluster's tiles."""
+    from sfast_tpu_torch.ops import group_norm as t_gn
+
+    j_gn = importlib.import_module("sfast_tpu.ops.group_norm")
+    jseen, seen = [], []
+    monkeypatch.setattr(j_gn, "group_norm_pallas", lambda *a, **kw: jseen.append("pallas"))
+    j_gn.group_norm(jax.ShapeDtypeStruct((2, 128, 128, c), jnp.bfloat16),
+                    jnp.ones((c,)), jnp.zeros((c,)), act="silu", backend="pallas")
+    stats = torch.zeros(2, 1, 1, c)
+    monkeypatch.setattr(t_gn, "group_norm_fused", lambda *a, **kw: seen.append("fused"))
+    monkeypatch.setattr(t_gn, "group_norm_stats", lambda *a, **kw: seen.append("K3") or (stats,
+                                                                                      stats))
+    monkeypatch.setattr(t_gn, "group_norm_apply", lambda *a, **kw: seen.append("K5"))
+    x = torch.empty(2, 128, 128, c, device="meta")
+    t_gn.group_norm(x, torch.ones(c), torch.zeros(c), groups=32, act="silu", backend="kernel")
+    assert jseen == ["pallas"]
+    assert (t_gn.fused_plan(2, 128 * 128, c, 32) is not None) is fused
+    assert seen == (["fused"] if fused else ["K3", "K5"])
+
+
+@pytest.mark.parametrize("shape,ks,backend,ok", [
+    ((2, 128, 128, 320), (3, 3), None, True),    # down level 0 conv1, conv2; up level 2 conv2
+    ((2, 128, 128, 640), (3, 3), None, True),    # up level 2 conv1; the upsample conv into 128²
+    ((2, 128, 128, 960), (3, 3), None, True),    # up level 2's first conv1
+    ((2, 64, 64, 640), (3, 3), None, False),     # level 1: below the 128² rule
+    ((2, 128, 128, 960), (1, 1), None, False),   # a conv_shortcut
+    ((2, 128, 128, 320), (3, 3), "plain", False),  # enable_fused_conv off
+])
+def test_sdxl_fused_conv_rule_matches_jax(monkeypatch, shape, ks, backend, ok):
+    """With ``enable_fused_conv`` the SDXL UNet's resnets at 128² take K2,
+    and a quantized conv never does (JAX: no ``w`` in its parameters)."""
+    from sfast_tpu.models import layers as JL
+    from sfast_tpu_torch.models import layers as L
+
+    _on_tpu(monkeypatch)
+    conv_p = {"w": jax.ShapeDtypeStruct((*ks, shape[-1], 320), jnp.bfloat16)}
+    x = jax.ShapeDtypeStruct(shape, jnp.bfloat16)
+    jbackend = {"plain": "xla"}.get(backend, backend)
+    assert JL._fused_conv_ok(conv_p, x, jbackend) is ok
+    assert L.fused_conv_ok(shape, torch.bfloat16, "cuda", ks, backend) is ok
+    assert not JL._fused_conv_ok({"w_q": conv_p["w"]}, x, jbackend)
+    conv = L.Conv2d(shape[-1], 320, ks, padding=ks[0] // 2, device="meta", dtype=torch.bfloat16)
+    on_card = types.SimpleNamespace(shape=shape, dtype=torch.bfloat16, device=torch.device("cuda"))
+    assert L._fused_ok(conv, on_card, backend) is ok
+    conv.weight = None  # quantized: no bf16 weight
+    assert not L._fused_ok(conv, on_card, backend)

@@ -48,7 +48,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    counterpart of K3′+K5), K4 and K6 in the UNet;
 6. the default kernels with ``fuse_denoising_loop``: the 50 steps as one
    graph, its node count and instantiate seconds, held against phase 4's
-   eager image;
+   eager image (1 timed image);
 7. img2img and inpainting (right half repainted) of a seeded uint8 image at
    strength 0.8, graphed (the VAE encode one more graph), each held against
    one eager image; one VAE encode on the kernel route against the plain
@@ -65,13 +65,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     transformer depth 1/2/10, CLIP ViT-L and OpenCLIP ViT-bigG, the VAE
     at 1024² — through ``StableDiffusionXLPipeline``: 1024², batch 1,
     Euler 30 steps, CFG 5.0.  One eager image, then graphed as phase 4
-    (capture, count, 3 timed, profiled), the fused loop against the
-    stepwise graphs, one UNet eval and one VAE decode on the kernel route
-    against the plain route, img2img at strength 0.8 graphed against
-    eager, and the plain routes this path keeps (the cross-attention at 77
+    (capture, count, 1 timed, profiled), the fused loop against the
+    stepwise graphs (not profiled), one UNet eval and one VAE decode on
+    the kernel route against the plain route, img2img at strength 0.8
+    graphed against eager (not profiled), and the plain routes this path
+    keeps (the cross-attention at 77
     keys, the VAE's 16,384-token mid-block attention) timed alone; one
-    counted and timed image under the opt-in configuration and one with
-    ``enable_fused_conv`` added (K2 and K3 on the UNet's 128² resnets), the
+    counted and timed image (not profiled) under the opt-in configuration
+    and one with ``enable_fused_conv`` added (K2 and K3 on the UNet's 128² resnets), the
     latter's UNet eval and decode on the kernel route against the plain
     route; a rank-8 LoRA swapped into the stepwise graphs (nothing
     captured, swapped back bit for bit).  Phase 3 holds K1 at head dim 64
@@ -89,13 +90,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ``CN_ZERO_CONV_SCALE``, as a trained ControlNet's are nonzero): 512²,
     DPM++ 30 steps, CFG 7.5, control scale 0.8 on a seeded uint8 control
     image (JAX's tracked configuration).  One eager image; graphed stepwise
-    (capture, count, 3 timed, profiled) and the fused loop, each against
-    eager; with the graphs in place one ControlNet eval on the kernel route
+    (capture, count, 3 timed, profiled) and the fused loop (not profiled),
+    each against eager; with the graphs in place one ControlNet eval on the kernel route
     against the plain route, control scale 0 against the no-control image
     bit for bit, and a second scale that captures nothing.  The ViT-H image
     encoder (``compile_model``) graphed against eager; IP-Adapter tokens
     (4, scale 0.6) with IP scale 0 against the no-IP image; one ControlNet +
-    IP image graphed against eager; one counted image of the ControlNet path
+    IP image graphed against eager (not profiled); one counted image of the ControlNet path
     under the opt-in configuration; a LoRA swapped into the ``controlnet``
     slot; calibrated static W8A8 of the UNet (a fresh copy) and the
     ControlNet, with convs, counted and timed against bf16;
@@ -125,7 +126,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     anew, launches as bf16, its image differs from bf16's, its graphed
     10-step latents equal eager bit for bit; e2e against bf16 (the counted
     image is the timed one), the UNet's weight bytes, the 10-step latents'
-    relative rms against bf16's (below 0.3).
+    relative rms against bf16's (below 0.3);
+15. serving and the compile surface, on phase 4's SD1.5 modules after
+    phase 9: ``sfast_tpu_torch.compile`` of a diffusers-shaped stub
+    pipeline (plain objects with SD1.5's published configs in diffusers'
+    and transformers' names and phase 4's tensors; called, they raise)
+    builds the port's models, whose image of phase 4's latents equals
+    phase 4's graphed image bit for bit with its launches; a step callback
+    (50 calls, the same image); four requests through ``map(window=2)``
+    against four sequential calls, bit for bit, both timed, and the host
+    syncs PyTorch reports in a steady-state ``'pt'`` call; one UNet eval
+    under ``memory_format='NCHW'`` against the NHWC eval, bit for bit;
+    ``warmup(background=True)`` of 512×768 while two 512² images are
+    served, each equal to phase 4's with its launches on the serving
+    thread, then a 512×768 image that captures nothing, within 1 uint8
+    level of an eager one.
 
 Each phase prints its seconds and the graphs its pipeline holds, with
 their nodes, capture and instantiate seconds, and the peak memory.
@@ -1060,14 +1075,16 @@ def call_kwargs(torch, **extra):
                    guidance_scale=7.5), **extra}
 
 
-def run_mode(torch, dev, pipe, label, cfg, expected, lat, base=None, timed_images=3, **extra):
+def run_mode(torch, dev, pipe, label, cfg, expected, lat, base=None, timed_images=3,
+             profile=True, **extra):
     """One run of the pipeline under ``cfg`` with the call arguments
     ``base`` (SD1.5's, ``call_kwargs``, where None) and ``extra``: the first
     image (which captures the graphs), the counted image, ``timed_images``
     timed, the
     latents and image of the initial latents ``lat`` (of seed 5 where
-    ``lat`` is None), and a profiled image.  Returns what the comparisons
-    of phases 4 to 7 and 10 need."""
+    ``lat`` is None), and a profiled image of a graphed path unless not
+    ``profile``.  Returns what the comparisons of phases 4 to 7 and 10
+    need."""
     from sfast_tpu_torch.runtime import cuda_build
     from sfast_tpu_torch.utils.image import denormalize_to_uint8
 
@@ -1115,7 +1132,7 @@ def run_mode(torch, dev, pipe, label, cfg, expected, lat, base=None, timed_image
     # length, and its device time is the graphed image's.  Its idle share
     # is read against the timed images' median wall time
     prof = profile_image(torch, lambda: pipe(**kw, seed=4), label,
-                         unprofiled=(e2e, card.text())) if cfg.enable_cuda_graph else {}
+                         unprofiled=(e2e, card.text())) if cfg.enable_cuda_graph and profile else {}
     peak = torch.cuda.max_memory_allocated() / 2**30
     reserved = torch.cuda.max_memory_reserved() / 2**30
     log(f"[{label}] peak memory {peak:.2f} GiB allocated, {reserved:.2f} GiB reserved "
@@ -1580,6 +1597,243 @@ def run_quant(torch, dev, pipe, label, kw, expected, bf16_e2e, calibrate):
     return res
 
 
+# Phase 15: SD1.5's published configurations (runwayml/stable-diffusion-v1-5:
+# unet/, vae/ and text_encoder/config.json), as diffusers' and transformers'
+# objects carry them.  The text encoder's file states eos_token_id 2, which
+# transformers reads as "the highest id"; the stub names that id, 49407, the
+# port's SD15_TEXT_ENCODER's.
+SD15_UNET_CONFIG = dict(
+    act_fn="silu", attention_head_dim=8, block_out_channels=[320, 640, 1280, 1280],
+    center_input_sample=False, cross_attention_dim=768,
+    down_block_types=["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"], downsample_padding=1,
+    flip_sin_to_cos=True, freq_shift=0, in_channels=4, layers_per_block=2,
+    mid_block_scale_factor=1, norm_eps=1e-05, norm_num_groups=32, out_channels=4, sample_size=64,
+    up_block_types=["UpBlock2D"] + ["CrossAttnUpBlock2D"] * 3)
+SD15_VAE_CONFIG = dict(
+    act_fn="silu", block_out_channels=[128, 256, 512, 512],
+    down_block_types=["DownEncoderBlock2D"] * 4, in_channels=3, latent_channels=4,
+    layers_per_block=2, norm_num_groups=32, out_channels=3, sample_size=512,
+    up_block_types=["UpDecoderBlock2D"] * 4)
+SD15_CLIP_CONFIG = dict(
+    vocab_size=49408, hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+    num_attention_heads=12, max_position_embeddings=77, hidden_act="quick_gelu",
+    projection_dim=768, bos_token_id=0, eos_token_id=49407, pad_token_id=1)
+SD15_SCHEDULER_CONFIG = dict(
+    beta_end=0.012, beta_schedule="scaled_linear", beta_start=0.00085, num_train_timesteps=1000,
+    prediction_type="epsilon", steps_offset=1, timestep_spacing="leading")
+MAP_REQUESTS = 4
+WARM_HW = (512, 768)
+
+
+class ForeignModule:
+    """A diffusers or transformers module as ``sfast_tpu_torch.compile``
+    sees it: its ``config``, its ``state_dict()`` and ``named_parameters``
+    (here a port module's tensors, which take diffusers' names); calling it
+    raises, so a compile that wrapped it would fail."""
+
+    def __init__(self, config, module):
+        self.config = config
+        self._module = module
+
+    def state_dict(self):
+        return self._module.state_dict()
+
+    def named_parameters(self):
+        return self._module.named_parameters()
+
+    def __call__(self, *args, **kwargs):
+        raise AssertionError(f"{type(self).__name__}: a foreign module was called")
+
+
+def diffusers_stub(pipe):
+    """A diffusers-shaped SD1.5 pipeline over phase 4's modules, built from
+    plain objects: neither diffusers nor transformers is imported."""
+    import types
+
+    def foreign(name, config, module):
+        return type(name, (ForeignModule,), {})(config, module)
+
+    return types.SimpleNamespace(
+        unet=foreign("UNet2DConditionModel", SD15_UNET_CONFIG, pipe.unet.module),
+        vae=foreign("AutoencoderKL", SD15_VAE_CONFIG, pipe.vae.module),
+        text_encoder=foreign("CLIPTextModel", types.SimpleNamespace(**SD15_CLIP_CONFIG),
+                             pipe.text_encoder.module),
+        tokenizer=None,
+        scheduler=type("DPMSolverMultistepScheduler", (), {"config": SD15_SCHEDULER_CONFIG})())
+
+
+def host_syncs(torch, run):
+    """The synchronizing CUDA calls PyTorch reports during ``run()``
+    (``torch.cuda.set_sync_debug_mode``), as 'file:line: message'; the
+    mode's own note that it is a prototype is not one."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sorted({f"{os.path.basename(w.filename)}:{w.lineno}: {str(w.message)[:80]}"
+                   for w in caught if "called a synchronizing" in str(w.message)})
+
+
+def run_serving(torch, dev, pipe, default, lat):
+    """Phase 15: ``sfast_tpu_torch.compile`` of a diffusers-shaped stub over
+    phase 4's modules, a step callback, ``map`` against sequential calls,
+    a background warm-up of 512×768 while 512² images are served, and one
+    UNet eval under ``memory_format='NCHW'``; every image against phase 4's
+    graphed image bit for bit."""
+    import numpy as np
+
+    import sfast_tpu_torch
+    from sfast_tpu_torch import CompilationConfig, compile_unet
+    from sfast_tpu_torch.pipelines import StableDiffusionPipeline
+    from sfast_tpu_torch.runtime import cuda_build
+    from sfast_tpu_torch.utils.image import denormalize_to_uint8
+
+    ref_u8, res = default["graphed"]["u8"], {}
+    kw = call_kwargs(torch)
+
+    def image_of_lat(**extra):
+        out = spipe(**kw, latents=lat, output_type="float", **extra).images
+        return denormalize_to_uint8(out)
+
+    def same_as_phase4(label, u8):
+        if not torch.equal(u8, ref_u8):
+            diff = (u8.int() - ref_u8.int()).abs().max().item()
+            raise AssertionError(f"[serving] {label}: differs from phase 4's graphed image by "
+                                 f"{diff} uint8 levels")
+
+    def expect(label, counts, expected=EXPECTED_LAUNCHES):
+        if counts != expected:
+            raise AssertionError(f"[serving] {label}: launches {counts} != {expected}")
+
+    # (a) the stub through compile: the port's models, their graphs, phase 4's image
+    t = time.perf_counter()
+    spipe = sfast_tpu_torch.compile(diffusers_stub(pipe), CompilationConfig.Default())
+    torch.cuda.synchronize()
+    res["compile_s"] = time.perf_counter() - t
+    if type(spipe) is not StableDiffusionPipeline or spipe.unet.module is pipe.unet.module:
+        raise AssertionError(f"[serving] compile gave {type(spipe).__name__} over the stub's "
+                             "modules, not the port's own")
+    t = time.perf_counter()
+    spipe(**kw, seed=0, output_type="pt")  # the capture
+    torch.cuda.synchronize()
+    res["first_image_s"] = time.perf_counter() - t
+    cuda_build.reset_launch_counts()
+    spipe(**kw, seed=0, output_type="pt")
+    torch.cuda.synchronize()
+    res["counts"] = dict(cuda_build.launch_counts)
+    expect("stub image", res["counts"])
+    same_as_phase4("the stub's image", image_of_lat())
+    log(f"[serving] compile of the diffusers-shaped stub {res['compile_s']:.2f} s (the port's "
+        f"models built and loaded), first image {res['first_image_s']:.2f} s (captures); "
+        f"launches {res['counts']}; its image equals phase 4's bit for bit")
+
+    # (b) a step callback: the stepwise graphs, the same image
+    steps = []
+    same_as_phase4("the callback image",
+                   image_of_lat(callback_on_step_end=lambda p, i, t, d: steps.append(i)))
+    if steps != list(range(STEPS)):
+        raise AssertionError(f"[serving] the callback ran for steps {steps}")
+    res["callback_calls"] = len(steps)
+
+    # (c) map against sequential calls, and the host syncs of a 'pt' call
+    gen = torch.Generator().manual_seed(31)
+    ids = [torch.randint(0, SD15_CLIP_CONFIG["vocab_size"], (1, 77), generator=gen)
+           for _ in range(MAP_REQUESTS)]
+    mkw = {k: v for k, v in kw.items() if k != "prompt_ids"}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3 / MAP_REQUESTS
+
+    seq, res["sequential_ms_per_image"] = timed(
+        lambda: [spipe(prompt_ids=i, seed=0, **mkw).images for i in ids])
+    piped, res["map_ms_per_image"] = timed(
+        lambda: [o.images for o in spipe.map(ids, window=2, seed=0, **mkw)])
+    if not all(np.array_equal(a, b) for a, b in zip(seq, piped)) or len(piped) != len(seq):
+        raise AssertionError("[serving] map's images differ from the sequential calls'")
+    res["syncs"] = host_syncs(torch, lambda: spipe(**kw, seed=0, output_type="pt"))
+    # the detector's control: a copy to pageable host memory synchronizes
+    if not host_syncs(torch, lambda: torch.ones(1, device=dev).cpu()):
+        raise AssertionError("[serving] the sync detector saw no sync in a copy to the host")
+    log(f"[serving] {MAP_REQUESTS} requests: map(window=2) {res['map_ms_per_image']:.3f} ms per "
+        f"image, sequential calls {res['sequential_ms_per_image']:.3f} (phase 4's graphed "
+        f"e2e {default['graphed']['e2e_ms']:.3f}); equal bit for bit; host syncs in a "
+        f"steady-state 'pt' call: {res['syncs'] or 'none'}")
+
+    # (e) one UNet eval under memory_format='NCHW' against the NHWC eval
+    g = torch.Generator(device=dev).manual_seed(32)
+    with torch.inference_mode():
+        ctx = spipe.encode_prompt(ids[0].to(dev))
+        x = torch.randn((2, 64, 64, 4), generator=g, device=dev).to(torch.bfloat16)
+        tt = torch.tensor(801.0, device=dev)
+        nhwc = spipe.unet(x, tt, ctx)
+        nchw_model = compile_unet(spipe.unet.module, CompilationConfig(memory_format="NCHW"))
+        nchw = nchw_model(x.permute(0, 3, 1, 2).contiguous(), tt, ctx)
+    res["nchw_equal"] = tuple(nchw.shape) == (2, 4, 64, 64) and torch.equal(
+        nchw.permute(0, 2, 3, 1), nhwc)
+    # the module's config back, which compile_unet replaced (the same routes);
+    # the pipeline's graphs stay
+    spipe.unet.module.compilation_config = spipe.unet.compilation_config
+    del nchw_model
+    if not res["nchw_equal"]:
+        raise AssertionError("[serving] the NCHW UNet eval differs from the NHWC eval")
+
+    # (d) a background warm-up of 512×768 while two 512² images are served
+    slots = (spipe.unet, spipe.vae, spipe.text_encoder, spipe.scheduler)
+    t0 = time.perf_counter()
+    thread = spipe.warmup(resolutions=(WARM_HW,), steps=(STEPS,), background=True)
+    served = []
+    for _ in range(2):
+        alive = thread.is_alive()
+        cuda_build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        u8 = image_of_lat()
+        torch.cuda.synchronize()
+        served.append({"ms": (time.perf_counter() - t) * 1e3, "during_warmup": alive,
+                       "counts": cuda_build.thread_launch_counts()})
+        same_as_phase4("an image served during the warm-up", u8)
+        expect("an image served during the warm-up", served[-1]["counts"])
+    thread.join()
+    res["warmup_s"] = time.perf_counter() - t0
+    res["served"] = [{k: v for k, v in s.items() if k != "counts"} for s in served]
+    sizes = [m.cache_size for m in slots]
+    wkw = dict(kw, height=WARM_HW[0], width=WARM_HW[1], seed=5, output_type="pt")
+    cuda_build.reset_launch_counts()
+    warmed = spipe(**wkw).images
+    res["warmed_counts"] = cuda_build.thread_launch_counts()
+    if [m.cache_size for m in slots] != sizes:
+        raise AssertionError(f"[serving] a {WARM_HW} image captured after the warm-up: "
+                             f"{sizes} -> {[m.cache_size for m in slots]}")
+    spipe.set_compilation_config(CompilationConfig(enable_cuda_graph=False))  # drops the graphs
+    eager = spipe(**wkw).images
+    res["warmed_vs_eager"] = (warmed.int() - eager.int()).abs().max().item()
+    if res["warmed_vs_eager"] > 1:
+        raise AssertionError(f"[serving] the warmed {WARM_HW} image differs from eager by "
+                             f"{res['warmed_vs_eager']} levels")
+    log(f"[serving] background warm-up of {WARM_HW[0]}x{WARM_HW[1]}: {res['warmup_s']:.2f} s; "
+        f"served meanwhile: {[(round(s['ms'], 3), s['during_warmup']) for s in served]} ms "
+        f"(during the warm-up) against {res['sequential_ms_per_image']:.3f} for the sequential "
+        f"calls above, each "
+        f"equal to phase 4's image with launches {served[0]['counts']}; after join the "
+        f"{WARM_HW} image captured nothing (graphs {sizes}), launches {res['warmed_counts']}, "
+        f"{res['warmed_vs_eager']} levels from eager")
+    del spipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_lora(torch, dev, pipe):
     """Phase 8: a seeded rank-8 LoRA on every UNet attention projection,
     swapped in on the stepwise graphs, then on the fused loop."""
@@ -1835,12 +2089,12 @@ def run_sdxl(torch, dev):
     res["eager_image_s"] = time.perf_counter() - t
     log(f"[sdxl eager] one image of seed 5 and its decode: {res['eager_image_s']:.1f} s")
     res["graphed"] = run_mode(torch, dev, pipe, "sdxl graphed", CompilationConfig.Default(),
-                              EXPECTED_SDXL_LAUNCHES, None, base=kw)
+                              EXPECTED_SDXL_LAUNCHES, None, base=kw, timed_images=1)
     res["graphed"]["vs_eager"] = compare_runs(torch, "sdxl graphed vs eager", eager,
                                               res["graphed"])
     res["fused"] = run_mode(torch, dev, pipe, "sdxl fused loop",
                             CompilationConfig(fuse_denoising_loop=True), EXPECTED_SDXL_LAUNCHES,
-                            None, base=kw, timed_images=1)
+                            None, base=kw, timed_images=1, profile=False)
     res["fused"]["vs_stepwise"] = compare_runs(torch, "sdxl fused loop vs stepwise graphs",
                                                res["graphed"], res["fused"])
     loop = res["fused"]["graphs"].get(f"denoise_loop_{SDXL_STEPS}")
@@ -1872,7 +2126,7 @@ def run_sdxl(torch, dev):
     extra = dict(image=image, strength=STRENGTH)
     res["img2img"] = run_mode(torch, dev, pipe, "sdxl img2img", CompilationConfig.Default(),
                               EXPECTED_SDXL_IMG2IMG_LAUNCHES, None, base=kw, timed_images=1,
-                              **extra)
+                              profile=False, **extra)
     res["img2img"]["vs_eager"] = compare_runs(torch, "sdxl img2img graphed vs eager",
                                               eager_once(torch, pipe, dict(kw, **extra)),
                                               res["img2img"])
@@ -1888,10 +2142,11 @@ def run_sdxl(torch, dev):
                               enable_int8_attention=True)
     fused_conv = optin.replace(enable_fused_conv=True)
     res["optin"] = run_mode(torch, dev, pipe, "sdxl opt-in graphed", optin,
-                            EXPECTED_SDXL_OPTIN_LAUNCHES, None, base=kw, timed_images=1)
+                            EXPECTED_SDXL_OPTIN_LAUNCHES, None, base=kw, timed_images=1,
+                            profile=False)
     res["fused_conv"] = run_mode(torch, dev, pipe, "sdxl opt-in + fused conv graphed",
                                  fused_conv, EXPECTED_SDXL_FUSED_CONV_LAUNCHES, None, base=kw,
-                                 timed_images=1)
+                                 timed_images=1, profile=False)
     log(f"[sdxl] e2e ms: default {res['graphed']['e2e_ms']:.3f}, opt-in "
         f"{res['optin']['e2e_ms']:.3f}, opt-in + fused conv {res['fused_conv']['e2e_ms']:.3f}")
     res["fused_conv_route"] = route_check(
@@ -2200,7 +2455,7 @@ def run_controlnet(torch, dev, pipe):
     res["scales"] = scale_checks(torch, cpipe, kw)
     res["fused"] = run_mode(torch, dev, cpipe, "controlnet fused loop",
                             CompilationConfig(fuse_denoising_loop=True), EXPECTED_CN_LAUNCHES,
-                            None, base=kw, timed_images=1)
+                            None, base=kw, timed_images=1, profile=False)
     res["fused"]["vs_eager"] = compare_runs(torch, "controlnet fused loop vs eager", eager,
                                             res["fused"])
     loop = res["fused"]["graphs"].get(f"denoise_loop_{CN_STEPS}_cn")
@@ -2230,7 +2485,7 @@ def run_controlnet(torch, dev, pipe):
         raise AssertionError(f"[ip-adapter] scale 0 differs from no IP by {diff} uint8 levels")
     res["controlnet_ip"] = run_mode(torch, dev, cpipe, "controlnet + ip-adapter graphed",
                                     CompilationConfig.Default(), EXPECTED_CN_LAUNCHES, None,
-                                    base=ip_kw, timed_images=1)
+                                    base=ip_kw, timed_images=1, profile=False)
     res["controlnet_ip"]["vs_eager"] = compare_runs(
         torch, "controlnet + ip-adapter graphed vs eager", eager_once(torch, cpipe, ip_kw),
         res["controlnet_ip"])
@@ -2817,7 +3072,7 @@ def run_svd(torch, dev):
 
 
 def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_res,
-                 prompt_res, cn, svd, quant_res, phase_s):
+                 prompt_res, cn, svd, quant_res, serving, phase_s):
     """The ``{"kernels": [...]}`` line: per kernel its launches per image on
     each path (``launches``: the stepwise paths' sum) and the main-path
     case's numbers, every case under ``cases``; then each path's numbers."""
@@ -2874,6 +3129,7 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
                      "sdxl_optin": sdxl["optin"]["counts"][name],
                      "sdxl_optin_fused_conv": sdxl["fused_conv"]["counts"][name],
                      "lcm_taesd": taesd["graphed"]["counts"][name],
+                     "serving": serving["counts"][name],
                      "controlnet_w8a8": cn["w8a8"]["counts"][name],
                      **{f"{model}_{mode}".replace(" ", "_").replace(".", ""): r["counts"][name]
                         for model, res in quant_res.items() for mode, r in res.items()
@@ -2895,6 +3151,7 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
                        "paths": {k: {f: v[f] for f in keep if f in v} for k, v in paths.items()},
                        "encode": {k: v for k, v in img2img.items() if k.startswith("encode_")},
                        "lora": lora_res, "prompt": prompt_res,
+                       "serving": {k: v for k, v in serving.items() if k != "counts"},
                        "sdxl": {k: sdxl[k] for k in ("eager_image_s", "route", "plain_routes",
                                                      "encode", "fused_conv_route", "lora")},
                        "taesd": {k: v for k, v in taesd.items() if k not in ("graphed", "fused")},
@@ -2954,7 +3211,8 @@ def main():
     optin = phase("5 opt-in", run_path, torch, dev, pipe, "opt-in", optin_cfg,
                   EXPECTED_OPTIN_LAUNCHES, OPTIN_MODEL_RMS_REL, lat)
     fused = phase("6 fused loop", run_mode, torch, dev, pipe, "fused loop",
-                  CompilationConfig(fuse_denoising_loop=True), EXPECTED_LAUNCHES, lat)
+                  CompilationConfig(fuse_denoising_loop=True), EXPECTED_LAUNCHES, lat,
+                  timed_images=1)
     fused["vs_default_eager"] = compare_runs(torch, "fused loop vs default eager",
                                              default["eager"], fused)
     loop = fused["graphs"].get(f"denoise_loop_{STEPS}")
@@ -2967,6 +3225,8 @@ def main():
     lora_res = phase("8 lora", run_lora, torch, dev, pipe)
     prompt_res = phase("9 prompt string", run_prompt_string, torch, pipe)
     log_pools(torch, pipe, "sd1.5 phases 4 to 9")
+    serving = phase("15 serving and the compile surface", run_serving, torch, dev, pipe,
+                    default, lat)
     sdxl = phase("10 sdxl", run_sdxl, torch, dev)
     quant_res = {}
     sdxl_pipe = sdxl.pop("pipe")
@@ -2997,7 +3257,7 @@ def main():
     svd = phase("13 svd", run_svd, torch, dev)
 
     print(kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_res,
-                       prompt_res, cn, svd, quant_res, phase_s))
+                       prompt_res, cn, svd, quant_res, serving, phase_s))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -18,15 +18,30 @@ runs for CPU tensors.  The kernels are built with nvcc at first use;
 importing the package builds and loads nothing.
 
 ``compile`` wraps the pipeline's models so that each replays a CUDA graph
-per input signature (``runtime/tracing.py``); ``compile_model`` wraps one
-model alone (an IP-Adapter's image encoder).  ``quant`` quantizes a
+per input signature (``runtime/tracing.py``), first converting a
+diffusers pipeline into the port's pipeline of the port's models
+(``interop/diffusers_adapter.py``); ``compile_model``, ``compile_unet``
+and ``compile_vae`` wrap one model alone (an IP-Adapter's image encoder),
+``lazy_jit`` any function.  A pipeline serves many requests with ``map``
+and captures new shapes in the background with ``warmup(background=True)``.  ``quant`` quantizes a
 pipeline's UNet and ControlNet to int8 (W8A16, dynamic W8A8, or static
 W8A8 from a calibration); ``models.AutoencoderTiny`` (TAESD) can take the
 VAE's slots.
 """
 
-from sfast_tpu_torch import quant
-from sfast_tpu_torch.compilers import compile, compile_model
-from sfast_tpu_torch.config import CompilationConfig
+from sfast_tpu_torch.utils.env import setup_environment
 
-__all__ = ["CompilationConfig", "compile", "compile_model", "quant"]
+setup_environment()
+
+from sfast_tpu_torch import quant  # noqa: E402
+from sfast_tpu_torch.compilers import (  # noqa: E402
+    compile,
+    compile_model,
+    compile_unet,
+    compile_vae,
+)
+from sfast_tpu_torch.config import CompilationConfig  # noqa: E402
+from sfast_tpu_torch.runtime.tracing import lazy_jit  # noqa: E402
+
+__all__ = ["CompilationConfig", "compile", "compile_model", "compile_unet", "compile_vae",
+           "lazy_jit", "quant"]

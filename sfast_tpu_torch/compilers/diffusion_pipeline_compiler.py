@@ -1,6 +1,14 @@
 """``sfast_tpu_torch.compile(pipe, config)`` — counterpart of
 ``sfast_tpu/compilers/diffusion_pipeline_compiler.py`` (``:51-337``).
 
+A pipeline whose slots hold torch modules that are not the port's models
+(a diffusers pipeline: diffusers' UNet and VAE, transformers' CLIP) is
+first converted by ``interop/diffusers_adapter.py`` into the port's
+pipeline of the port's models, built on the card unless ``device`` says
+otherwise, as JAX converts one into its native models (``:295-337``).  A
+foreign module is never wrapped as it is: its graphs would launch none of
+the port's kernels.
+
 ``compile`` wraps the callable the pipeline uses of each submodel (the
 UNet's ``forward``, a ControlNet's ``forward``, whose graph returns the
 tuple of its down residuals and its mid residual, the VAE's ``decode``,
@@ -10,7 +18,10 @@ its ``encode`` in the ``vae_encode`` slot, CLIP's ``forward``) in a
 ``CompiledScheduler`` when ``trace_scheduler`` is on; then it applies the
 config's kernel routes.  It compiles nothing itself: each graph is
 captured at its first call.  With ``enable_cuda_graph=False`` the models
-run eagerly.
+run eagerly.  A compiled model applies the config's ``memory_format`` at
+its boundary (``utils/memory_format.py``) and, with ``prefer_lowp_gemm``
+off, runs each call and its capture under
+``utils.compute_precision.high_compute_precision``.
 
 The SD pipelines hold no image encoder, as in JAX: an IP-Adapter caller
 compiles its CLIP vision encoder alone, ``compile_model(image_encoder,
@@ -20,6 +31,7 @@ rest; its temporal VAE's ``decode(latents, num_frames)`` keys a graph by
 the chunk's shape and ``num_frames``'s value.
 """
 
+import contextlib
 import logging
 from typing import Any, Optional
 
@@ -28,6 +40,8 @@ import torch
 from sfast_tpu_torch.config import CompilationConfig
 from sfast_tpu_torch.runtime.executable_cache import global_executable_cache
 from sfast_tpu_torch.runtime.tracing import LazyCompiledFunction
+from sfast_tpu_torch.utils.compute_precision import high_compute_precision
+from sfast_tpu_torch.utils.memory_format import tree_to_nchw, tree_to_nhwc
 
 logger = logging.getLogger(__name__)
 
@@ -67,10 +81,20 @@ class CompiledModel:
         self.module.compilation_config = config
         self.clear_cache()
 
+    def _boundary(self, run, args, kwargs):
+        """``run(*args, **kwargs)`` in the config's layout and precision."""
+        cfg = self.compilation_config
+        nchw = cfg.memory_format == "NCHW"
+        if nchw:
+            args, kwargs = tree_to_nhwc((args, kwargs))
+        with contextlib.nullcontext() if cfg.prefer_lowp_gemm else high_compute_precision():
+            out = run(*args, **kwargs)
+        return tree_to_nchw(out) if nchw else out
+
     def __call__(self, *args, **kwargs):
         if self.compilation_config.enable_cuda_graph:
-            return self._call(*args, **kwargs)
-        return getattr(self.module, self.method)(*args, **kwargs)
+            return self._boundary(self._call, args, kwargs)
+        return self._boundary(getattr(self.module, self.method), args, kwargs)
 
     def __getattr__(self, name):
         if name == self.__dict__.get("method"):
@@ -82,7 +106,7 @@ class CompiledModel:
     def warmup(self, *args, **kwargs) -> "CompiledModel":
         """Capture the graph of this signature without replaying it."""
         if self.compilation_config.enable_cuda_graph:
-            self._call.warmup(*args, **kwargs)
+            self._boundary(self._call.warmup, args, kwargs)
         return self
 
     @torch.no_grad()
@@ -127,21 +151,48 @@ def compile_vae(vae, config=None) -> CompiledModel:
 _SLOT_METHODS = {"vae": "decode", "vae_encode": "encode"}
 
 
-def _is_module(m) -> bool:
+def _looks_like_torch_module(m) -> bool:
     return hasattr(m, "state_dict") and hasattr(m, "named_parameters")
 
 
-def compile(pipeline: Any, config: Optional[CompilationConfig] = None):
-    """Compile a pipeline in place and return it.  Idempotent and
-    duck-typed: every ``_SUBMODEL_ATTRS`` slot holding a module is
-    wrapped once (the VAE by its ``decode``, ``vae_encode`` — which may be
-    the same module — by its ``encode``), the scheduler's step when
+def _is_native_model(m) -> bool:
+    """A model of the port (or a subclass of one)."""
+    from sfast_tpu_torch import models
+
+    return isinstance(m, (
+        models.UNet2DConditionModel, models.ControlNetModel, models.AutoencoderKL,
+        models.AutoencoderKLTemporalDecoder, models.AutoencoderTiny, models.CLIPTextModel,
+        models.CLIPVisionModel, models.UNetSpatioTemporalConditionModel))
+
+
+def _is_foreign(m) -> bool:
+    return (_looks_like_torch_module(m) and not isinstance(m, CompiledModel)
+            and not _is_native_model(m))
+
+
+def compile(pipeline: Any, config: Optional[CompilationConfig] = None, *, device=None):
+    """Compile a pipeline and return it.  A pipeline with a foreign module
+    in a slot (a diffusers pipeline) is first converted into the port's
+    pipeline (``interop/diffusers_adapter.convert_pipeline``: its models
+    built on ``device``, the card when None), which is returned; any other
+    is compiled in place.  Idempotent and duck-typed: every
+    ``_SUBMODEL_ATTRS`` slot holding a model of the port is wrapped once
+    (the VAE by its ``decode``, ``vae_encode`` — which may be the same
+    module — by its ``encode``), the scheduler's step when
     ``trace_scheduler`` is on; then the pipeline's
     ``set_compilation_config`` applies ``config`` and drops every graph."""
+    from sfast_tpu_torch.pipelines.stable_diffusion import PipelineBase
+
     config = config or CompilationConfig.Default()
+    if isinstance(pipeline, PipelineBase):
+        pipeline.check_compilation_config(config)
+    if any(_is_foreign(getattr(pipeline, a, None)) for a in _SUBMODEL_ATTRS):
+        from sfast_tpu_torch.interop.diffusers_adapter import convert_pipeline
+
+        pipeline = convert_pipeline(pipeline, config, device=device)
     for attr in _SUBMODEL_ATTRS:
         sub = getattr(pipeline, attr, None)
-        if sub is None or isinstance(sub, CompiledModel) or not _is_module(sub):
+        if not _is_native_model(sub):
             continue
         method = _SLOT_METHODS.get(attr, "forward")
         if not hasattr(sub, method):

@@ -42,12 +42,28 @@ trace_scheduler                 ``trace_scheduler``: the scheduler's step
 (new in JAX)                    ``batch_buckets``: the prompt batch is
                                 padded up to these buckets, bounding the
                                 number of graphs; padded rows are dropped.
+memory_format                   ``memory_format``: the models are NHWC;
+                                'NCHW' transposes a compiled model's 4-D
+                                and 5-D tensor inputs and outputs at its
+                                boundary (``utils/memory_format.py``), for
+                                models called alone: the pipelines hand
+                                their models NHWC tensors and refuse it.
+prefer_lowp_gemm                ``prefer_lowp_gemm``: True runs the models
+                                under the process's precision flags; False
+                                runs each call, and its capture, under
+                                ``utils.compute_precision.high_compute_precision``
+                                (no TF32, no reduced-precision bf16 sums).
+(new in JAX)                    ``param_dtype``: the dtype in which
+                                ``compile`` builds the port's models from
+                                a diffusers pipeline
+                                (``interop/diffusers_adapter.py``).
 ==============================  ==========================================
 
 JAX's ``freeze`` and ``preserve_parameters`` have no counterpart: a CUDA
 graph reads the weights by address, so an in-place copy
 (``CompiledModel.update_params``) is the hot-swap, and there is nothing to
-fold.
+fold.  JAX's ``compute_dtype`` is read nowhere in ``sfast_tpu``, so it has
+none either.
 """
 
 import dataclasses
@@ -66,6 +82,14 @@ class CompilationConfig:
     trace_scheduler: bool = True
     fuse_denoising_loop: bool = False
     batch_buckets: Optional[Sequence[int]] = None
+    memory_format: str = "NHWC"  # or 'NCHW'
+    prefer_lowp_gemm: bool = True
+    param_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.memory_format not in ("NHWC", "NCHW"):
+            raise ValueError(
+                f"memory_format must be 'NHWC' or 'NCHW', got {self.memory_format!r}")
 
     @staticmethod
     def Default() -> "CompilationConfig":

@@ -94,5 +94,5 @@ def flash_attention(
         float(scale) * LOG2E, int(causal), cuda_build.stream_ptr(q),
     )
     cuda_build.check(err, "flash_attention")
-    cuda_build.launch_counts["flash_attention"] += 1
+    cuda_build.count_launch("flash_attention")
     return o

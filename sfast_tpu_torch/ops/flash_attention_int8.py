@@ -209,7 +209,7 @@ def quantize_qkv_cuda(q, k, v, scale: float) -> KernelInputs:
         cuda_build.stream_ptr(q),
     )
     cuda_build.check(err, "quantize_qkv")
-    cuda_build.launch_counts["quantize_qkv"] += 1
+    cuda_build.count_launch("quantize_qkv")
     return out
 
 
@@ -230,7 +230,7 @@ def flash_attention_int8_body(
         cuda_build.stream_ptr(o),
     )
     cuda_build.check(err, "flash_attention_int8")
-    cuda_build.launch_counts["flash_attention_int8"] += 1
+    cuda_build.count_launch("flash_attention_int8")
     return o
 
 

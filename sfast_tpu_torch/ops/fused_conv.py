@@ -135,7 +135,7 @@ def conv3x3_block(
         n, h, wd, c, f, 1.0 / output_scale, cuda_build.stream_ptr(x),
     )
     cuda_build.check(err, "conv3x3_block")
-    cuda_build.launch_counts["conv3x3"] += 1
+    cuda_build.count_launch("conv3x3")
     if not emit_stats:
         return out
     s1, s2 = partials.sum(dim=2)

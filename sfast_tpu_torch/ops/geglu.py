@@ -107,7 +107,7 @@ def linear_geglu_fused(
         out.data_ptr(), m, k, f2 // 2, cuda_build.stream_ptr(x),
     )
     cuda_build.check(err, "linear_geglu")
-    cuda_build.launch_counts["linear_geglu"] += 1
+    cuda_build.count_launch("linear_geglu")
     return out.reshape(*lead, f2 // 2)
 
 

@@ -40,15 +40,12 @@ _MAX_CLUSTER = 16  # the kernel's most; above 8 needs the non-portable attribute
 _PORTABLE_CLUSTER = 8
 _TWO_CTA_SMEM = 116 * 1024  # the most a CTA may hold with two CTAs an SM
 _FUSED_THREADS = 512
-# (device, stream) -> K3's per-sample counters (zero between calls).  Every
-# graph is captured on one side stream per device, so every graph that holds
-# K3 bakes in the same counters: the VAE encode's and the decode's.  That is
-# safe while their replays run in turn on one stream, as one pipeline call
-# runs them; two replays at once on two streams would share the counters.
+# (device, stream) -> K3's per-sample counters of the eager calls on that
+# stream (zero between calls).  A capture takes a set of its own instead
+# (``_ticket``), so no graph shares its counters with another graph or with
+# an eager call: replays of two graphs on two streams, or a warm-up on one
+# thread beside a replay on another, never take each other's tickets.
 _tickets = {}
-# Counters a larger set replaced: kept alive for the life of the process,
-# since a graph captured before the replacement holds their address.
-_retired_tickets = []
 
 
 class FusedPlan(NamedTuple):
@@ -198,23 +195,21 @@ def stats_chunks(n: int, hw: int, c: int, groups: int) -> Tuple[int, int]:
 
 
 def _ticket(x: torch.Tensor, n: int) -> torch.Tensor:
-    """K3's per-sample counters for calls on x's device and current stream:
-    zero between calls, since the block that folds a sample sets its
-    counter back.  Calls on one stream run in turn, and each stream has
-    its own counters, so two calls never take each other's tickets.
+    """K3's per-sample counters for a call on x's device and current
+    stream, zero when the call starts; the block that folds a sample sets
+    its counter back to zero.
 
-    A call of more samples than the set holds gets a larger set, and the
-    old one is never freed (``_retired_tickets``): a CUDA graph captured
-    before reads and writes the old set by its address on every replay,
-    and freed memory would go back to the caching allocator, to be handed
-    to some other tensor that the replay would then corrupt, or whose
-    values would break the fold.  The old set stays zero, since only its
-    graphs use it, each folding to zero."""
+    Inside a CUDA graph capture the call gets a set of its own, allocated
+    in the graph's memory pool and zeroed by a node of the graph before
+    the kernel: the graph shares it with nothing.  Eager calls share one
+    set per (device, stream): calls on one stream run in turn.  A call of
+    more samples than that set holds replaces it; the old set is freed in
+    stream order after the calls that used it, since no graph holds it."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(max(n, 64), dtype=torch.int32, device=x.device)
     key = (x.device, cuda_build.stream_ptr(x))
     t = _tickets.get(key)
     if t is None or t.numel() < n:
-        if t is not None:
-            _retired_tickets.append(t)
         t = _tickets[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=x.device)
     return t
 
@@ -227,8 +222,9 @@ def group_norm_stats(
     (``csrc/group_norm_stats.cu``).  Its blocks write per-group partials,
     and the last block of a sample to take that sample's integer ticket
     adds them in chunk order.  The tickets belong to the device and the
-    current stream (:func:`_ticket`), so calls on different streams may
-    overlap.  bf16 with C % 8 == 0 and at most 512 groups on CUDA."""
+    current stream, or to the graph being captured (:func:`_ticket`), so
+    calls on different streams may overlap.  bf16 with C % 8 == 0 and at
+    most 512 groups on CUDA."""
     if x.device.type == "cpu":
         return group_norm_stats_ref(x, groups=groups, eps=eps)
     if x.device.type != "cuda":
@@ -254,7 +250,7 @@ def group_norm_stats(
         cuda_build.stream_ptr(x),
     )
     cuda_build.check(err, "group_norm_stats")
-    cuda_build.launch_counts["group_norm_stats"] += 1
+    cuda_build.count_launch("group_norm_stats")
     return mean, rstd
 
 
@@ -309,7 +305,7 @@ def group_norm_apply(
         cuda_build.stream_ptr(x),
     )
     cuda_build.check(err, "group_norm_apply")
-    cuda_build.launch_counts["group_norm_apply"] += 1
+    cuda_build.count_launch("group_norm_apply")
     return out
 
 
@@ -374,5 +370,5 @@ def group_norm_fused(
         cuda_build.stream_ptr(x),
     )
     cuda_build.check(err, "group_norm_fused")
-    cuda_build.launch_counts["group_norm_fused"] += 1
+    cuda_build.count_launch("group_norm_fused")
     return (out, mean, rstd) if stats else out

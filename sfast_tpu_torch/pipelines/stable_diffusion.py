@@ -50,6 +50,17 @@ An LCM-distilled UNet (``time_cond_proj_dim``) takes the guidance scale as
 an embedding (``timestep_cond``) and runs without CFG whatever the scale;
 any UNet runs without CFG at a scale ≤ 1 (JAX ``:736-742``).
 
+Serving (JAX ``:172-215``, ``:969-1031``): ``map`` yields the images of
+many requests in order and dispatches image i+1 before it waits for image
+i, each copied to pinned host memory without blocking; a steady-state
+graphed call reaches no host sync before it returns (prompt ids cross to
+the device through pinned memory), so the next call's host work overlaps
+the device's.  ``warmup(background=True)`` captures a grid of shapes on a
+thread of its own while the caller serves (``runtime/tracing.py`` says what
+makes that safe).  ``callback_on_step_end(pipe, i, t, {"latents": ...})``
+runs after each executed step and sends the call down the stepwise loop,
+as in JAX (``:728-731``).
+
 JAX's single-dispatch fused pipeline (``:466-647``) is three graphs here:
 CLIP, the loop and the VAE decode; the initial latents, img2img's two
 noise draws and the step noise are drawn eagerly before them (torch's
@@ -57,8 +68,11 @@ Philox is not JAX's threefry, so images from a seed differ between the
 packages in any case).
 """
 
-from typing import List, Optional, Union
+import collections
+import threading
+from typing import Callable, List, Optional, Union
 
+import numpy as np
 import torch
 
 from sfast_tpu_torch.config import CompilationConfig
@@ -73,6 +87,7 @@ from sfast_tpu_torch.utils.image import (
     preprocess_control_image,
     preprocess_image,
     preprocess_mask_image,
+    to_pil,
 )
 
 
@@ -84,6 +99,41 @@ _STEP_NOISE_MIX = 0x9E3779B97F4A7C15
 class PipelineOutput:
     def __init__(self, images):
         self.images = images
+
+
+class WarmupThread(threading.Thread):
+    """The daemon thread of ``warmup(background=True)``, started.  It keeps
+    what the warm-up raised, and :meth:`join` raises it again: a warm-up
+    that fails never passes unseen."""
+
+    def __init__(self, work: Callable[[], None]):
+        super().__init__(daemon=True, name="sfast-warmup")
+        self._work = work
+        self.error: Optional[BaseException] = None
+
+    def run(self) -> None:
+        try:
+            self._work()
+        except BaseException as e:  # kept for join()
+            self.error = e
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        super().join(timeout)
+        if self.error is not None:
+            raise self.error
+
+
+def _to_host_async(image: torch.Tensor):
+    """(host tensor, event or None): a card image copied into pinned host
+    memory of its own without blocking, with the event that marks the end
+    of the copy; a host image as it is."""
+    if not image.is_cuda:
+        return image, None
+    host = torch.empty(image.shape, dtype=image.dtype, pin_memory=True)
+    host.copy_(image, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(image.device))
+    return host, done
 
 
 class PipelineBase:
@@ -108,10 +158,21 @@ class PipelineBase:
     def _submodels(self):
         raise NotImplementedError
 
+    @staticmethod
+    def check_compilation_config(ccfg: CompilationConfig) -> None:
+        """Raise for a config the pipelines cannot run: they hand their
+        models NHWC tensors, so ``memory_format='NCHW'`` is for models
+        compiled alone (``compile_model``, ``compile_unet``...)."""
+        if ccfg.memory_format != "NHWC":
+            raise ValueError(
+                f"memory_format={ccfg.memory_format!r}: a pipeline's models take NHWC "
+                "tensors; 'NCHW' is for a model compiled alone (compile_model)")
+
     def set_compilation_config(self, ccfg: CompilationConfig) -> None:
         """Apply ``ccfg`` to every submodel and drop every graph — the fused
         loops and the submodels' and scheduler's own: a graph bakes in the
         kernel routes it was captured with."""
+        self.check_compilation_config(ccfg)
         self._ccfg = ccfg
         self._drop_fused_loops()
         for m in (*self._submodels(), self.scheduler):
@@ -151,6 +212,16 @@ class PipelineBase:
             entry = (state, torch.arange(num_steps, device=self.device))
             self._sched_states[num_steps] = entry
         return entry
+
+    def _to_device(self, t) -> torch.Tensor:
+        """``t`` (a tensor, array or list) on the pipeline's device.  A host
+        tensor crosses to the card through pinned memory without blocking:
+        a copy from pageable memory synchronizes the stream, and ``map``
+        would then overlap nothing."""
+        t = torch.as_tensor(t)
+        if t.device.type == "cpu" and self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     def _dev_scalar(self, v) -> torch.Tensor:
         """A 0-d f32 device tensor of ``v``, cached by value: a graph reads
@@ -209,15 +280,28 @@ class StableDiffusionPipeline(PipelineBase):
     def _submodels(self):
         return (self.unet, self.controlnet, self.vae, self.vae_encode, self.text_encoder)
 
-    def warmup(self, resolutions=((512, 512),), steps=(50,), batch_sizes=(1,)) -> None:
+    def warmup(self, resolutions=((512, 512),), steps=(50,), batch_sizes=(1,),
+               background: bool = False) -> Optional[WarmupThread]:
         """Capture every graph of a (H, W) × steps × batch grid by running
-        one image of each (a capture needs its warm-up calls anyway)."""
-        for b in batch_sizes:
-            ids = torch.zeros((int(b), 77), dtype=torch.long, device=self.device)
-            for h, w in resolutions:
-                for s in steps:
-                    self(prompt_ids=ids, height=int(h), width=int(w),
-                         num_inference_steps=int(s), output_type="pt")
+        one image of each (a capture needs its warm-up calls anyway).  With
+        ``background`` the grid runs on a started :class:`WarmupThread`,
+        returned, while the caller serves shapes already captured; its
+        ``join()`` raises what the warm-up raised.  Else returns None once
+        every image of the grid has run."""
+        def run():
+            for b in batch_sizes:
+                ids = torch.zeros((int(b), 77), dtype=torch.long, device=self.device)
+                for h, w in resolutions:
+                    for s in steps:
+                        self(prompt_ids=ids, height=int(h), width=int(w),
+                             num_inference_steps=int(s), output_type="pt")
+
+        if background:
+            thread = WarmupThread(run)
+            thread.start()
+            return thread
+        run()
+        return None
 
     def tokenize(self, prompt: Union[str, List[str]]) -> torch.Tensor:
         """Prompt strings → (B, 77) token ids on the pipeline's device.
@@ -239,7 +323,7 @@ class StableDiffusionPipeline(PipelineBase):
         enc = self.tokenizer(prompt, padding="max_length",
                              max_length=self.tokenizer.model_max_length, truncation=True,
                              return_tensors="pt")
-        return torch.as_tensor(enc.input_ids, device=self.device).long()
+        return self._to_device(enc.input_ids).long()
 
     def _empty_prompt_ids(self, prompt_ids: torch.Tensor) -> torch.Tensor:
         """Ids of the empty prompt "" (JAX ``stable_diffusion.py:261-276``):
@@ -394,15 +478,15 @@ class StableDiffusionPipeline(PipelineBase):
     def _prompt_batch(self, prompt, prompt_ids, negative_prompt_ids):
         """(prompt ids, negative prompt ids or None, the real batch), on the
         device and padded to the batch bucket when buckets are on."""
-        dev, buckets = self.device, self._ccfg.batch_buckets
+        buckets = self._ccfg.batch_buckets
         if prompt_ids is None:
             prompt_ids = self.tokenize(prompt)
-        prompt_ids = torch.as_tensor(prompt_ids, device=dev).long()
+        prompt_ids = self._to_device(prompt_ids).long()
         real_b = prompt_ids.shape[0]
         if buckets:  # pad the batch to its bucket; padded rows are dropped
             prompt_ids, _ = pad_batch(prompt_ids, buckets)
         if negative_prompt_ids is not None:
-            negative_prompt_ids = torch.as_tensor(negative_prompt_ids, device=dev).long()
+            negative_prompt_ids = self._to_device(negative_prompt_ids).long()
             if buckets:
                 negative_prompt_ids, _ = pad_batch(negative_prompt_ids, buckets)
         return prompt_ids, negative_prompt_ids, real_b
@@ -427,12 +511,17 @@ class StableDiffusionPipeline(PipelineBase):
         controlnet_conditioning_scale: float = 1.0,
         ip_adapter_embeds=None,
         ip_adapter_scale: float = 1.0,
-        output_type: str = "np",  # 'np' | 'pt' (uint8) | 'float' | 'latent'
+        output_type: str = "np",  # 'np' | 'pil' | 'pt' (uint8) | 'float' | 'latent'
+        callback_on_step_end: Optional[Callable] = None,
     ) -> PipelineOutput:
         """``control_image`` (B or 1 images, (B, H, W, 3) uint8 or float in
         [0, 1], at the output's H × W) runs ``controlnet``;
         ``ip_adapter_embeds`` are IP-Adapter tokens for the UNet's batch,
-        (2B, N, D) as [uncond; cond] with CFG, else (B, N, D)."""
+        (2B, N, D) as [uncond; cond] with CFG, else (B, N, D).
+        ``callback_on_step_end(pipe, i, t, {"latents": latents})`` runs
+        after each executed step (``t`` its timestep, a 0-d device tensor);
+        ``output_type='pt'`` leaves the uint8 images on the device (JAX's
+        ``'device'``)."""
         self._sched_guard()
         prompt_ids, negative_prompt_ids, real_b = self._prompt_batch(
             prompt, prompt_ids, negative_prompt_ids)
@@ -442,7 +531,7 @@ class StableDiffusionPipeline(PipelineBase):
             context, None, use_cfg, real_b, height=height, width=width,
             num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, seed=seed,
             latents=latents, image=image, strength=strength, mask_image=mask_image,
-            output_type=output_type,
+            output_type=output_type, callback_on_step_end=callback_on_step_end,
             control=self._control_input(control_image, controlnet_conditioning_scale, real_b,
                                         height, width, use_cfg),
             ip=self._ip_input(ip_adapter_embeds, ip_adapter_scale, real_b, use_cfg))
@@ -485,12 +574,12 @@ class StableDiffusionPipeline(PipelineBase):
 
     def _generate(self, context, added, use_cfg, real_b, *, height, width, num_inference_steps,
                   guidance_scale, seed, latents, image, strength, mask_image, output_type,
-                  control=None, ip=None):
+                  callback_on_step_end=None, control=None, ip=None):
         """From the text conditioning to the output: the initial latents
         (drawn, given, or img2img's encoded and forward-noised image), the
         denoising loop, the decode.  ``added`` is SDXL's added conditioning,
         None for SD; ``control`` and ``ip`` are ``_control_input``'s and
-        ``_ip_input``'s, or None."""
+        ``_ip_input``'s, or None.  A step callback takes the stepwise loop."""
         dev = self.device
         buckets = self._ccfg.batch_buckets
         sf = self.vae_scale_factor
@@ -535,7 +624,8 @@ class StableDiffusionPipeline(PipelineBase):
                 step_noise = torch.cat([step_noise, step_noise.new_zeros(
                     (num_inference_steps, latents.shape[0] - real_b, *latents.shape[1:]))], 1)
 
-        if self._ccfg.fuse_denoising_loop and start_index == 0 and keep_mask is None:
+        if (self._ccfg.fuse_denoising_loop and callback_on_step_end is None
+                and start_index == 0 and keep_mask is None):
             loop = self._fused_loop(num_inference_steps, use_cfg, tcond_dim,
                                     step_noise is not None, control is not None, ip is not None)
             latents = loop(latents, context, state, gs, step_noise, added, control, ip)
@@ -544,6 +634,7 @@ class StableDiffusionPipeline(PipelineBase):
             if control is not None:  # embedded inside each ControlNet eval
                 control = (*control, None)
             for i in range(start_index, num_inference_steps):
+                t = state["timesteps"][i]
                 eps = self._unet_eps(self.unet, sched, state, i, latents, context, gs, use_cfg,
                                      tcond, added, self.controlnet, control, ip)
                 if step_noise is not None:
@@ -554,6 +645,8 @@ class StableDiffusionPipeline(PipelineBase):
                 if keep_mask is not None:
                     latents = self._inpaint_blend(state, latents, keep_mask, init, noise, steps,
                                                   i, num_inference_steps)
+                if callback_on_step_end is not None:
+                    callback_on_step_end(self, i, t, {"latents": latents})
 
         if output_type == "latent":
             return PipelineOutput(unpad_batch(latents, real_b))
@@ -567,4 +660,47 @@ class StableDiffusionPipeline(PipelineBase):
             return PipelineOutput(image)
         if output_type == "np":
             return PipelineOutput(image.cpu().numpy())
+        if output_type == "pil":
+            return PipelineOutput(to_pil(image))
         raise ValueError(f"unknown output_type: {output_type!r}")
+
+    def map(self, prompts, *, window: int = 2, output_type: str = "np", **kwargs):
+        """Serve many requests: yields one :class:`PipelineOutput` per item
+        of ``prompts``, in order (JAX ``:969-1031``).  Image i+1 is
+        dispatched before image i is fetched: each call runs with
+        ``output_type='pt'`` on the serving stream, its image is copied to
+        pinned host memory of its own without blocking, and image i is
+        waited for once image i + window − 1 has been dispatched, so the
+        host work of the next call overlaps the device's work on this one.
+
+        An item is a prompt string, a list of them, or pre-tokenized ids (a
+        tensor or array); ``kwargs`` go to ``__call__``."""
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        if output_type not in ("np", "pil"):
+            raise ValueError(
+                f"map() yields host images; output_type must be 'np' or 'pil', got "
+                f"{output_type!r}")
+
+        def fetch(entry):
+            host, done = entry
+            if done is not None:
+                done.synchronize()
+            images = np.array(host.numpy())  # out of the pinned buffer
+            return PipelineOutput(to_pil(images) if output_type == "pil" else images)
+
+        pending = collections.deque()
+        for p in prompts:
+            if isinstance(p, (str, list)):
+                out = self(p, output_type="pt", **kwargs)
+            elif hasattr(p, "shape"):  # pre-tokenized ids
+                out = self(prompt_ids=p, output_type="pt", **kwargs)
+            else:
+                raise TypeError(
+                    "map() items must be a prompt str, a list of prompt strs, or a "
+                    f"pre-tokenized ids array (has .shape); got {type(p).__name__}")
+            pending.append(_to_host_async(out.images))
+            if len(pending) >= window:
+                yield fetch(pending.popleft())
+        while pending:
+            yield fetch(pending.popleft())

@@ -74,10 +74,10 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
             enc = self.tokenizer_2(prompt, padding="max_length",
                                    max_length=self.tokenizer_2.model_max_length,
                                    truncation=True, return_tensors="pt")
-            return torch.as_tensor(enc.input_ids, device=self.device).long()
+            return self._to_device(enc.input_ids).long()
         eos = self.text_encoder_2.config.eos_token_id
         pad = self.tokenizer_2.pad_token_id if self.tokenizer_2 is not None else 0
-        ids = torch.as_tensor(prompt_ids, device=self.device).long()
+        ids = self._to_device(prompt_ids).long()
         is_eos = ids == eos
         first_eos = is_eos.int().argmax(dim=-1)
         after = torch.arange(ids.shape[-1], device=ids.device)[None, :] > first_eos[:, None]
@@ -125,8 +125,11 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
         original_size=None,
         crops_coords_top_left=(0, 0),
         target_size=None,
-        output_type: str = "np",  # 'np' | 'pt' (uint8) | 'float' | 'latent'
+        output_type: str = "np",  # 'np' | 'pil' | 'pt' (uint8) | 'float' | 'latent'
+        callback_on_step_end=None,
     ) -> PipelineOutput:
+        """``callback_on_step_end`` and ``output_type`` as the base
+        pipeline's, whose ``map`` and ``warmup`` serve SDXL too."""
         self._sched_guard()
         if prompt_ids is None:
             prompt_ids = self.tokenize(prompt)
@@ -158,4 +161,4 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
             context, added, use_cfg, real_b, height=height, width=width,
             num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, seed=seed,
             latents=latents, image=image, strength=strength, mask_image=mask_image,
-            output_type=output_type)
+            output_type=output_type, callback_on_step_end=callback_on_step_end)

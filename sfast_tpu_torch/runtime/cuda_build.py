@@ -15,12 +15,19 @@ by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the existing file.  Every C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on anything
 but 0.  Each kernel wrapper adds one to its entry of :data:`launch_counts`
-where it launches, which lets a run show that its main path went through
-the kernels.  A CUDA graph's replay launches without passing through the
-wrappers, so ``runtime/tracing.py`` records the counts its capture made
-and adds them on each replay (:func:`add_launch_counts`).
+where it launches (:func:`count_launch`), which lets a run show that its
+main path went through the kernels.  A CUDA graph's replay launches
+without passing through the wrappers, so ``runtime/tracing.py`` records
+the counts its capture made (:func:`recording_launches`) and adds them on
+each replay (:func:`add_launch_counts`).
+
+The counts are shared by every thread and kept under a lock; each thread
+also keeps its own (:func:`thread_launch_counts`), so that a thread
+serving images beside a thread that warms up other shapes can count what
+its own images launched.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -64,20 +71,68 @@ _SIGNATURES = {
     "sfast_flash_attention_int8": [_P] * 8 + [_I] * 5 + [_L] * 3 + [_I, _P],
 }
 
+_counts_lock = threading.Lock()
+# per thread: "counts", its own launches since it last reset them, and
+# "recording", the launches of the capture it runs (None outside one)
+_local = threading.local()
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of the build this process ran
 
 
+def _own_counts() -> dict:
+    counts = getattr(_local, "counts", None)
+    if counts is None:
+        counts = _local.counts = dict.fromkeys(launch_counts, 0)
+    return counts
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    """Zero the shared counts and the calling thread's own."""
+    with _counts_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+    _local.counts = dict.fromkeys(launch_counts, 0)
+
+
+def thread_launch_counts() -> dict:
+    """The launches the calling thread made since it last called
+    :func:`reset_launch_counts` (a copy)."""
+    return dict(_own_counts())
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    """Count ``n`` launches of kernel ``name``; inside a capture on this
+    thread, record them for the graph's replays instead, since a capture
+    launches nothing."""
+    recording = getattr(_local, "recording", None)
+    if recording is not None:
+        recording[name] = recording.get(name, 0) + n
+        return
+    with _counts_lock:
+        launch_counts[name] += n
+    _own_counts()[name] += n
 
 
 def add_launch_counts(delta) -> None:
     """Add a graph's captured launches (kernel name -> count) on a replay."""
     for name, n in delta.items():
-        launch_counts[name] += n
+        count_launch(name, n)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """``with recording_launches() as rec:`` — the launches counted on this
+    thread inside the block go to ``rec`` (kernel name -> count), not to
+    the counts: what a capture records."""
+    if getattr(_local, "recording", None) is not None:
+        raise RuntimeError("a capture is already recording on this thread")
+    _local.recording = rec = {}
+    try:
+        yield rec
+    finally:
+        _local.recording = None
 
 
 def _sources():

@@ -8,9 +8,9 @@ SURVEY.md §3.3).  Here it is that cache again, in the reference's order:
 - **miss**: three warm-up calls (``warmup_calls``) on the capture stream,
   static copies of the tensor inputs, then the capture under
   double-checked locking, logged with its seconds as JAX logs each
-  compile.  The launches the capture
-  recorded (``cuda_build.launch_counts``) are kept, and taken back out of
-  the counts: a capture launches nothing;
+  compile.  The launches the capture recorded
+  (``cuda_build.recording_launches``) are kept and never counted: a
+  capture launches nothing;
 - **hit**: ``copy_`` the inputs into the static inputs, ``replay()``, add
   the recorded launches, and return clones of the static outputs (the
   reference's ``tree_copy``): a caller that keeps an output across two
@@ -31,9 +31,30 @@ its graphs at its next call: every pipeline that holds the module, not
 only the one that changed it.
 
 Everything one-time (the nvcc build and load, ``cudaFuncSetAttribute``
-behind statics, the driver entry lookup of ``cuTensorMapEncodeTiled``,
-K3's ticket buffer, allocated per stream) first happens in the warm-up
-calls, which run on the stream the capture then uses.
+behind statics, the driver entry lookup of ``cuTensorMapEncodeTiled``)
+first happens in the warm-up calls, which run on the stream the capture
+then uses.  K3 takes a ticket set of the graph's own inside a capture
+(``ops/group_norm._ticket``), so no graph shares one with another graph
+or with an eager call.
+
+Under concurrent use (a thread that serves images beside one that warms
+up other shapes, ``StableDiffusionPipeline.warmup(background=True)``):
+
+- each thread warms up and captures on a side stream of its own
+  (:func:`capture_stream`), in ``capture_error_mode="thread_local"``, so
+  that another thread's allocations and host syncs do not break the
+  capture; the other thread's allocations stay out of the capture's pool,
+  which takes only what the capturing stream allocates;
+- the launches a capture records are those of its own thread
+  (``cuda_build.recording_launches``): replays on another thread during
+  the capture keep their counts;
+- every replay runs on the device's default stream (the current stream of
+  a thread that sets none).  :meth:`CapturedGraph.run` releases its lock
+  once the replay is enqueued, not once it has run, so two threads that
+  replay one graph are safe only on one stream: there the second copy into
+  the static inputs waits for the first replay;
+- the warm-up calls end with the default stream waiting for them, so the
+  images served while another thread warms up are slower by that much.
 """
 
 import ctypes
@@ -52,18 +73,20 @@ logger = logging.getLogger(__name__)
 
 WARMUP_CALLS = 3  # the reference's count (cuda/graphs.py:87-92)
 
-_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
-_streams_lock = threading.Lock()
+_local = threading.local()  # per thread: "streams", its capture stream per device
 
 
 def capture_stream(device: torch.device) -> "torch.cuda.Stream":
-    """The side stream on which every graph of ``device`` warms up and is
-    captured."""
-    with _streams_lock:
-        s = _streams.get(device)
-        if s is None:
-            s = _streams[device] = torch.cuda.Stream(device)
-        return s
+    """The side stream on which the calling thread warms up and captures
+    the graphs of ``device``: one per (device, thread), so that two threads
+    that capture at once never capture into one stream."""
+    streams = getattr(_local, "streams", None)
+    if streams is None:
+        streams = _local.streams = {}
+    s = streams.get(device)
+    if s is None:
+        s = streams[device] = torch.cuda.Stream(device)
+    return s
 
 
 def _canonical(tree):
@@ -105,7 +128,13 @@ def bump_weights_version(module: torch.nn.Module) -> None:
 
 class CapturedGraph:
     """One captured graph: its static inputs and outputs, the kernel
-    launches one replay makes, and what its capture cost."""
+    launches one replay makes, and what its capture cost.
+
+    :meth:`run` copies the inputs in, replays and clones the outputs on the
+    calling thread's current stream, under a lock that it releases once
+    the work is enqueued.  Every caller replays on the device's default
+    stream: a replay on another stream could run beside one still in
+    flight, whose static inputs the second copy would overwrite."""
 
     def __init__(self, graph, static_leaves, static_out, launches,
                  capture_seconds, instantiate_seconds, nodes):
@@ -222,15 +251,13 @@ class LazyCompiledFunction:
         torch.cuda.current_stream(device).wait_stream(stream)
 
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = dict(cuda_build.launch_counts)
         t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(), stream=stream):
+        # thread_local: another thread's allocations and syncs (a replay, a
+        # copy to the host) do not invalidate this capture
+        with cuda_build.recording_launches() as launches:
+            with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(), stream=stream,
+                                  capture_error_mode="thread_local"):
                 out = self.fn(*args, **kwargs)
-            launches = {k: n - before[k] for k, n in cuda_build.launch_counts.items()
-                        if n != before[k]}
-        finally:
-            cuda_build.launch_counts.update(before)
         capture_s = time.perf_counter() - t0
         nodes = _node_count(graph)
         t1 = time.perf_counter()
@@ -242,3 +269,17 @@ class LazyCompiledFunction:
             self.name, capture_s, nodes, instantiate_s, len(self._cache) + 1,
         )
         return CapturedGraph(graph, static, out, launches, capture_s, instantiate_s, nodes)
+
+
+def lazy_jit(fn: Optional[Callable] = None, *, name: Optional[str] = None,
+             warmup_calls: int = WARMUP_CALLS,
+             reads: Optional[Sequence[torch.nn.Module]] = None):
+    """Wrap any function in a :class:`LazyCompiledFunction`: ``lazy_jit(fn)``
+    or ``@lazy_jit(name=..., warmup_calls=..., reads=...)``.  Counterpart of
+    JAX's ``lazy_jit`` (``sfast_tpu/runtime/tracing.py``), the generic entry
+    of the per-signature cache; its ``donate_argnums``, ``mode`` and
+    shardings have no meaning for a CUDA graph."""
+    def wrap(f: Callable) -> LazyCompiledFunction:
+        return LazyCompiledFunction(f, name=name, warmup_calls=warmup_calls, reads=reads)
+
+    return wrap if fn is None else wrap(fn)

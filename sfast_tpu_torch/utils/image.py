@@ -1,5 +1,5 @@
 """Image pre- and postprocessing: counterpart of ``sfast_tpu/utils/image.py``
-(``:35-119``, ``denormalize_to_uint8``), with the bilinear resize and the
+(``:25-119``, ``to_pil`` and ``denormalize_to_uint8``), with the bilinear resize and the
 CLIP normalization of the SVD pipeline
 (``sfast_tpu/pipelines/stable_video_diffusion.py:35-41,160-172``)."""
 
@@ -56,6 +56,19 @@ def denormalize_to_uint8(image: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) in [-1, 1] → uint8, on the image's device."""
     img = torch.clamp(image.float() / 2 + 0.5, 0.0, 1.0)
     return torch.round(img * 255.0).to(torch.uint8)
+
+
+def to_pil(image) -> list:
+    """uint8 (B, H, W, 3) images, a tensor on any device or an array → a
+    list of PIL images (``sfast_tpu/utils/image.py:25-32``); Pillow is
+    imported here, and only here."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("Pillow is required for PIL output") from e
+    if isinstance(image, torch.Tensor):
+        image = image.cpu().numpy()
+    return [Image.fromarray(a) for a in np.asarray(image)]
 
 
 def preprocess_image(img, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:

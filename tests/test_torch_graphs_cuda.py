@@ -28,6 +28,8 @@ CUDA card.  The file imports no JAX, so on a machine without it run:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graphs_cuda.py
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -45,7 +47,7 @@ from sfast_tpu_torch.models import (
 )
 from sfast_tpu_torch.ops.group_norm import group_norm_stats
 from sfast_tpu_torch.pipelines import StableDiffusionPipeline, StableVideoDiffusionPipeline
-from sfast_tpu_torch.runtime.tracing import capture_stream
+from sfast_tpu_torch.runtime.tracing import LazyCompiledFunction, capture_stream
 from sfast_tpu_torch.runtime import cuda_build
 from sfast_tpu_torch.schedulers import (
     DPMSolverMultistepScheduler,
@@ -474,11 +476,11 @@ def test_a_new_guidance_range_or_motion_bucket_captures_nothing(svd_pipe):
 
 
 def test_k3_tickets_a_graph_holds_outlive_a_larger_set(dev):
-    """A decode graph holds K3's ticket set of its capture stream.  A call
-    of more samples on that stream replaces the set; the old one must not
-    go back to the allocator, where the small tensors allocated next on
-    that stream would take it and the replay's K3 would read their values
-    as tickets."""
+    """A decode graph holds K3 ticket sets of its own, allocated in its
+    pool by the capture.  A call of more samples on the capture stream
+    replaces that stream's set, and the small tensors allocated next on
+    the stream may take the old one: the replay's K3 must not read their
+    values as tickets."""
     vae = compile_vae(init_weights_(AutoencoderKL(TINY_TEST_VAE, device=dev, dtype=BF16),
                                     torch.Generator(device=dev).manual_seed(13)))
     z = torch.randn((1, 64, 64, 4), generator=torch.Generator(device=dev).manual_seed(14),
@@ -496,6 +498,93 @@ def test_k3_tickets_a_graph_holds_outlive_a_larger_set(dev):
     torch.cuda.synchronize()
     assert torch.equal(first, again)
     del junk
+
+
+# ---------------------------------------------------------------------------
+# serving: map, and a capture on a warm-up thread beside replays
+# ---------------------------------------------------------------------------
+
+
+def test_map_equals_sequential_calls(pipe, dev):
+    ids = [torch.full((1, 77), i + 1, dtype=torch.long) for i in range(3)]
+    kw = dict(height=64, width=64, num_inference_steps=4, seed=3)
+    seq = [pipe(prompt_ids=i, **kw).images for i in ids]
+    piped = [o.images for o in pipe.map(ids, window=2, **kw)]
+    assert len(piped) == 3
+    for a, b in zip(seq, piped):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_background_capture_beside_replays_keeps_counts_and_images(pipe, dev):
+    """Images served while a warm-up thread captures another shape equal
+    the image before it, with the same launches on the serving thread; the
+    warmed shape then captures nothing, and its graphed image and launches
+    are an eager image's."""
+    kw = dict(prompt_ids=torch.ones((1, 77), dtype=torch.long), width=64,
+              num_inference_steps=4, seed=3)
+    ref = pipe(height=64, **kw).images  # captures the 64² graphs
+    cuda_build.reset_launch_counts()
+    pipe(height=64, **kw)
+    one = cuda_build.thread_launch_counts()
+    thread = pipe.warmup(resolutions=((128, 64),), steps=(4,), background=True)
+    served = []
+    while thread.is_alive() or len(served) < 2:
+        cuda_build.reset_launch_counts()
+        served.append((pipe(height=64, **kw).images, cuda_build.thread_launch_counts()))
+    thread.join()
+    for img, counts in served:
+        np.testing.assert_array_equal(img, ref)
+        assert counts == one
+    slots = (pipe.unet, pipe.vae, pipe.text_encoder, pipe.scheduler)
+    sizes = [m.cache_size for m in slots]
+    cuda_build.reset_launch_counts()
+    graphed = pipe(height=128, **kw).images
+    graphed_launches = cuda_build.thread_launch_counts()
+    assert [m.cache_size for m in slots] == sizes
+    pipe.set_compilation_config(CompilationConfig(enable_cuda_graph=False))
+    cuda_build.reset_launch_counts()
+    eager = pipe(height=128, **kw).images
+    assert cuda_build.thread_launch_counts() == graphed_launches
+    assert np.abs(graphed.astype(int) - eager.astype(int)).max() <= 1
+
+
+def test_another_threads_allocations_stay_out_of_a_capture(dev):
+    """While a thread captures (``capture_error_mode="thread_local"``), the
+    main thread allocates and copies to the host: the capture survives,
+    and the main thread's tensors lie in the default pool, not in the
+    graph's."""
+    capturing, allocated = threading.Event(), threading.Event()
+
+    def fn(x):
+        y = x * 2 + 1
+        if torch.cuda.is_current_stream_capturing():
+            capturing.set()
+            assert allocated.wait(timeout=60)
+        return y.sin()
+
+    f = LazyCompiledFunction(fn, name="slow_capture")
+    x = torch.randn(1 << 16, device=dev)
+    result = {}
+    thread = threading.Thread(target=lambda: result.setdefault("out", f(x)))
+    thread.start()
+    assert capturing.wait(timeout=60)
+    try:
+        # a generator of its own: the default one belongs to the capture
+        # while it runs, as the pipelines' per-call generators do not
+        g = torch.Generator(device=dev).manual_seed(0)
+        mine = [torch.randn(1 << 20, generator=g, device=dev) for _ in range(3)]
+        mine.append(torch.full((1 << 20,), 2.0, device=dev))
+        host = mine[0].sum().item()  # a host sync beside the capture
+    finally:
+        allocated.set()
+        thread.join()
+    assert f.cache_size == 1 and torch.equal(result["out"], (x * 2 + 1).sin())
+    assert torch.equal(f(x), result["out"]) and host == mine[0].sum().item()
+    segments = torch.cuda.memory_snapshot()
+    for t in mine:
+        (seg,) = [s for s in segments
+                  if s["address"] <= t.data_ptr() < s["address"] + s["total_size"]]
+        assert tuple(seg["segment_pool_id"]) == (0, 0), seg["segment_pool_id"]
 
 
 # ---------------------------------------------------------------------------

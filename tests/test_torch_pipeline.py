@@ -166,7 +166,9 @@ def test_tiny_pipeline_seeds_and_outputs(pipes):
     lat_g7 = tpipe(seed=3, output_type="latent", **kw).images
     assert lat_g1.shape == (1, HW // 2, HW // 2, 4) and not torch.equal(lat_g1, lat_g7)
     with pytest.raises(ValueError, match="output_type"):
-        tpipe(output_type="pil", **kw)
+        tpipe(output_type="device", **kw)  # JAX's name; the port's is 'pt'
+    pil = tpipe(seed=3, output_type="pil", **kw).images
+    np.testing.assert_array_equal(np.asarray(pil[0]), a[0])
 
 
 def test_compile_applies_config(pipes):

@@ -65,7 +65,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     transformer depth 1/2/10, CLIP ViT-L and OpenCLIP ViT-bigG, the VAE
     at 1024² — through ``StableDiffusionXLPipeline``: 1024², batch 1,
     Euler 30 steps, CFG 5.0.  One eager image, then graphed as phase 4
-    (capture, count, 1 timed, profiled), the fused loop against the
+    (capture, count, 1 timed, not profiled), the fused loop against the
     stepwise graphs (not profiled), one UNet eval and one VAE decode on
     the kernel route against the plain route, img2img at strength 0.8
     graphed against eager (not profiled), and the plain routes this path
@@ -140,7 +140,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ``warmup(background=True)`` of 512×768 while two 512² images are
     served, each equal to phase 4's with its launches on the serving
     thread, then a 512×768 image that captures nothing, within 1 uint8
-    level of an eager one.
+    level of an eager one;
+16. LoRA training on phase 4's SD1.5 UNet (bf16) at full width, after
+    phase 15, with the JAX example's settings: an f32 rank-4 LoRA, AdamW
+    at 1e-4, batch 4 of 64×64×4 latents and 77×768 text embeddings,
+    ``CompilationConfig(enable_kernels=False)``: 6 steps (5 timed with CUDA
+    events), every loss finite, every B moved by step 1, no kernel
+    launched, and a seventh step profiled (device time, idle share, the
+    kernels by time); B's step-1 gradient at batch 1 against an f32 copy of the
+    UNet (relative rms below 5e-2); under ``CompilationConfig.Default()``
+    the forward launches K1 5 times and the backward raises, leaving the
+    LoRA and the optimizer's state as they were; the trained LoRA saved
+    and read back through ``utils/checkpoint``, swapped into the compiled
+    pipeline (nothing captured, the image changes) and back with scale 0
+    (phase 4's graphed image bit for bit, which phases 11, 12 and 14
+    reuse).
 
 Each phase prints its seconds and the graphs its pipeline holds, with
 their nodes, capture and instantiate seconds, and the peak memory.
@@ -153,6 +167,7 @@ case under ``cases``.  The last is
 
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1276,10 +1291,11 @@ def route_check(torch, dev, pipe, name, cfg, model_bound, unet_args, unet_kw, z)
     return {k: v for k, v in out.items() if k.endswith(("launches", "rms_rel"))}
 
 
-def profile_image(torch, run, name, unprofiled, tries=5):
-    """One image under torch.profiler: device time, the device's idle share
-    of the image's wall time and the count of CUDA kernels the image
-    launches (every host dispatch that reaches the card).  The profiler now
+def profile_image(torch, run, name, unprofiled, tries=5, what="image"):
+    """One image (or other ``what``: a train step) under torch.profiler:
+    device time, the device's idle share of the image's wall time and the
+    count of CUDA kernels the image launches (every host dispatch that
+    reaches the card).  The profiler now
     and then loses kernel rows; a trace whose rows of the port's kernels do
     not match the launches ``cuda_build`` counted during it is taken again,
     and after ``tries`` such traces this raises.  ``unprofiled``: (wall ms,
@@ -1315,16 +1331,16 @@ def profile_image(torch, run, name, unprofiled, tries=5):
         log(f"    [{name}] profiler trace lost kernel rows: rows {lost} against launches "
             f"{launches}; tracing again")
     else:
-        raise RuntimeError(f"[{name}] {tries} profiler traces of one image lost kernel rows")
+        raise RuntimeError(f"[{name}] {tries} profiler traces of one {what} lost kernel rows")
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
     n_kernels = sum(e.count for e in rows)
     idle = 1 - dev_ms / wall_ms if dev_ms < wall_ms else None
     idle_text = (f"device idle {100 * idle:.1f}%" if idle is not None else
                  "device idle not resolved (traced device time above the wall time)")
-    log(f"[{name}] profile: device time {dev_ms:.1f} ms per image; unprofiled image "
+    log(f"[{name}] profile: device time {dev_ms:.1f} ms per {what}; unprofiled {what} "
         f"{wall_ms:.1f} ms -> {idle_text}; "
-        f"{n_kernels} CUDA kernels per image; the traced image took {traced_ms:.1f} ms; "
-        f"card during the unprofiled image: {card_text}")
+        f"{n_kernels} CUDA kernels per {what}; the traced {what} took {traced_ms:.1f} ms; "
+        f"card during the unprofiled {what}: {card_text}")
     log(events.table(sort_by="self_device_time_total", row_limit=15))
     return {"device_ms": dev_ms, "idle": idle, "cuda_kernels": n_kernels,
             "profiled_wall_ms": wall_ms, "traced_wall_ms": traced_ms}
@@ -1834,6 +1850,208 @@ def run_serving(torch, dev, pipe, default, lat):
     return res
 
 
+# Training (phase 16), the JAX example's settings
+# (examples/optimize_train_text_to_image_lora.py:31-35): SD1.5's UNet in
+# bf16, an f32 rank-4 LoRA, AdamW at 1e-4, batch 4 of 64×64×4 f32 latents
+# and 77×768 f32 text embeddings, kernels off; 1 untimed step, 5 timed.
+TRAIN_BATCH = 4
+TRAIN_RANK = 4
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 6
+# B's gradient at step 1 (batch 1) of the bf16 UNet against an f32 copy:
+# bf16 activations through the UNet's depth, forward and backward
+TRAIN_GRAD_RMS_REL = 5e-2
+# the refused step's forward under CompilationConfig.Default(): the 5
+# level-0 self-attentions of one eval, the batch folded into each launch
+EXPECTED_REFUSED_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0) | {"flash_attention": 5}
+
+
+def train_b_grads(torch, unet, lora0, batch, t, noise, ccfg):
+    """B's gradient (flat, f32) of one train step of ``unet`` from LoRA
+    ``lora0`` on ``batch`` with the given t and noise, read by the
+    optimizer's pre-step hook of an AdamW at lr 0 (the step changes
+    nothing)."""
+    from sfast_tpu_torch.training import lora_factors, make_lora_train_step
+
+    lora = {m: {k: f[k].detach().clone().requires_grad_(True) for k in ("a", "b")}
+            for m, f in lora0.items()}
+    opt = torch.optim.AdamW(lora_factors(lora), lr=0.0)
+    grads = []
+    opt.register_step_pre_hook(lambda o, a, k: grads.append(
+        torch.cat([lora[m]["b"].grad.float().flatten() for m in lora])))
+    make_lora_train_step(unet, opt, ccfg=ccfg)(lora, batch, t=t, noise=noise)
+    return grads[0]
+
+
+def run_training(torch, dev, pipe, default, lat):
+    """Phase 16: LoRA training on phase 4's SD1.5 UNet at full width with
+    the kernels off (6 steps, 5 timed with CUDA events), B's gradient
+    against an f32 copy, the refusal under the default configuration, the
+    trained LoRA saved and loaded (``utils/checkpoint``), then swapped into
+    the compiled pipeline and back."""
+    import tempfile
+
+    from sfast_tpu_torch import CompilationConfig, lora
+    from sfast_tpu_torch.models import SD15_UNET, UNet2DConditionModel
+    from sfast_tpu_torch.runtime import cuda_build
+    from sfast_tpu_torch.training import lora_training_setup, make_lora_train_step
+    from sfast_tpu_torch.utils import checkpoint
+    from sfast_tpu_torch.utils.image import denormalize_to_uint8
+
+    plain = CompilationConfig(enable_kernels=False)
+    kw = call_kwargs(torch)
+    res = {}
+
+    def image():
+        return denormalize_to_uint8(pipe(**kw, latents=lat, output_type="float").images)
+
+    pipe.set_compilation_config(CompilationConfig.Default())
+    if not torch.equal(image(), default["graphed"]["u8"]):  # captures the stepwise graphs
+        raise AssertionError("[training] the pipeline's image before training differs from "
+                             "phase 4's graphed image")
+    graphs = pipe_graphs(pipe)
+
+    # SD1.5 at 512²: 64×64×4 latents, 77×768 text embeddings
+    shape = (TRAIN_BATCH, kw["height"] // 8, kw["width"] // 8, 4)
+    g = torch.Generator(device=dev).manual_seed(16)
+    batch = {"latents": torch.randn(shape, generator=g, device=dev),
+             "context": torch.randn((TRAIN_BATCH, 77, pipe.unet.config.cross_attention_dim),
+                                    generator=g, device=dev)}
+    trained, opt = lora_training_setup(pipe.unet, rank=TRAIN_RANK, learning_rate=TRAIN_LR,
+                                       generator=torch.Generator(device=dev).manual_seed(17))
+    lora0 = {m: {k: f[k].detach().clone() for k in ("a", "b")} for m, f in trained.items()}
+    step = make_lora_train_step(pipe.unet, opt, ccfg=plain)
+    t1 = torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device=dev)
+    noise1 = torch.randn(shape, generator=g, device=dev)
+
+    # the training run: step 1 on the draws above (untimed), 5 timed steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    losses, device_ms, host_ms = [], [], []
+
+    def timed_step(**draws):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        loss = step(trained, batch, g, **draws)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+        losses.append(loss.item())
+
+    timed_step(t=t1, noise=noise1)
+    unmoved = [m for m, f in trained.items() if not bool(f["b"].abs().max() > 0)]
+    with CardSampler() as card:
+        for _ in range(TRAIN_STEPS - 1):
+            timed_step()
+    counts = dict(cuda_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    timed = device_ms[1:]
+    res.update(losses=losses, step_ms=timed, step_host_ms=host_ms[1:], first_step_ms=device_ms[0],
+               step_ms_median=statistics.median(timed), step_ms_min=min(timed),
+               step_ms_max=max(timed), peak_gib=peak, peak_reserved_gib=reserved,
+               lora_modules=len(trained), counts=counts)
+    log(f"[training] SD1.5 UNet bf16, LoRA rank {TRAIN_RANK} f32 on {len(trained)} modules, "
+        f"batch {TRAIN_BATCH} at {shape[1]}x{shape[2]}x4, AdamW lr {TRAIN_LR}, kernels off: "
+        f"ms per step (CUDA events) {[round(t, 3) for t in timed]}, median "
+        f"{res['step_ms_median']:.3f}, spread "
+        f"{res['step_ms_min']:.3f} to {res['step_ms_max']:.3f}; host ms "
+        f"{[round(t, 3) for t in host_ms[1:]]}; first step {device_ms[0]:.3f} ms; losses "
+        f"{[round(x, 6) for x in losses]}; peak {peak:.2f} GiB allocated, {reserved:.2f} GiB "
+        f"reserved; launches {counts}; card: {card.text()}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[training] a loss is not finite: {losses}")
+    if unmoved:
+        raise AssertionError(f"[training] step 1 left {len(unmoved)} B factors at zero: "
+                             f"{unmoved[:3]}")
+    if any(counts.values()):
+        raise AssertionError(f"[training] a kernel launched with the kernels off: {counts}")
+    # one more step under the profiler: device time, idle share, the kernels by time
+    res["profile"] = profile_image(torch, lambda: step(trained, batch, g), "training step",
+                                   unprofiled=(res["step_ms_median"], card.text()),
+                                   what="step")
+
+    # B's gradient at step 1, batch 1: the bf16 UNet against an f32 copy
+    one = {k: v[:1] for k, v in batch.items()}
+    got = train_b_grads(torch, pipe.unet, lora0, one, t1[:1], noise1[:1], plain)
+    f32 = UNet2DConditionModel(SD15_UNET, device=dev, dtype=torch.float32)
+    f32.load_state_dict(pipe.unet.module.state_dict())
+    ref = train_b_grads(torch, f32, lora0, one, t1[:1], noise1[:1], plain)
+    del f32
+    _, _, rms = rel_errors(got, ref)
+    res["b_grad_rms_rel"] = rms
+    log(f"[training] B's gradient at step 1 (batch 1, the same t and noise), bf16 UNet vs an "
+        f"f32 copy: rms_rel {rms:.3e} (bound {TRAIN_GRAD_RMS_REL:g})")
+    if not rms <= TRAIN_GRAD_RMS_REL:
+        raise AssertionError(f"[training] B's gradient rms_rel {rms} > {TRAIN_GRAD_RMS_REL}")
+
+    # the default configuration: K1 launches in the forward, the backward refuses
+    before = {m: {k: f[k].detach().clone() for k in ("a", "b")} for m, f in trained.items()}
+    state = {id(p): {k: v.clone() for k, v in s.items()} for p, s in opt.state.items()}
+    cuda_build.reset_launch_counts()
+    refusal = None
+    try:
+        make_lora_train_step(pipe.unet, opt)(trained, batch, g)
+    except RuntimeError as e:
+        refusal = str(e)
+    refused_counts = dict(cuda_build.launch_counts)
+    kept = all(torch.equal(f[k], before[m][k]) for m, f in trained.items() for k in ("a", "b"))
+    kept_state = all(torch.equal(opt.state[p][k], v) for p in opt.state
+                     for k, v in state[id(p)].items())
+    res["refusal"] = {"message": refusal, "launches": refused_counts, "lora_unchanged": kept,
+                      "optimizer_state_unchanged": kept_state}
+    log(f"[training] under CompilationConfig.Default(): forward launches {refused_counts}; the "
+        f"backward raised: {refusal!r}; LoRA unchanged {kept}, optimizer state unchanged "
+        f"{kept_state}")
+    if refusal is None or "flash_attention" not in refusal or \
+            "enable_kernels=False" not in refusal:
+        raise AssertionError(f"[training] the default configuration's backward did not refuse: "
+                             f"{refusal!r}")
+    if refused_counts != EXPECTED_REFUSED_LAUNCHES or not kept or not kept_state:
+        raise AssertionError(f"[training] refused step: launches {refused_counts} (expected "
+                             f"{EXPECTED_REFUSED_LAUNCHES}), LoRA kept {kept}, state {kept_state}")
+    del before, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # train, then serve: the LoRA through a checkpoint file into the graphs
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "lora.npz")
+        checkpoint.save_params(path, trained)
+        loaded = checkpoint.nest(checkpoint.load_params(path, device=dev))
+    if not all(torch.equal(loaded[m][k], f[k]) for m, f in trained.items() for k in ("a", "b")):
+        raise AssertionError("[training] the LoRA read back from its checkpoint differs")
+    base = {k: v.clone() for k, v in pipe.unet.module.state_dict().items()}
+    lora.switch_lora(pipe.unet, base, loaded)
+    merged = pipe.unet.module.state_dict()
+    changed = sum(int((merged[m + ".weight"] != base[m + ".weight"]).sum()) for m in loaded)
+    cuda_build.reset_launch_counts()
+    lora_u8 = image()
+    counts = dict(cuda_build.launch_counts)
+    captured = pipe_graphs(pipe) != graphs
+    diff = (lora_u8.int() - default["graphed"]["u8"].int()).abs().max().item()
+    lora.switch_lora(pipe.unet, base, loaded, 0.0)
+    restored = torch.equal(image(), default["graphed"]["u8"])
+    res["serve"] = {"weights_changed": changed, "image_max_uint8_change": diff,
+                    "captured": captured, "launches": counts, "restored_bit_for_bit": restored}
+    log(f"[training] the trained LoRA saved and read back ({len(loaded)} modules), swapped into "
+        f"the compiled pipeline: {changed} weight elements changed; image changed by up to "
+        f"{diff} uint8 levels against phase 4's; launches {counts}; a graph captured: "
+        f"{captured}; swapped back with scale 0, phase 4's image bit for bit: {restored}")
+    if captured or counts != EXPECTED_LAUNCHES or diff == 0 or not restored:
+        raise AssertionError(f"[training] serve: captured {captured}, launches {counts}, "
+                             f"change {diff}, restored {restored}")
+    del base, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_lora(torch, dev, pipe):
     """Phase 8: a seeded rank-8 LoRA on every UNet attention projection,
     swapped in on the stepwise graphs, then on the fused loop."""
@@ -2089,7 +2307,8 @@ def run_sdxl(torch, dev):
     res["eager_image_s"] = time.perf_counter() - t
     log(f"[sdxl eager] one image of seed 5 and its decode: {res['eager_image_s']:.1f} s")
     res["graphed"] = run_mode(torch, dev, pipe, "sdxl graphed", CompilationConfig.Default(),
-                              EXPECTED_SDXL_LAUNCHES, None, base=kw, timed_images=1)
+                              EXPECTED_SDXL_LAUNCHES, None, base=kw, timed_images=1,
+                              profile=False)
     res["graphed"]["vs_eager"] = compare_runs(torch, "sdxl graphed vs eager", eager,
                                               res["graphed"])
     res["fused"] = run_mode(torch, dev, pipe, "sdxl fused loop",
@@ -2492,7 +2711,8 @@ def run_controlnet(torch, dev, pipe):
     optin = CompilationConfig(enable_fused_group_norm=True, enable_fused_linear_geglu=True,
                               enable_int8_attention=True)
     res["optin"] = run_mode(torch, dev, cpipe, "controlnet opt-in graphed", optin,
-                            EXPECTED_CN_OPTIN_LAUNCHES, None, base=kw, timed_images=1)
+                            EXPECTED_CN_OPTIN_LAUNCHES, None, base=kw, timed_images=1,
+                            profile=False)
     log_pools(torch, cpipe, "controlnet")
     res["lora"] = lora_swap_check(torch, dev, cpipe, "controlnet",
                                   dict(kw, seed=0, output_type="pt"), EXPECTED_CN_LAUNCHES,
@@ -3227,6 +3447,7 @@ def main():
     log_pools(torch, pipe, "sd1.5 phases 4 to 9")
     serving = phase("15 serving and the compile surface", run_serving, torch, dev, pipe,
                     default, lat)
+    phase("16 training", run_training, torch, dev, pipe, default, lat)
     sdxl = phase("10 sdxl", run_sdxl, torch, dev)
     quant_res = {}
     sdxl_pipe = sdxl.pop("pipe")

@@ -26,7 +26,11 @@ and ``compile_vae`` wrap one model alone (an IP-Adapter's image encoder),
 and captures new shapes in the background with ``warmup(background=True)``.  ``quant`` quantizes a
 pipeline's UNet and ControlNet to int8 (W8A16, dynamic W8A8, or static
 W8A8 from a calibration); ``models.AutoencoderTiny`` (TAESD) can take the
-VAE's slots.
+VAE's slots.  ``training`` fine-tunes a LoRA of the UNet with
+``CompilationConfig(enable_kernels=False)``: no kernel has a backward, and
+each refuses one loudly (``runtime/cuda_build.no_backward``).  ``profile``,
+``utils.checkpoint``, ``utils.debug``, ``utils.term_image`` and
+``text.fetch_vocab`` are the JAX package's tools.
 """
 
 from sfast_tpu_torch.utils.env import setup_environment

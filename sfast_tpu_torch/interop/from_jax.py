@@ -12,7 +12,7 @@ reads without importing JAX — into f32 state dicts for
 whose ``load_state_dict``
 casts to the model's dtype; IP-Adapter trees into the UNet's added attn2
 keys and the image projection's; and LoRA trees into the port's LoRA
-layout (``sfast_tpu_torch/lora.py``).
+layout (``sfast_tpu_torch/lora.py``) and back (:func:`lora_to_jax`).
 
 UNet and VAE follow ``sfast_tpu/interop/export_unet.py:16-126`` and
 ``export_vae.py:16-63``, the temporal VAE ``export_vae.py:65-126``; CLIP
@@ -473,6 +473,21 @@ def module_names(params, state_dict_fn=unet_state_dict) -> Dict[tuple, str]:
         if path[-1] == "w":
             out[path] = key.rsplit(".", 1)[0]
     return out
+
+
+def lora_to_jax(lora, params):
+    """The port's LoRA (module name → {"a", "b"}) → JAX's tree, keyed by
+    the weight path of each module in ``params`` (through
+    :func:`module_names`), the factors as f32 numpy copies (a CPU tensor's
+    ``numpy()`` shares its memory, which a JAX array may share in turn, so
+    an optimizer step on the port's factors would reach JAX's): the
+    reverse of :func:`lora_params`."""
+    paths = {name: path for path, name in module_names(params).items()}
+    missing = [m for m in lora if m not in paths]
+    if missing:
+        raise KeyError(f"lora_to_jax: no JAX weight for {missing[:3]}")
+    return {paths[m]: {k: np.array(f[k].detach().float().cpu().numpy()) for k in ("a", "b")}
+            for m, f in lora.items()}
 
 
 def calibration_from_jax(cal, params, state_dict_fn=unet_state_dict):

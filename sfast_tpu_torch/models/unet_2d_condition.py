@@ -300,6 +300,7 @@ class UNet2DConditionModel(UNetTrunk):
         mid_block_additional_residual: Optional[torch.Tensor] = None,
         ip_adapter_embeds: Optional[torch.Tensor] = None,
         ip_adapter_scale=1.0,
+        compilation_config: Optional[CompilationConfig] = None,
     ) -> torch.Tensor:
         """sample (B, H, W, C_in) NHWC latents, timesteps () or (B,),
         encoder_hidden_states (B, S, cross_dim) → predicted noise
@@ -310,8 +311,9 @@ class UNet2DConditionModel(UNetTrunk):
         pass's order, and the mid block's) are added in f32;
         ``ip_adapter_embeds`` (B, N, cross_dim) and ``ip_adapter_scale`` (a
         float or a 0-d tensor) reach every ``attn2`` that holds IP
-        projections."""
-        be = backends(self.compilation_config)
+        projections.  ``compilation_config`` routes this call in place of
+        the module's own, which stays as it is (the trainer's ``ccfg``)."""
+        be = backends(compilation_config or self.compilation_config)
         emb = self.embed(sample, timesteps, added_cond_kwargs, timestep_cond)
         context = encoder_hidden_states.to(self.dtype)
         ip = {}

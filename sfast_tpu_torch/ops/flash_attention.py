@@ -52,6 +52,7 @@ def _aligned(t: torch.Tensor) -> bool:
     )
 
 
+@cuda_build.no_backward("flash_attention")
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -180,6 +180,7 @@ def flash_attention_int8_ref(
     return out.reshape(b, h, sq, d)
 
 
+@cuda_build.no_backward("quantize_qkv")
 def quantize_qkv_cuda(q, k, v, scale: float) -> KernelInputs:
     """K6's pre-processing on the card, 2 launches: the same values as
     :func:`kernel_inputs` up to the order of the sums (a code may land one
@@ -213,6 +214,7 @@ def quantize_qkv_cuda(q, k, v, scale: float) -> KernelInputs:
     return out
 
 
+@cuda_build.no_backward("flash_attention_int8")
 def flash_attention_int8_body(
     inputs: KernelInputs, shape, *, causal: bool = False
 ) -> torch.Tensor:

@@ -66,6 +66,7 @@ def conv3x3_block_ref(
     return out, y.sum(dim=(1, 2)), (y * y).sum(dim=(1, 2))
 
 
+@cuda_build.no_backward("conv3x3")
 def conv3x3_block(
     x: torch.Tensor,
     w: torch.Tensor,

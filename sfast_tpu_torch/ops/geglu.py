@@ -64,6 +64,7 @@ def linear_geglu_fused_ref(
     return (h * F.gelu(g, approximate="tanh")).to(x.dtype)
 
 
+@cuda_build.no_backward("linear_geglu")
 def linear_geglu_fused(
     x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None
 ) -> torch.Tensor:

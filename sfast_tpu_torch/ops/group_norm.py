@@ -214,6 +214,7 @@ def _ticket(x: torch.Tensor, n: int) -> torch.Tensor:
     return t
 
 
+@cuda_build.no_backward("group_norm_stats")
 def group_norm_stats(
     x: torch.Tensor, *, groups: int = 32, eps: float = 1e-5
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -272,6 +273,7 @@ def group_norm_apply_ref(
     return _act(y, act).to(x.dtype)
 
 
+@cuda_build.no_backward("group_norm_apply")
 def group_norm_apply(
     x: torch.Tensor,
     mean: torch.Tensor,
@@ -324,6 +326,7 @@ def group_norm_fused_ref(
     return group_norm_apply_ref(x, mean, rstd, gamma, beta, act=act), mean, rstd
 
 
+@cuda_build.no_backward("group_norm_fused")
 def group_norm_fused(
     x: torch.Tensor,
     gamma: torch.Tensor,

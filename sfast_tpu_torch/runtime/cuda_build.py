@@ -25,10 +25,20 @@ The counts are shared by every thread and kept under a lock; each thread
 also keeps its own (:func:`thread_launch_counts`), so that a thread
 serving images beside a thread that warms up other shapes can count what
 its own images launched.
+
+No kernel has a backward, as no Pallas kernel of the JAX package has one.
+A launch writes into a buffer through ctypes, so its output would carry no
+``grad_fn`` and a backward pass would drop the gradient behind it without
+a word.  Each wrapper is therefore decorated with :func:`no_backward`:
+where autograd records (grad mode on and a tensor off the CPU that
+requires grad) the wrapper runs as the forward of :class:`NoBackward`,
+whose backward raises; anywhere else (the CPU's plain versions,
+``no_grad``, ``inference_mode``, the graphed paths) it is a plain call.
 """
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -37,6 +47,9 @@ import threading
 import time
 from pathlib import Path
 from typing import Optional
+
+import torch
+from torch.utils import _pytree as pytree
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
@@ -236,6 +249,54 @@ def check(err: int, what: str) -> None:
 
 def stream_ptr(t) -> int:
     """PyTorch's current stream on ``t``'s device, as the C interface takes it."""
-    import torch
-
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class NoBackward(torch.autograd.Function):
+    """A kernel launch as autograd records it: the forward returns
+    ``launch(*inputs)``, the backward raises."""
+
+    @staticmethod
+    def forward(ctx, kernel, launch, *inputs):
+        ctx.kernel = kernel
+        return launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            f"{ctx.kernel}: the hand-written CUDA kernel has no backward, so autograd cannot "
+            "differentiate through it (neither can the JAX package differentiate its Pallas "
+            "counterpart: pallas_call has no JVP rule). To train, send every op to its plain "
+            "PyTorch version with CompilationConfig(enable_kernels=False).")
+
+
+def no_backward(kernel: str):
+    """Decorator for the launch wrapper of kernel ``kernel``: where autograd
+    would record the call, it runs as the forward of :class:`NoBackward`, so
+    that a backward pass through the kernel raises instead of losing the
+    gradient.  Tensors are found in the arguments' tuples too (K6's
+    ``KernelInputs``), and the result keeps its structure."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not torch.is_grad_enabled():
+                return fn(*args, **kwargs)
+            leaves, spec = pytree.tree_flatten((args, kwargs))
+            if not any(isinstance(t, torch.Tensor) and t.requires_grad
+                       and t.device.type != "cpu" for t in leaves):
+                return fn(*args, **kwargs)  # the CPU's plain versions keep their gradients
+            out_spec = []
+
+            def launch(*leaves):
+                a, kw = pytree.tree_unflatten(list(leaves), spec)
+                out, s = pytree.tree_flatten(fn(*a, **kw))
+                out_spec.append(s)
+                return tuple(out)
+
+            out = NoBackward.apply(kernel, launch, *leaves)
+            return pytree.tree_unflatten(list(out), out_spec[0])
+
+        return wrapper
+
+    return wrap

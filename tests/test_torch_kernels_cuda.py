@@ -26,9 +26,13 @@ of the codes (the means are summed in another order) and 1e-6 relative in
 its f32 outputs.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
+from sfast_tpu_torch import CompilationConfig
+from sfast_tpu_torch.models import TINY_UNET, UNet2DConditionModel, init_weights_
 from sfast_tpu_torch.ops import fused_conv
 from sfast_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
 from sfast_tpu_torch.ops.flash_attention_int8 import (
@@ -50,6 +54,7 @@ from sfast_tpu_torch.ops.group_norm import (
     group_norm_stats_ref,
 )
 from sfast_tpu_torch.runtime import cuda_build
+from sfast_tpu_torch.training import lora_training_setup, make_lora_train_step
 
 pytestmark = pytest.mark.cuda
 BF16 = torch.bfloat16
@@ -698,3 +703,76 @@ def test_conv3x3_at_the_sdxl_unet_shapes(dev, c, f, kind):
         (got, s1, s2), (ref, r1, r2) = got, ref
         assert _max_rel(s1, r1) <= 1e-3 and _max_rel(s2, r2) <= 1e-3
     assert _rms_rel(got, ref) <= 2e-2
+
+
+def _grad_cases(dev):
+    """kernel name → (wrapper, its inputs, the first requiring grad)."""
+    def leaf(t):
+        return t.detach().requires_grad_(True)
+
+    q, k, v = (_randn(dev, 1, 2, 1024, 40, seed=s) for s in (50, 51, 52))
+    x = _randn(dev, 2, 16, 16, 320, seed=53)
+    c = x.shape[-1]
+    ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    mean, rstd = group_norm_stats(x, groups=32)
+    w3 = (_randn(dev, 64, 3, 3, c, seed=54) / 54).permute(1, 2, 3, 0)
+    xg, wg = _randn(dev, 128, 128, seed=55), _randn(dev, 512, 128, seed=56) / 12
+    return {
+        "flash_attention": (flash_attention, (leaf(q), k, v)),
+        "flash_attention_int8": (flash_attention_int8, (leaf(q), k, v)),
+        "group_norm_stats": (lambda x: group_norm_stats(x, groups=32), (leaf(x),)),
+        "group_norm_apply": (group_norm_apply, (leaf(x), mean, rstd, ones, zeros)),
+        "group_norm_fused": (lambda x, g, b: group_norm_fused(x, g, b, groups=32),
+                             (leaf(x), ones, zeros)),
+        "conv3x3": (fused_conv.conv3x3_block, (leaf(x), w3)),
+        "linear_geglu": (linear_geglu_fused, (leaf(xg), wg)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "flash_attention_int8",
+                                    "group_norm_stats", "group_norm_apply",
+                                    "group_norm_fused", "conv3x3", "linear_geglu"])
+def test_a_launch_under_autograd_refuses_the_backward(dev, kernel):
+    """Each wrapper with an input that requires grad: the forward launches
+    and gives the values it gives under ``no_grad``; the backward raises,
+    naming the kernel and ``enable_kernels=False``."""
+    fn, inputs = _grad_cases(dev)[kernel]
+    with torch.no_grad():
+        ref = fn(*inputs)
+    got = fn(*inputs)
+    outs = [t for t in (got if isinstance(got, tuple) else (got,)) if t is not None]
+    refs = [t for t in (ref if isinstance(ref, tuple) else (ref,)) if t is not None]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(outs, refs))
+    assert all(t.requires_grad for t in outs)
+    name = "quantize_qkv|flash_attention_int8" if kernel == "flash_attention_int8" else kernel
+    with pytest.raises(RuntimeError, match=f"({name}): .*enable_kernels=False"):
+        sum(t.float().sum() for t in outs).backward()
+
+
+def test_lora_train_step_on_the_card(dev):
+    """The trainer on a tiny bf16 UNet whose three level-0
+    self-attentions (32² latents: 1,024 tokens) take K1 under the default
+    configuration: with ``enable_kernels=False`` a step launches nothing
+    and moves every B; under the default the backward raises, and the LoRA
+    and the optimizer's state stay as they were."""
+    g = torch.Generator(device=dev).manual_seed(60)
+    cfg = dataclasses.replace(TINY_UNET, cross_attention_dim=64)
+    unet = init_weights_(UNet2DConditionModel(cfg, device=dev, dtype=BF16), g)
+    batch = {"latents": torch.randn((2, 32, 32, 4), generator=g, device=dev),
+             "context": torch.randn((2, 7, 64), generator=g, device=dev)}
+    lora, opt = lora_training_setup(unet, rank=2)
+    step = make_lora_train_step(unet, opt, ccfg=CompilationConfig(enable_kernels=False))
+    cuda_build.reset_launch_counts()
+    loss = step(lora, batch, torch.Generator(device=dev).manual_seed(61))
+    assert torch.isfinite(loss) and not any(cuda_build.launch_counts.values())
+    assert all(f["b"].abs().max() > 0 for f in lora.values())
+    before = {m: {k: f[k].detach().clone() for k in ("a", "b")} for m, f in lora.items()}
+    state = {id(p): {k: v.clone() for k, v in s.items()} for p, s in opt.state.items()}
+    default = make_lora_train_step(unet, opt)
+    with pytest.raises(RuntimeError, match="flash_attention: .*enable_kernels=False"):
+        default(lora, batch, torch.Generator(device=dev).manual_seed(62))
+    assert cuda_build.launch_counts["flash_attention"] == 3  # level 0: 1 down, 2 up
+    assert all(torch.equal(f[k], before[m][k]) for m, f in lora.items() for k in ("a", "b"))
+    assert all(torch.equal(opt.state[p][k], v) for p in opt.state
+               for k, v in state[id(p)].items())

@@ -156,6 +156,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     (phase 4's graphed image bit for bit, which phases 11, 12 and 14
     reuse).
 
+17. the mesh, after phase 16: ``init_process_group("nccl")`` as rank 0 of
+    a world of 1 (a file store), ``parallel.make_mesh((1, 1, 1), ("dp",
+    "tp", "sp"))``, and phase 4's SD1.5 weights in new modules compiled
+    with ``CompilationConfig(mesh=...)``: every Linear the rule splits is
+    tensor-parallel, its all-reduces and all-gathers (counted from the
+    sharded modules and printed) captured in the graphs.  The graphed
+    image of phase 4's latents equals phase 4's graphed image bit for bit,
+    with phase 4's launches; the graphs' nodes against phase 4's, and one
+    timed image against phase 4's e2e.  A rank-8 LoRA swapped in under the
+    mesh captures nothing and changes the image; swapped back, the image
+    is restored bit for bit.  ``ring_attention`` on an ``sp`` group of one
+    at SD1.5's level 0 (2, 8, 4096, 40) and SVD's (2, 5, 9216, 64) bf16
+    against ``flash_attention_ref``, timed beside K1 (plain torch in f32:
+    no kernel).  The process group is destroyed at the end;
+18. the six ``examples_torch/`` scripts, last (after phase 13 freed the
+    card), each in this process through its ``main`` at full width on the
+    card: SD, LCM and LCM-LoRA (1 warm-up, 1 timed image), InstantID (30
+    steps), SVD (2 steps, 25 frames at 576×1024) and LoRA training (3
+    steps, no mesh); each prints its ms, and one that raises fails the run.
+    The launch counts are set to 0 before each script and read after it:
+    each pipeline script must have launched K1, K2 and K3, and the
+    training script (the kernels off) none.
+
 Each phase prints its seconds and the graphs its pipeline holds, with
 their nodes, capture and instantiate seconds, and the peak memory.
 
@@ -1465,11 +1488,12 @@ def fresh_unet(torch, dev, module, state):
     return fresh
 
 
-def lora_swap_check(torch, dev, pipe, slot, kw, expected, label):
+def lora_swap_check(torch, dev, pipe, slot, kw, expected, label, cfg=None):
     """A seeded rank-8 LoRA on every attention projection of the module in
-    ``pipe``'s ``slot``, swapped into the stepwise graphs: the image
-    changes, the launches are ``expected``, no graph is captured, and
-    swapping back restores the base image bit for bit."""
+    ``pipe``'s ``slot``, swapped into the stepwise graphs of ``cfg`` (the
+    default config where None): the image changes, the launches are
+    ``expected``, no graph is captured, and swapping back restores the base
+    image bit for bit."""
     from sfast_tpu_torch import CompilationConfig, lora
     from sfast_tpu_torch.runtime import cuda_build
 
@@ -1479,7 +1503,7 @@ def lora_swap_check(torch, dev, pipe, slot, kw, expected, label):
     g = torch.Generator(device=dev).manual_seed(13)
     for f in lo.values():
         f["b"] = torch.randn(f["b"].shape, generator=g, device=dev) * 0.02
-    pipe.set_compilation_config(CompilationConfig.Default())
+    pipe.set_compilation_config(cfg or CompilationConfig.Default())
     pipe(**kw)  # captures the stepwise graphs
     base_img = pipe(**kw).images
     graphs = pipe_graphs(pipe)
@@ -3291,8 +3315,207 @@ def run_svd(torch, dev):
     return res
 
 
+# The mesh (phase 17): ring attention at SD1.5's level 0 and SVD's level 0
+# on 2 of its 50 batch rows, on an sp group of one
+RING_SHAPES = [(2, 8, 4096, 40), (2, 5, 9216, 64)]
+
+
+def collectives(module, prefix=""):
+    """(all-reduces, all-gathers) that one forward of ``module``'s modules
+    under ``prefix`` issues, read from its tensor-parallel linears: a
+    row-parallel linear reduces, a column-parallel one outside its pair
+    gathers."""
+    from sfast_tpu_torch.parallel.tensor_parallel import parallel_linears
+
+    ar = ag = 0
+    for name, m in parallel_linears(module).items():
+        if name.startswith(prefix):
+            ar += m.mode == "row"
+            ag += m.mode == "column" and not m.local
+    return ar, ag
+
+
+def ring_check(torch, dev, mesh):
+    """``ring_attention`` on the mesh's ``sp`` group of one against
+    ``flash_attention_ref``, timed beside K1 (its launches here are not
+    the main path's: the caller counts before)."""
+    from sfast_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+    from sfast_tpu_torch.parallel.ring_attention import ring_attention
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+    for b, h, n, d in RING_SHAPES:
+        q, k, v = (torch.randn((b, h, n, d), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        got = ring_attention(q, k, v, mesh=mesh, axis="sp")
+        max_abs, max_rel, rms = rel_errors(got, flash_attention_ref(q, k, v))
+        row = {"shape": (b, h, n, d), "max_abs_err": max_abs, "rms_rel": rms,
+               "ring_ms": cuda_ms(lambda: ring_attention(q, k, v, mesh=mesh, axis="sp"), 5),
+               "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v), 5),
+               "k1_ms": cuda_ms(lambda: flash_attention(q, k, v), 10),
+               "bound_ms": bound(4 * b * h * n * n * d, 2 * b * h * d * 4 * n)[0]}
+        log(f"[mesh] ring_attention {row['shape']} bf16, sp group of 1: max_rel {max_rel:.3e} "
+            f"rms_rel {rms:.3e} against flash_attention_ref; ring {row['ring_ms']:.3f} ms, "
+            f"plain {row['plain_ms']:.3f} ms, K1 {row['k1_ms']:.4f} ms (CUDA events, one call); "
+            f"bound {row['bound_ms']:.4f} ms")
+        if not rms <= K1_RMS_REL:
+            raise AssertionError(f"[mesh] ring_attention rms rel error {rms} > {K1_RMS_REL}")
+        rows.append(row)
+    return rows
+
+
+def run_mesh(torch, dev, pipe, default, lat):
+    """Phase 17: phase 4's SD1.5 weights in new modules compiled over a
+    world-1 NCCL mesh (dp, tp, sp all 1), their collectives in the graphs;
+    the image against phase 4's bit for bit, a LoRA swap under the mesh,
+    and ring attention on an sp group of one."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import sfast_tpu_torch
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.models import (
+        SD15_TEXT_ENCODER, SD15_UNET, SD_VAE, AutoencoderKL, CLIPTextModel,
+        UNet2DConditionModel,
+    )
+    from sfast_tpu_torch.parallel import make_mesh
+    from sfast_tpu_torch.pipelines import StableDiffusionPipeline
+    from sfast_tpu_torch.runtime import cuda_build
+    from sfast_tpu_torch.schedulers import DPMSolverMultistepScheduler
+    from sfast_tpu_torch.utils.image import denormalize_to_uint8
+
+    bf16 = torch.bfloat16
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1, 1), ("dp", "tp", "sp"))
+            if mesh.device_type != "cuda" or dist.get_backend() != "nccl":
+                raise AssertionError(f"[mesh] {dist.get_backend()} mesh on {mesh.device_type}")
+            cfg = CompilationConfig(mesh=mesh)
+            t = time.perf_counter()
+            models = []
+            for cls, conf, src in ((UNet2DConditionModel, SD15_UNET, pipe.unet),
+                                   (AutoencoderKL, SD_VAE, pipe.vae),
+                                   (CLIPTextModel, SD15_TEXT_ENCODER, pipe.text_encoder)):
+                m = cls(conf, device=dev, dtype=bf16)
+                m.load_state_dict(src.module.state_dict())
+                models.append(m)
+            unet, vae, te = models
+            mpipe = sfast_tpu_torch.compile(
+                StableDiffusionPipeline(unet, vae, te, DPMSolverMultistepScheduler(),
+                                        vae_encode=vae, device=dev, dtype=bf16), cfg)
+            torch.cuda.synchronize()
+            res["build_s"] = time.perf_counter() - t
+            res["collectives"] = {"unet eval": collectives(mpipe.unet.module),
+                                  "text encoder": collectives(mpipe.text_encoder.module),
+                                  "vae decode": collectives(mpipe.vae.module, "decoder.")}
+            log(f"[mesh] {dist.get_backend()} world of {dist.get_world_size()}, mesh "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type}; modules "
+                f"built, loaded and sharded in {res['build_s']:.1f} s; collectives a call "
+                f"(all-reduce, all-gather): {res['collectives']}")
+            if res["collectives"]["unet eval"][0] == 0:
+                raise AssertionError("[mesh] the UNet holds no row-parallel linear")
+
+            kw = call_kwargs(torch)
+            t = time.perf_counter()
+            mpipe(**kw, seed=0, output_type="pt")  # captures, the all-reduces inside
+            torch.cuda.synchronize()
+            res["first_image_s"] = time.perf_counter() - t
+            graphs = graph_summary(torch, mpipe, replay=False)
+            res["nodes"] = {k: v["nodes"] for k, v in graphs.items()}
+            res["phase4_nodes"] = {k: v["nodes"] for k, v in default["graphed"]["graphs"].items()}
+            log(f"[mesh] first image {res['first_image_s']:.2f} s; graphs: {graphs_text(graphs)}; "
+                f"nodes {res['nodes']} against phase 4's {res['phase4_nodes']}")
+            cuda_build.reset_launch_counts()
+            mpipe(**kw, seed=0, output_type="pt")
+            torch.cuda.synchronize()
+            res["counts"] = dict(cuda_build.launch_counts)
+            if res["counts"] != EXPECTED_LAUNCHES:
+                raise AssertionError(f"[mesh] launches {res['counts']} != {EXPECTED_LAUNCHES}")
+            u8 = denormalize_to_uint8(mpipe(**kw, latents=lat, output_type="float").images)
+            ref = default["graphed"]["u8"]
+            res["bit_equal_phase4"] = torch.equal(u8, ref)
+            if not res["bit_equal_phase4"]:
+                diff = (u8.int() - ref.int()).abs().max().item()
+                raise AssertionError(f"[mesh] the image differs from phase 4's graphed image by "
+                                     f"{diff} uint8 levels")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mpipe(**kw, seed=1)
+            torch.cuda.synchronize()
+            res["e2e_ms"] = (time.perf_counter() - t) * 1e3
+            log(f"[mesh] launches per image {res['counts']}; phase 4's latents give phase 4's "
+                f"graphed image bit for bit; one timed image {res['e2e_ms']:.3f} ms (phase 4's "
+                f"graphed median {default['graphed']['e2e_ms']:.3f} ms)")
+            res["lora"] = lora_swap_check(torch, dev, mpipe, "unet",
+                                          dict(kw, seed=0, output_type="pt"), EXPECTED_LAUNCHES,
+                                          "mesh lora", cfg=cfg)
+            res["ring"] = ring_check(torch, dev, mesh)
+            del mpipe, unet, vae, te, models
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return res
+
+
+# The examples (phase 18): each script's arguments on the card
+EXAMPLES = (
+    ("optimize_stable_diffusion_pipeline", ["--repeats", "1", "--warmups", "1"]),
+    ("optimize_lcm_pipeline", []),
+    ("optimize_lcm_lora", ["--warmups", "1"]),
+    ("optimize_instant_id_pipeline", ["--steps", "30"]),
+    ("optimize_stable_video_diffusion_pipeline", ["--steps", "2"]),
+    ("optimize_train_text_to_image_lora", ["--steps", "3"]),
+)
+
+
+# K1, K2 and K3: what the SD-family and SVD examples launch on their default
+# routes; the training example runs with the kernels off and launches none
+EXAMPLE_KERNELS = ("flash_attention", "conv3x3", "group_norm_stats")
+TRAIN_EXAMPLE = "optimize_train_text_to_image_lora"
+
+
+def run_examples(torch):
+    """Phase 18: every ``examples_torch/`` script through its ``main`` on
+    the card at full width; their seconds (each script's own ms printed by
+    it) and the kernel launches of each script's run, the counts set to 0
+    just before it.  Fails where a pipeline script launched none of K1, K2
+    or K3, or the training script launched a kernel."""
+    import importlib
+
+    from sfast_tpu_torch.runtime import cuda_build
+
+    seconds, launches = {}, {}
+    for name, argv in EXAMPLES:
+        mod = importlib.import_module(f"examples_torch.{name}")
+        log(f"[examples] {name} {' '.join(argv)}")
+        t = time.perf_counter()
+        cuda_build.reset_launch_counts()
+        mod.main(argv)
+        torch.cuda.synchronize()
+        launches[name] = {k: n for k, n in cuda_build.launch_counts.items() if n}
+        seconds[name] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[examples] {name}: {seconds[name]:.1f} s in all (models built, graphs captured); "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated so far; "
+            f"launches {launches[name]}")
+        if name == TRAIN_EXAMPLE:
+            if launches[name]:
+                raise RuntimeError(f"[examples] {name}: the kernels are off, yet it launched "
+                                   f"{launches[name]}")
+        else:
+            missing = [k for k in EXAMPLE_KERNELS if not launches[name].get(k)]
+            if missing:
+                raise RuntimeError(f"[examples] {name}: no launch of {missing}")
+    return {"seconds": seconds, "launches": launches}
+
+
 def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_res,
-                 prompt_res, cn, svd, quant_res, serving, phase_s):
+                 prompt_res, cn, svd, quant_res, serving, phase_s, mesh, examples):
     """The ``{"kernels": [...]}`` line: per kernel its launches per image on
     each path (``launches``: the stepwise paths' sum) and the main-path
     case's numbers, every case under ``cases``; then each path's numbers."""
@@ -3350,6 +3573,7 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
                      "sdxl_optin_fused_conv": sdxl["fused_conv"]["counts"][name],
                      "lcm_taesd": taesd["graphed"]["counts"][name],
                      "serving": serving["counts"][name],
+                     "mesh": mesh["counts"][name],
                      "controlnet_w8a8": cn["w8a8"]["counts"][name],
                      **{f"{model}_{mode}".replace(" ", "_").replace(".", ""): r["counts"][name]
                         for model, res in quant_res.items() for mode, r in res.items()
@@ -3382,6 +3606,9 @@ def kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_re
                                                          "image_encoder", "ip_scale_0", "lora")},
                        "svd": {k: svd[k] for k in ("no_capture", "decode", "route",
                                                    "decode_route", "optin_route", "w8a8")},
+                       "mesh": {k: v for k, v in mesh.items() if k != "counts"},
+                       "examples_s": examples["seconds"],
+                       "examples_launches": examples["launches"],
                        "phase_s": phase_s})
 
 
@@ -3448,6 +3675,7 @@ def main():
     serving = phase("15 serving and the compile surface", run_serving, torch, dev, pipe,
                     default, lat)
     phase("16 training", run_training, torch, dev, pipe, default, lat)
+    mesh = phase("17 mesh", run_mesh, torch, dev, pipe, default, lat)
     sdxl = phase("10 sdxl", run_sdxl, torch, dev)
     quant_res = {}
     sdxl_pipe = sdxl.pop("pipe")
@@ -3476,9 +3704,12 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     log(f"before phase 13: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     svd = phase("13 svd", run_svd, torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = phase("18 examples", run_examples, torch)
 
     print(kernels_line(measured, default, optin, fused, img2img, sdxl, scheds, lora_res,
-                       prompt_res, cn, svd, quant_res, serving, phase_s))
+                       prompt_res, cn, svd, quant_res, serving, phase_s, mesh, examples))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -30,7 +30,10 @@ VAE's slots.  ``training`` fine-tunes a LoRA of the UNet with
 ``CompilationConfig(enable_kernels=False)``: no kernel has a backward, and
 each refuses one loudly (``runtime/cuda_build.no_backward``).  ``profile``,
 ``utils.checkpoint``, ``utils.debug``, ``utils.term_image`` and
-``text.fetch_vocab`` are the JAX package's tools.
+``text.fetch_vocab`` are the JAX package's tools.  ``parallel`` runs the
+models over a ``torch.distributed`` mesh (``CompilationConfig(mesh=...)``:
+Megatron tensor parallelism, ring attention over ``sp``), one process per
+device.
 """
 
 from sfast_tpu_torch.utils.env import setup_environment
@@ -46,6 +49,7 @@ from sfast_tpu_torch.compilers import (  # noqa: E402
 )
 from sfast_tpu_torch.config import CompilationConfig  # noqa: E402
 from sfast_tpu_torch.runtime.tracing import lazy_jit  # noqa: E402
+from sfast_tpu_torch.version import __version__  # noqa: E402
 
-__all__ = ["CompilationConfig", "compile", "compile_model", "compile_unet", "compile_vae",
-           "lazy_jit", "quant"]
+__all__ = ["CompilationConfig", "__version__", "compile", "compile_model", "compile_unet",
+           "compile_vae", "lazy_jit", "quant"]

@@ -29,6 +29,14 @@ name="image_encoder")``, as the reference's community example does.  The
 SVD pipeline holds one in its ``image_encoder`` slot, compiled with the
 rest; its temporal VAE's ``decode(latents, num_frames)`` keys a graph by
 the chunk's shape and ``num_frames``'s value.
+
+With ``config.mesh`` (JAX ``:67-88``) a compiled model shards its module on
+construction (``parallel/tensor_parallel.shard_module``, by
+``config.sharding_rules`` or the Megatron rule), after one eager collective
+on each of the mesh's groups, so that NCCL's communicators exist before a
+graph captures a collective.  ``compile`` hands every model the config,
+and so the mesh.  Every rank runs the same pipeline on the same inputs; a
+data-parallel caller hands each rank its ``dp`` slice of the batch.
 """
 
 import contextlib
@@ -63,7 +71,9 @@ class CompiledModel:
     Every other attribute is the module's (``unet.conv_in.weight``,
     ``vae.config``); ``compilation_config`` is the config it was given.  The graphs read the weights by address, so
     :meth:`update_params` copies new weights into the same tensors and
-    nothing is captured again (LoRA hot-swap)."""
+    nothing is captured again (LoRA hot-swap).  Under a mesh the module
+    holds the rank's shards, and :meth:`update_params` takes the full
+    weights and copies each rank's slice (JAX ``:216-237``)."""
 
     def __init__(self, module: torch.nn.Module, config: Optional[CompilationConfig] = None,
                  name: Optional[str] = None, method: str = "forward"):
@@ -72,11 +82,40 @@ class CompiledModel:
         self.method = method
         self._call = global_executable_cache().register(
             self.name, LazyCompiledFunction(getattr(module, method), name=self.name))
+        self._mesh = None
+        self._full_shapes = None  # under a mesh: the unsharded model's state-dict shapes
         self.set_compilation_config(config or CompilationConfig.Default())
+
+    def _shard(self, config: CompilationConfig) -> None:
+        from sfast_tpu_torch.parallel.sharding import spec_fn_from_rules, unet_param_spec
+        from sfast_tpu_torch.parallel.tensor_parallel import (
+            full_shapes,
+            init_communicators,
+            shard_module,
+        )
+
+        spec_fn = (spec_fn_from_rules(config.sharding_rules) if config.sharding_rules
+                   else unet_param_spec)
+        init_communicators(config.mesh)
+        shard_module(self.module, config.mesh, spec_fn)
+        self._mesh = config.mesh
+        self._full_shapes = full_shapes(self.module)
 
     def set_compilation_config(self, config: CompilationConfig) -> None:
         """Apply ``config``'s routes to the module and drop every graph: a
-        graph bakes in the kernel routes it was captured with."""
+        graph bakes in the kernel routes it was captured with.  The first
+        config with a mesh shards the module; a sharded module takes no
+        other mesh, and no config without one.  A ``cache_dir`` fixes the
+        process's build directory (``cuda_build.set_build_dir``)."""
+        if config.cache_dir is not None:
+            from sfast_tpu_torch.runtime import cuda_build
+
+            cuda_build.set_build_dir(config.cache_dir)
+        if config.mesh is not self._mesh:
+            if self._mesh is not None:
+                raise ValueError(f"{self.name}: the module is sharded over another mesh; a "
+                                 "sharded module keeps its mesh (compile a new module)")
+            self._shard(config)
         self.compilation_config = config
         self.module.compilation_config = config
         self.clear_cache()
@@ -112,17 +151,24 @@ class CompiledModel:
     @torch.no_grad()
     def update_params(self, state_dict) -> None:
         """Copy ``state_dict`` into the module's parameters and buffers in
-        place.  Its names and shapes must be the module's: anything else
-        raises, since the graphs would go on reading the old tensors."""
+        place.  Its names and shapes must be the module's (under a mesh:
+        the unsharded model's, of which each rank copies its slice):
+        anything else raises, since the graphs would go on reading the old
+        tensors."""
         own = self.module.state_dict(keep_vars=True)
         missing, extra = sorted(set(own) - set(state_dict)), sorted(set(state_dict) - set(own))
         if missing or extra:
             raise ValueError(f"{self.name}: state dict structure changed: missing {missing[:5]}, "
                              f"unexpected {extra[:5]}")
-        for key, t in own.items():
-            if tuple(state_dict[key].shape) != tuple(t.shape):
+        shapes = self._full_shapes or {k: t.shape for k, t in own.items()}
+        for key in own:
+            if tuple(state_dict[key].shape) != tuple(shapes[key]):
                 raise ValueError(f"{self.name}: {key} has shape {tuple(state_dict[key].shape)}, "
-                                 f"the module's is {tuple(t.shape)}")
+                                 f"the module's is {tuple(shapes[key])}")
+        if self._mesh is not None:
+            from sfast_tpu_torch.parallel.tensor_parallel import local_state_dict
+
+            state_dict = local_state_dict(self.module, state_dict)
         # one call for all the copies: a LoRA swap copies ~700 UNet tensors
         torch._foreach_copy_(list(own.values()), [state_dict[k] for k in own])
 

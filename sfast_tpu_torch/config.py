@@ -59,6 +59,22 @@ prefer_lowp_gemm                ``prefer_lowp_gemm``: True runs the models
                                 (``interop/diffusers_adapter.py``).
 ==============================  ==========================================
 
+Multi-device, as JAX's (``sfast_tpu/config.py:114-117``), each None by
+default:
+
+- ``mesh``: a ``torch.distributed`` ``DeviceMesh`` from
+  ``parallel.make_mesh``.  Each compiled model is sharded over its ``tp``
+  axis by the rule (``parallel/tensor_parallel.py``), and with an ``sp``
+  axis of more than one rank the UNets' attention runs as ring attention;
+- ``sharding_rules``: ``(pattern, spec)`` pairs in place of the Megatron
+  rule (``parallel/sharding.py`` states their layout);
+- ``cache_dir``: the directory of the kernels' nvcc build
+  (``runtime/cuda_build.py``), the counterpart of JAX's persistent
+  executable cache.  The process has one library, so one directory: the
+  first compiled model whose config names one fixes it (as loading the
+  library does), and a later config naming another raises.  None names
+  none, and the default is ``build/sfast_tpu_torch/`` in the checkout.
+
 JAX's ``freeze`` and ``preserve_parameters`` have no counterpart: a CUDA
 graph reads the weights by address, so an in-place copy
 (``CompiledModel.update_params``) is the hot-swap, and there is nothing to
@@ -67,7 +83,7 @@ none either.
 """
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass
@@ -85,6 +101,9 @@ class CompilationConfig:
     memory_format: str = "NHWC"  # or 'NCHW'
     prefer_lowp_gemm: bool = True
     param_dtype: str = "bfloat16"
+    cache_dir: Optional[str] = None
+    mesh: Any = None  # a torch.distributed DeviceMesh, or None for one device
+    sharding_rules: Optional[Tuple[Tuple[str, Any], ...]] = None
 
     def __post_init__(self):
         if self.memory_format not in ("NHWC", "NCHW"):

@@ -17,7 +17,7 @@ weights and nothing is captured again.
 
 import logging
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -55,19 +55,30 @@ def init_lora_params(
     return lora
 
 
-def merge_lora(base_state: Mapping[str, torch.Tensor], lora: LoRA, scale: float = 1.0):
+def merge_lora(base_state: Mapping[str, torch.Tensor], lora: LoRA, scale: float = 1.0,
+               sharded: Optional[Mapping[str, torch.nn.Module]] = None):
     """A new state dict: ``base_state`` with ``W + scale·(A·B)ᵀ`` for each
     module of ``lora``; every other entry is ``base_state``'s own tensor.
-    Raises for a module that ``base_state`` does not have."""
+    Raises for a module that ``base_state`` does not have.
+
+    ``sharded`` (module name → ``parallel.tensor_parallel.ParallelLinear``)
+    says which weights of ``base_state`` are a tensor-parallel rank's
+    shards: their delta is the shard's, from B's output columns for a
+    column-parallel weight, from A's input rows for a row-parallel one."""
     merged = dict(base_state)
+    sharded = sharded or {}
     for mod, f in lora.items():
         key = mod + ".weight"
         if key not in base_state:
             raise KeyError(f"merge_lora: the model has no module {mod!r}")
         w = base_state[key]
         a, b = (f[k].to(device=w.device, dtype=torch.float32) for k in ("a", "b"))
+        bt, at = b.T, a.T
+        m = sharded.get(mod)
+        if m is not None:
+            bt, at = (m.shard(bt, 0), at) if m.mode == "column" else (bt, m.shard(at, 1))
         # W + scale·(A·B)ᵀ = W + scale·(Bᵀ·Aᵀ) in one product
-        merged[key] = torch.addmm(w.float(), b.T, a.T, alpha=scale).to(w.dtype)
+        merged[key] = torch.addmm(w.float(), bt, at, alpha=scale).to(w.dtype)
     return merged
 
 
@@ -79,7 +90,8 @@ def switch_lora(compiled_model, base_state: Mapping[str, torch.Tensor], lora: Lo
     ``base_state`` is a copy of the base weights, such as
     ``{k: v.clone() for k, v in model.state_dict().items()}`` taken before
     the first swap: the swap writes into the model's own tensors, so a
-    ``base_state`` that holds them would take each swap in."""
+    ``base_state`` that holds them would take each swap in.  Under a mesh
+    it holds the unsharded weights, as ``update_params`` takes them."""
     own = compiled_model.module.state_dict()
     for mod in lora:
         if mod + ".w_q" in own or mod + ".w_q8" in own:

@@ -46,7 +46,14 @@ TINY_TEST_VAE = VAEConfig(block_out_channels=(16, 32), layers_per_block=1, norm_
 
 
 class VAEAttention(nn.Module):
-    """Single-head attention over the (H·W, C) tokens of the mid block."""
+    """Single-head attention over the (H·W, C) tokens of the mid block.
+
+    JAX's rule splits its projections over ``tp`` as any attention's; one
+    head cannot be split, so it declares no Megatron pair: under tensor
+    parallelism ``to_q``, ``to_k`` and ``to_v`` all-gather their outputs and
+    ``to_out`` slices its input, all-reducing its partial sums
+    (``parallel/tensor_parallel.py``), and the attention itself runs whole
+    on every rank."""
 
     def __init__(self, c: int, groups: int, *, device=None, dtype=None):
         super().__init__()

@@ -66,7 +66,10 @@ TINY_TEXT_ENCODER = CLIPTextConfig(
 
 
 class CLIPAttention(nn.Module):
-    """Causal for text, not for an image's patches (``causal=False``)."""
+    """Causal for text, not for an image's patches (``causal=False``).  Its
+    heads under tensor parallelism: as ``layers.Attention``'s."""
+
+    tp_pair = (("q_proj", "k_proj", "v_proj"), "out_proj", ())
 
     def __init__(self, dim: int, heads: int, *, causal: bool = True, device=None, dtype=None):
         super().__init__()
@@ -79,19 +82,21 @@ class CLIPAttention(nn.Module):
         self.out_proj = Linear(dim, dim, **mk)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, s, d = x.shape
+        b, s, _ = x.shape
 
         def split_heads(t):
-            return t.view(b, s, self.heads, d // self.heads).transpose(1, 2)
+            return t.view(b, s, self.heads, -1).transpose(1, 2)
 
         out = dot_product_attention(
             split_heads(self.q_proj(x)), split_heads(self.k_proj(x)),
             split_heads(self.v_proj(x)), causal=self.causal, backend="plain",
         )
-        return self.out_proj(out.transpose(1, 2).reshape(b, s, d))
+        return self.out_proj(out.transpose(1, 2).reshape(b, s, -1))
 
 
 class CLIPMLP(nn.Module):
+    tp_pair = (("fc1",), "fc2", ())
+
     def __init__(self, dim: int, inner: int, act: str = "quick_gelu", *, device=None,
                  dtype=None):
         super().__init__()

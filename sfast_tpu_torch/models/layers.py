@@ -336,7 +336,16 @@ class Attention(nn.Module):
     the bias-free ``to_k_ip`` / ``to_v_ip`` of diffusers'
     ``IPAdapterAttnProcessor``; with ``ip_embeds`` (B, N, context_dim) the
     forward adds ``ip_scale · attention(q, k_ip, v_ip)`` before ``to_out``
-    (JAX ``layers.py:520-560``)."""
+    (JAX ``layers.py:520-560``).
+
+    Under tensor parallelism (``parallel/tensor_parallel.py``) the module
+    holds ``heads / tp`` heads: the projections yield the rank's shard, so
+    the head dim and the output width are read from q's width.  The IP
+    projections are column-split with ``to_q`` (JAX leaves them replicated
+    and GSPMD copes; explicit local heads cannot), so load an IP-Adapter
+    before sharding."""
+
+    tp_pair = (("to_q", "to_k", "to_v"), "to_out.0", ("to_k_ip", "to_v_ip"))
 
     def __init__(
         self,
@@ -362,6 +371,9 @@ class Attention(nn.Module):
     def add_ip_projections(self) -> None:
         """Give this attention the IP-Adapter's two projections, on its own
         device and dtype (zero until loaded)."""
+        if getattr(self, "tp_local", False):
+            raise ValueError("this attention is tensor-parallel (its heads are the rank's); "
+                             "load the IP-Adapter before sharding")
         k = self.to_k  # maybe quantized: read its sizes, and to_out's bias for the rest
         b = self.to_out[0].bias
         mk = dict(device=b.device, dtype=b.dtype)
@@ -381,14 +393,15 @@ class Attention(nn.Module):
         ip_embeds: Optional[torch.Tensor] = None,
         ip_scale=1.0,
     ) -> torch.Tensor:
-        b, s, d = x.shape
+        b, s, _ = x.shape
         ctx = x if context is None else context
-        dh = d // self.heads
+        q = self.to_q(x)
+        dh = q.shape[-1] // self.heads
 
         def split_heads(t):  # (B, S, H·dh) → (B, H, S, dh) view
             return t.view(b, -1, self.heads, dh).transpose(1, 2)
 
-        q = split_heads(self.to_q(x))
+        q = split_heads(q)
         out = dot_product_attention(
             q, split_heads(self.to_k(ctx)), split_heads(self.to_v(ctx)),
             causal=causal, backend=attn_backend,
@@ -403,18 +416,24 @@ class Attention(nn.Module):
             # (stable_diffusion.py:936-937).  JAX's fused loop passes a 0-d
             # f32 array, which promotes the sum to f32 from here on.
             out = out + ip_scale * ip
-        return self.to_out[0](out.transpose(1, 2).reshape(b, s, d))
+        return self.to_out[0](out.transpose(1, 2).reshape(b, s, -1))
 
 
 class GEGLU(nn.Module):
+    """``proj``'s (2F, d) weight holds the hidden rows, then the gate rows:
+    a column shard takes its slice of each half
+    (``parallel/sharding.out_chunks``)."""
+
     def __init__(self, dim: int, inner: int, *, device=None, dtype=None):
         super().__init__()
         self.proj = Linear(dim, inner * 2, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, backend: Optional[str] = None) -> torch.Tensor:
-        if self.proj.weight is None:
+        if self.proj.weight is None or not getattr(self.proj, "local_gemm", True):
             # quantized: the int8 linear, then hidden · gelu(gate) with the
-            # erf GELU in f32; never K4 (JAX layers.py:578-590)
+            # erf GELU in f32; never K4 (JAX layers.py:578-590).  A
+            # tensor-parallel proj outside its pair gathers or reduces in its
+            # forward, which this takes too
             h, gate = self.proj(x).chunk(2, dim=-1)
             return (h.float() * F.gelu(gate.float())).to(x.dtype)
         return linear_geglu(x, self.proj.weight, self.proj.bias, backend=backend)
@@ -422,6 +441,8 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """diffusers FeedForward: ``net = [GEGLU, Dropout, Linear]``."""
+
+    tp_pair = (("net.0.proj",), "net.2", ())
 
     def __init__(self, dim: int, mult: int = 4, *, device=None, dtype=None):
         super().__init__()

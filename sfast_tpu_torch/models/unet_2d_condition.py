@@ -33,6 +33,7 @@ from sfast_tpu_torch.models.layers import (
     Upsample2D,
     timestep_embedding,
 )
+from sfast_tpu_torch.parallel.mesh import axis_size
 from sfast_tpu_torch.runtime.device import resolve_device
 
 
@@ -108,12 +109,18 @@ def backends(ccfg: CompilationConfig) -> dict:
     """Config knobs → op routes, as JAX's ``_backends``
     (``unet_2d_condition.py:324-349``): None = the op's auto rule, 'plain' =
     never a kernel, 'kernel' = K3 + K5 for every GroupNorm, 'int8' = the
-    auto rule with K6 in place of K1."""
+    auto rule with K6 in place of K1, ``('ring', mesh, 'sp')`` = ring
+    attention when the mesh's ``sp`` axis has more than one rank (checked
+    before the flash rule, after ``enable_kernels``, as JAX checks it after
+    ``enable_pallas``)."""
     if not ccfg.enable_kernels:
         return dict(gn="plain", attn="plain", geglu="plain", conv="plain")
     gn = "kernel" if ccfg.enable_fused_group_norm else None
     conv = None if ccfg.enable_fused_conv else "plain"
-    if not ccfg.enable_flash_attention:
+    mesh = getattr(ccfg, "mesh", None)
+    if axis_size(mesh, "sp") > 1:
+        attn = ("ring", mesh, "sp")
+    elif not ccfg.enable_flash_attention:
         attn = "plain"
     elif ccfg.enable_int8_attention:
         attn = "int8"

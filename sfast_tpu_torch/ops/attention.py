@@ -14,10 +14,18 @@ tokens, 8 heads, d = 40).  Backends, as JAX's:
   (``enable_int8_attention``);
 - ``'flash_int8'``: K6 whatever the shape;
 - ``'plain'``: the materializing softmax of JAX's ``xla_attention``, which
-  is K1's plain version, ``flash_attention_ref``.
+  is K1's plain version, ``flash_attention_ref``;
+- ``('ring', mesh, axis)``: sequence-parallel ring attention over ``axis``
+  of the mesh (``parallel/ring_attention.py``), the route of every UNet
+  attention when the mesh's ``sp`` axis has more than one rank
+  (``attention.py:114-127``).  q, k and v are replicated, as the rest of
+  the activations: each rank takes its S/n chunk of each, runs the ring,
+  and all-gathers the output along S.  Where S or the kv length does not
+  divide by n (the 77-token cross-attention) the call takes the plain
+  path, as JAX's.  Non-causal only.
 """
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -56,9 +64,11 @@ def dot_product_attention(
     *,
     scale: Optional[float] = None,
     causal: bool = False,
-    backend: Optional[str] = None,  # None | 'int8' | 'flash_int8' | 'plain'
+    backend: Union[None, str, tuple] = None,  # None | 'int8' | 'flash_int8' | 'plain' | ring
 ) -> torch.Tensor:
     """Attention over (batch, heads, seq, head_dim)."""
+    if isinstance(backend, tuple) and backend and backend[0] == "ring":
+        return _ring(q, k, v, backend, scale=scale, causal=causal)
     if backend not in _BACKENDS:
         raise ValueError(f"unknown attention backend: {backend}")
     if backend == "flash_int8":
@@ -67,3 +77,21 @@ def dot_product_attention(
         kernel = flash_attention_int8 if backend == "int8" else flash_attention
         return kernel(q, k, v, scale=scale, causal=causal)
     return flash_attention_ref(q, k, v, scale=scale, causal=causal)
+
+
+def _ring(q, k, v, backend, *, scale, causal):
+    from sfast_tpu_torch.parallel.mesh import axis_rank, axis_size
+    from sfast_tpu_torch.parallel.ring_attention import ring_attention
+    from sfast_tpu_torch.parallel.tensor_parallel import all_gather
+
+    if causal:
+        raise NotImplementedError("ring attention is non-causal")
+    _, mesh, axis = backend
+    n = axis_size(mesh, axis)
+    if q.shape[-2] % n or k.shape[-2] % n:
+        return flash_attention_ref(q, k, v, scale=scale, causal=causal)
+    r = axis_rank(mesh, axis)
+    sq, sk = q.shape[-2] // n, k.shape[-2] // n
+    out = ring_attention(q.narrow(-2, r * sq, sq), k.narrow(-2, r * sk, sk),
+                         v.narrow(-2, r * sk, sk), mesh=mesh, axis=axis, scale=scale)
+    return all_gather(out, mesh, axis, -2)

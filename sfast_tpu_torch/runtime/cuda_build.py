@@ -10,8 +10,10 @@ all started together, and one more call links them into one library:
          -c csrc/<kernel>.cu -o <kernel>.o          # one per source, in parallel
     nvcc -shared -o build/sfast_tpu_torch/libsfast_kernels-<hash>.so *.o
 
-The library lands in ``build/sfast_tpu_torch/`` under the checkout, named
-by a hash of the sources and flags, so an edited source rebuilds and an
+The library lands in ``build/sfast_tpu_torch/`` under the checkout (or in
+the directory :func:`set_build_dir` names, once a process:
+``CompilationConfig.cache_dir``),
+named by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the existing file.  Every C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on anything
 but 0.  Each kernel wrapper adds one to its entry of :data:`launch_counts`
@@ -54,6 +56,8 @@ from torch.utils import _pytree as pytree
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "sfast_tpu_torch"
+_build_dir = BUILD_DIR  # where build() writes and library_path() looks
+_build_dir_fixed = False  # a cache_dir named it, or the library was loaded from it
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -163,13 +167,28 @@ def _nvcc() -> str:
     return found
 
 
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` (``CompilationConfig.cache_dir``).
+    The directory is the process's, as the library is: the first request
+    fixes it, and so does loading the library; a request for another
+    directory after that raises."""
+    global _build_dir, _build_dir_fixed
+    path = Path(path).resolve()
+    with _lock:
+        if _build_dir_fixed and path != _build_dir:
+            raise ValueError(f"the kernels' build directory is {_build_dir} for this process "
+                             f"(named by an earlier cache_dir, or the library is loaded from "
+                             f"it); cache_dir {str(path)!r} cannot change it")
+        _build_dir, _build_dir_fixed = path, True
+
+
 def library_path(extra_flags=()) -> Path:
     h = hashlib.sha256()
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS + list(extra_flags)).encode())
-    return BUILD_DIR / f"libsfast_kernels-{h.hexdigest()[:16]}.so"
+    return _build_dir / f"libsfast_kernels-{h.hexdigest()[:16]}.so"
 
 
 def _run_all(cmds):
@@ -197,11 +216,11 @@ def build(extra_flags=()) -> Path:
     out = library_path(extra_flags)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{out.stem}.{os.getpid()}"
     srcs = sorted(SRC_DIR.glob("*.cu"))
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    objs = [out.parent / f"{tag}.{src.stem}.o" for src in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
@@ -233,10 +252,11 @@ def load(path: Path) -> ctypes.CDLL:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib
+    global _lib, _build_dir_fixed
     with _lock:
         if _lib is None:
             _lib = load(build())
+            _build_dir_fixed = True
         return _lib
 
 

@@ -30,6 +30,13 @@ the module, and every function that lists the module in ``reads`` drops
 its graphs at its next call: every pipeline that holds the module, not
 only the one that changed it.
 
+A tensor-parallel model's collectives (``parallel/tensor_parallel.py``:
+NCCL all-reduces and all-gathers) are captured like its kernels, and its
+warm-up calls issue them too.  NCCL creates a communicator at its first
+collective, which no capture may do: ``CompiledModel`` runs one eager
+collective on each of the mesh's groups when it shards its module, before
+any capture.
+
 Everything one-time (the nvcc build and load, ``cudaFuncSetAttribute``
 behind statics, the driver entry lookup of ``cuTensorMapEncodeTiled``)
 first happens in the warm-up calls, which run on the stream the capture

@@ -18,15 +18,33 @@ backward pass raises there; train with
 ``CompilationConfig(enable_kernels=False)``, which sends every op to its
 plain PyTorch version.  JAX's own tests train with ``enable_pallas=False``
 for the same reason.
+
+Under a mesh (``ccfg.mesh``, as the JAX example's ``--mesh dp×tp``,
+``examples/optimize_train_text_to_image_lora.py:36,46-50``) the UNet is
+tensor-parallel (a ``CompiledModel`` compiled with the mesh holds the
+rank's shards), and with an ``sp`` axis of more than one rank its attention
+runs as ring attention: each rank takes its ``dp`` slice of the batch (and
+of t and the noise, drawn for the whole batch), merges the LoRA's delta
+into its shards (``merge_lora``'s ``sharded``), and runs the forward with
+the collectives of ``parallel/tensor_parallel.py`` and
+``parallel/ring_attention.py``.  The LoRA stays replicated, as in JAX.
+Every rank of a ``dp`` slice's tp × sp block computes the same loss, and
+every collective's backward is its adjoint (the ring's rotation included),
+so each rank differentiates its loss over tp · sp; the factors' gradients
+are then summed over ``tp`` and ``sp`` and averaged over ``dp``, and every
+rank's AdamW takes the same step.
 """
 
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from sfast_tpu_torch.config import CompilationConfig
 from sfast_tpu_torch.lora import LoRA, init_lora_params, merge_lora
+from sfast_tpu_torch.parallel.mesh import axis_rank, axis_size
+from sfast_tpu_torch.parallel.tensor_parallel import full_shapes, parallel_linears
 from sfast_tpu_torch.schedulers.common import SchedulerConfig, alphas_cumprod
 
 # optax.adamw's defaults; torch.optim.AdamW's weight decay is 1e-2
@@ -61,12 +79,15 @@ def lora_training_setup(
     The LoRA is ``init_lora_params`` of the UNet's state dict in f32 (A
     Gaussian / rank, B zero) on the UNet's device, drawn on ``generator``
     (seed 0 on that device when None), its factors leaf tensors that
-    require grad.  The optimizer is AdamW at optax's defaults."""
+    require grad; a tensor-parallel UNet's is drawn for the unsharded
+    shapes, the same on every rank.  The optimizer is AdamW at optax's
+    defaults."""
     module = _module(unet)
     dev = _device(module)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    lora = init_lora_params(generator, module.state_dict(), rank=rank)
+    shapes = {k: torch.empty(s, device="meta") for k, s in full_shapes(module).items()}
+    lora = init_lora_params(generator, shapes, rank=rank)
     for f in lora.values():
         for k in ("a", "b"):
             f[k] = f[k].to(dev).requires_grad_(True)
@@ -103,6 +124,9 @@ def make_lora_train_step(
     module = _module(unet)
     ac_host = torch.tensor(alphas_cumprod(sched_cfg), dtype=torch.float32)
     n_train = sched_cfg.num_train_timesteps
+    mesh = ccfg.mesh
+    sharded = parallel_linears(module)
+    dp, block = axis_size(mesh, "dp"), axis_size(mesh, "tp") * axis_size(mesh, "sp")
 
     def train_step(lora: LoRA, batch, generator: Optional[torch.Generator] = None, *,
                    t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
@@ -115,20 +139,52 @@ def make_lora_train_step(
         if noise is None:
             noise = torch.randn(latents.shape, generator=generator, device=dev,
                                 dtype=torch.float32)
+        if dp > 1:
+            if latents.shape[0] % dp:
+                raise ValueError(f"train_step: batch {latents.shape[0]} does not split {dp} ways")
+            n = latents.shape[0] // dp
+            r = axis_rank(mesh, "dp")
+            latents, context, t, noise = (x.narrow(0, r * n, n)
+                                          for x in (latents, context, t, noise))
         ac = ac_host.to(dev)[t.to(dev)]
         a = ac.sqrt()[:, None, None, None]
         s = (1 - ac).sqrt()[:, None, None, None]
         noisy = (a * latents + s * noise).to(latents.dtype)
         base = module.state_dict()  # detached: only the LoRA factors get gradients
         try:
-            pred = functional_call(module, merge_lora(base, lora, 1.0),
+            pred = functional_call(module, merge_lora(base, lora, 1.0, sharded),
                                    (noisy, t.to(torch.float32), context),
                                    {"compilation_config": ccfg})
             loss = torch.mean((pred.float() - noise.float()) ** 2)
-            loss.backward()
+            if mesh is None:
+                loss.backward()
+            else:
+                (loss / block).backward()
+                _reduce_grads(lora_factors(lora), mesh, dp)
+                loss = _mean_over_dp(loss.detach(), mesh, dp)
             optimizer.step()
         finally:
             optimizer.zero_grad(set_to_none=True)
         return loss.detach()
 
     return train_step
+
+
+def _reduce_grads(factors, mesh, dp: int) -> None:
+    """Sum the factors' gradients over ``tp`` and ``sp`` and average them
+    over ``dp``, in one buffer an axis."""
+    grads = [p.grad for p in factors]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    for axis in ("tp", "sp", "dp"):
+        if axis in mesh.mesh_dim_names:
+            dist.all_reduce(flat, group=mesh.get_group(axis))
+    flat /= dp
+    parts = flat.split([g.numel() for g in grads])
+    torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(parts, grads)])
+
+
+def _mean_over_dp(loss: torch.Tensor, mesh, dp: int) -> torch.Tensor:
+    if "dp" in mesh.mesh_dim_names:
+        loss = loss.clone()
+        dist.all_reduce(loss, group=mesh.get_group("dp"))
+    return loss / dp

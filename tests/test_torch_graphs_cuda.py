@@ -654,3 +654,37 @@ def test_graphed_taesd_is_eager_bit_for_bit(dev):
                                (p.vae_encode.encode(img)[0], vae.encode(img)[0])):
             assert torch.equal(graphed, eager)
     assert p.vae.cache_size == p.vae_encode.cache_size == 1
+
+
+def test_graphed_unet_over_a_world_1_nccl_mesh_is_eager_bit_for_bit(dev, tmp_path):
+    """A world of one over NCCL: the UNet tensor-parallel at tp = 1, its
+    all-reduces captured in the graph (more nodes than the unsharded
+    UNet's graph).  Graphed equals eager bit for bit, and eager equals the
+    unsharded module's output; a CPU tensor at a collective raises."""
+    import torch.distributed as dist
+
+    from sfast_tpu_torch.parallel import make_mesh
+    from sfast_tpu_torch.parallel.tensor_parallel import all_reduce, parallel_linears
+
+    unet, ref = _unet(dev), _unet(dev)
+    x, t, ctx = _inputs(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("dp", "tp"))
+        assert mesh.device_type == "cuda"
+        cm = compile_unet(unet, CompilationConfig(mesh=mesh))
+        plain = compile_unet(ref)
+        with torch.inference_mode():
+            eager = unet(x, t, ctx)
+            first, second = cm(x, t, ctx), cm(x, t, ctx)
+            assert torch.equal(plain(x, t, ctx), ref(x, t, ctx))
+            unsharded = ref(x, t, ctx)
+        assert len(parallel_linears(unet)) == 10 * 7  # 7 transformer blocks
+        assert torch.equal(first, eager) and torch.equal(second, eager)
+        assert torch.equal(eager, unsharded)
+        assert cm._call.graphs()[0].nodes > plain._call.graphs()[0].nodes
+        with pytest.raises(ValueError, match="cpu tensor on a cuda mesh"):
+            all_reduce(torch.zeros(1), mesh, "tp")
+    finally:
+        dist.destroy_process_group()

@@ -48,11 +48,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    counterpart of K3′+K5), K4 and K6 in the UNet;
 6. the default kernels with ``fuse_denoising_loop``: the 50 steps as one
    graph, its node count and instantiate seconds, held against phase 4's
-   eager image (1 timed image);
+   eager image (1 timed image, not profiled: its device time is
+   the stepwise graphs');
 7. img2img and inpainting (right half repainted) of a seeded uint8 image at
-   strength 0.8, graphed (the VAE encode one more graph), each held against
-   one eager image; one VAE encode on the kernel route against the plain
-   route, which must launch no kernel.  Phase 3 holds K2 and K3 at the
+   strength 0.8, graphed (the VAE encode one more graph; inpainting not
+   profiled), each held against one eager image; one VAE encode on the
+   kernel route against the plain route, which must launch no kernel.  Phase 3 holds K2 and K3 at the
    encoder's shapes too (conv1 widening 128→256 at 256², 256→512 at 128²);
 8. a seeded rank-8 LoRA on every UNet attention projection, swapped into
    the captured graphs (``lora.switch_lora``) on the stepwise path and the
@@ -143,13 +144,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     level of an eager one;
 16. LoRA training on phase 4's SD1.5 UNet (bf16) at full width, after
     phase 15, with the JAX example's settings: an f32 rank-4 LoRA, AdamW
-    at 1e-4, batch 4 of 64×64×4 latents and 77×768 text embeddings,
-    ``CompilationConfig(enable_kernels=False)``: 6 steps (5 timed with CUDA
-    events), every loss finite, every B moved by step 1, no kernel
-    launched, and a seventh step profiled (device time, idle share, the
-    kernels by time); B's step-1 gradient at batch 1 against an f32 copy of the
-    UNet (relative rms below 5e-2); under ``CompilationConfig.Default()``
-    the forward launches K1 5 times and the backward raises, leaving the
+    (``capturable``) at 1e-4, batch 4 of 64×64×4 latents and 77×768 text
+    embeddings, the kernels off.  The eager step
+    (``enable_cuda_graph=False``): 3 steps timed with CUDA events and the
+    host clock, every B moved by step 1, a fourth step profiled (device
+    time, idle share, CUDA kernels and the host's launch calls).  The
+    graphed step (the default ``enable_cuda_graph``: forward, backward and
+    AdamW as one CUDA graph) from the same state on the same draws: its
+    first call (3 warm-up steps, the capture: seconds, nodes, pool),
+    after 3 steps the LoRA's factors and AdamW's state against the eager
+    step's (bit for bit, or within 1e-5 relative rms), 5 timed replays,
+    one profiled, peak memory; every loss finite, no kernel launched; the
+    step dropped and its pool freed.  B's step-1 gradient at batch 1 against
+    an f32 copy of the UNet (eager; relative rms below 5e-2); under
+    ``CompilationConfig.Default()`` the graphed step's first warm-up
+    launches K1 5 times and its backward raises: nothing captured, the
     LoRA and the optimizer's state as they were; the trained LoRA saved
     and read back through ``utils/checkpoint``, swapped into the compiled
     pipeline (nothing captured, the image changes) and back with scale 0
@@ -166,15 +175,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     with phase 4's launches; the graphs' nodes against phase 4's, and one
     timed image against phase 4's e2e.  A rank-8 LoRA swapped in under the
     mesh captures nothing and changes the image; swapped back, the image
-    is restored bit for bit.  ``ring_attention`` on an ``sp`` group of one
-    at SD1.5's level 0 (2, 8, 4096, 40) and SVD's (2, 5, 9216, 64) bf16
+    is restored bit for bit.  One graphed LoRA train step on the sharded
+    UNet at batch 1 (the gradients' all-reduces in the graph) against one
+    eager step from the same state.  ``ring_attention`` on an ``sp`` group
+    of one at SD1.5's level 0 (2, 8, 4096, 40) and SVD's (2, 5, 9216, 64) bf16
     against ``flash_attention_ref``, timed beside K1 (plain torch in f32:
     no kernel).  The process group is destroyed at the end;
 18. the six ``examples_torch/`` scripts, last (after phase 13 freed the
     card), each in this process through its ``main`` at full width on the
     card: SD, LCM and LCM-LoRA (1 warm-up, 1 timed image), InstantID (30
     steps), SVD (2 steps, 25 frames at 576×1024) and LoRA training (3
-    steps, no mesh); each prints its ms, and one that raises fails the run.
+    graphed steps, no mesh); each prints its ms, and one that raises fails the run.
     The launch counts are set to 0 before each script and read after it:
     each pipeline script must have launched K1, K2 and K3, and the
     training script (the kernels off) none.
@@ -1344,8 +1355,11 @@ def profile_image(torch, run, name, unprofiled, tries=5, what="image"):
         traced_ms = (time.perf_counter() - t) * 1e3
         launches = dict(cuda_build.launch_counts)
         events = prof.key_averages()
-        # the kernels' own rows: an operator's row repeats its kernels' time
-        rows = [e for e in events if e.device_type == DeviceType.CUDA]
+        # the kernels' own rows: an operator's row repeats its kernels' time,
+        # and so does a user annotation's range on the device (the
+        # optimizer's ``Optimizer.step#AdamW.step``)
+        rows = [e for e in events if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
         seen = {k: [sum(e.count for e in rows if piece in e.key) for piece in pieces]
                 for k, pieces in KERNEL_ROWS.items()}
         lost = {k: c for k, c in seen.items() if any(n != launches[k] for n in c)}
@@ -1357,6 +1371,8 @@ def profile_image(torch, run, name, unprofiled, tries=5, what="image"):
         raise RuntimeError(f"[{name}] {tries} profiler traces of one {what} lost kernel rows")
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
     n_kernels = sum(e.count for e in rows)
+    host_launches = {e.key: e.count for e in events
+                     if e.device_type == DeviceType.CPU and e.key in HOST_LAUNCH_CALLS}
     idle = 1 - dev_ms / wall_ms if dev_ms < wall_ms else None
     idle_text = (f"device idle {100 * idle:.1f}%" if idle is not None else
                  "device idle not resolved (traced device time above the wall time)")
@@ -1366,7 +1382,8 @@ def profile_image(torch, run, name, unprofiled, tries=5, what="image"):
         f"card during the unprofiled {what}: {card_text}")
     log(events.table(sort_by="self_device_time_total", row_limit=15))
     return {"device_ms": dev_ms, "idle": idle, "cuda_kernels": n_kernels,
-            "profiled_wall_ms": wall_ms, "traced_wall_ms": traced_ms}
+            "host_launches": host_launches, "profiled_wall_ms": wall_ms,
+            "traced_wall_ms": traced_ms}
 
 
 def synthetic_image(hw=512, width=None):
@@ -1410,8 +1427,9 @@ def run_img2img(torch, dev, pipe):
     res = {}
     for name, mask_image in (("img2img", None), ("inpaint", mask)):
         extra = dict(image=image, strength=STRENGTH, mask_image=mask_image)
+        # inpainting is not profiled: its graphs and kernels are img2img's
         run = run_mode(torch, dev, pipe, name, CompilationConfig.Default(),
-                       EXPECTED_IMG2IMG_LAUNCHES, None, **extra)
+                       EXPECTED_IMG2IMG_LAUNCHES, None, profile=mask_image is None, **extra)
         enc = run["graphs"].get("vae_encode")
         if enc is None:
             raise AssertionError(f"[{name}] no vae_encode graph was captured")
@@ -1877,24 +1895,35 @@ def run_serving(torch, dev, pipe, default, lat):
 # Training (phase 16), the JAX example's settings
 # (examples/optimize_train_text_to_image_lora.py:31-35): SD1.5's UNet in
 # bf16, an f32 rank-4 LoRA, AdamW at 1e-4, batch 4 of 64×64×4 f32 latents
-# and 77×768 f32 text embeddings, kernels off; 1 untimed step, 5 timed.
+# and 77×768 f32 text embeddings, kernels off.  The eager step: 3 steps,
+# timed; the graphed step: 3 steps from the same state on the same draws
+# (the first captures), then 5 timed.
 TRAIN_BATCH = 4
 TRAIN_RANK = 4
 TRAIN_LR = 1e-4
-TRAIN_STEPS = 6
+TRAIN_COMPARED_STEPS = 3
+TRAIN_TIMED_STEPS = 5
 # B's gradient at step 1 (batch 1) of the bf16 UNet against an f32 copy:
 # bf16 activations through the UNet's depth, forward and backward
 TRAIN_GRAD_RMS_REL = 5e-2
+# graphed against eager where not bit for bit: the relative rms of the
+# LoRA's factors and AdamW's moments after the compared steps
+TRAIN_GRAPH_RMS_REL = 1e-5
 # the refused step's forward under CompilationConfig.Default(): the 5
 # level-0 self-attentions of one eval, the batch folded into each launch
 EXPECTED_REFUSED_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0) | {"flash_attention": 5}
+# what the host issues to the card: the profiler's rows of these CUDA API
+# calls (launches, copies, memsets) in a profiled step
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync")
 
 
 def train_b_grads(torch, unet, lora0, batch, t, noise, ccfg):
     """B's gradient (flat, f32) of one train step of ``unet`` from LoRA
     ``lora0`` on ``batch`` with the given t and noise, read by the
     optimizer's pre-step hook of an AdamW at lr 0 (the step changes
-    nothing)."""
+    nothing).  ``ccfg`` must be eager: a hook runs in no graph replay."""
     from sfast_tpu_torch.training import lora_factors, make_lora_train_step
 
     lora = {m: {k: f[k].detach().clone().requires_grad_(True) for k in ("a", "b")}
@@ -1907,12 +1936,73 @@ def train_b_grads(torch, unet, lora0, batch, t, noise, ccfg):
     return grads[0]
 
 
+def training_state(lora, opt):
+    """Copies of the LoRA's factors and AdamW's state, by name."""
+    out = {}
+    for m, f in lora.items():
+        for k in ("a", "b"):
+            out[f"{m}.{k}"] = f[k].detach().clone()
+            for name, v in opt.state.get(f[k], {}).items():
+                out[f"{m}.{k}.{name}"] = v.clone()
+    return out
+
+
+def compare_training(torch, label, got, ref, got_losses, ref_losses):
+    """Graphed against eager after the same steps: bit for bit, or else
+    the worst relative rms over the tensors (bound ``TRAIN_GRAPH_RMS_REL``)
+    and the tensors that differ."""
+    if got.keys() != ref.keys():
+        raise AssertionError(f"[{label}] state keys differ: {sorted(got.keys() ^ ref.keys())[:4]}")
+    differ = [k for k in ref if not torch.equal(got[k], ref[k])]
+    worst = max((rel_errors(got[k].float(), ref[k].float())[2] for k in differ), default=0.0)
+    losses_equal = all(torch.equal(a, b) for a, b in zip(got_losses, ref_losses))
+    res = {"bit_for_bit": not differ and losses_equal, "tensors": len(ref),
+           "tensors_differing": len(differ), "worst_rms_rel": worst, "losses_equal": losses_equal,
+           "differing": differ[:6]}
+    log(f"[{label}] graphed against eager after {len(ref_losses)} steps from one state on one "
+        f"generator's draws: {len(ref)} tensors (factors, exp_avg, exp_avg_sq, step), "
+        f"{len(differ)} differ (worst rms_rel {worst:.3e}: {differ[:6]}); losses "
+        f"{[x.item() for x in got_losses]} against {[x.item() for x in ref_losses]}, "
+        f"equal {losses_equal}")
+    if not worst <= TRAIN_GRAPH_RMS_REL:
+        raise AssertionError(f"[{label}] graphed against eager: rms_rel {worst} > "
+                             f"{TRAIN_GRAPH_RMS_REL}")
+    return res
+
+
+def pool_bytes(torch, pool):
+    """Bytes of the card's memory held by the memory pool ``pool``."""
+    return sum(s["total_size"] for s in torch.cuda.memory._snapshot()["segments"]
+               if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def timed_steps(torch, run, n):
+    """``n`` calls of ``run``, each between syncs: (CUDA event ms, host ms,
+    losses)."""
+    device_ms, host_ms, losses = [], [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        loss = run()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+        losses.append(loss)
+    return device_ms, host_ms, losses
+
+
 def run_training(torch, dev, pipe, default, lat):
     """Phase 16: LoRA training on phase 4's SD1.5 UNet at full width with
-    the kernels off (6 steps, 5 timed with CUDA events), B's gradient
-    against an f32 copy, the refusal under the default configuration, the
-    trained LoRA saved and loaded (``utils/checkpoint``), then swapped into
-    the compiled pipeline and back."""
+    the kernels off: 3 eager steps (timed, one more profiled), then the
+    graphed step from the same state on the same draws (its first call
+    captures), held against the eager one, 5 timed replays and one
+    profiled; B's gradient against an f32 copy; the refusal under the
+    default configuration (graphed: it captures nothing); the trained LoRA
+    saved and loaded (``utils/checkpoint``), then swapped into the
+    compiled pipeline and back."""
     import tempfile
 
     from sfast_tpu_torch import CompilationConfig, lora
@@ -1922,7 +2012,8 @@ def run_training(torch, dev, pipe, default, lat):
     from sfast_tpu_torch.utils import checkpoint
     from sfast_tpu_torch.utils.image import denormalize_to_uint8
 
-    plain = CompilationConfig(enable_kernels=False)
+    graphed_cfg = CompilationConfig(enable_kernels=False)
+    eager_cfg = CompilationConfig(enable_kernels=False, enable_cuda_graph=False)
     kw = call_kwargs(torch)
     res = {}
 
@@ -1941,71 +2032,111 @@ def run_training(torch, dev, pipe, default, lat):
     batch = {"latents": torch.randn(shape, generator=g, device=dev),
              "context": torch.randn((TRAIN_BATCH, 77, pipe.unet.config.cross_attention_dim),
                                     generator=g, device=dev)}
-    trained, opt = lora_training_setup(pipe.unet, rank=TRAIN_RANK, learning_rate=TRAIN_LR,
-                                       generator=torch.Generator(device=dev).manual_seed(17))
+
+    def setup():
+        return lora_training_setup(pipe.unet, rank=TRAIN_RANK, learning_rate=TRAIN_LR,
+                                   generator=torch.Generator(device=dev).manual_seed(17))
+
+    trained, opt = setup()
     lora0 = {m: {k: f[k].detach().clone() for k in ("a", "b")} for m, f in trained.items()}
-    step = make_lora_train_step(pipe.unet, opt, ccfg=plain)
     t1 = torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device=dev)
     noise1 = torch.randn(shape, generator=g, device=dev)
 
-    # the training run: step 1 on the draws above (untimed), 5 timed steps
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    cuda_build.reset_launch_counts()
-    losses, device_ms, host_ms = [], [], []
+    def train(ccfg, label):
+        """The compared steps of one kind from the initial LoRA and a fresh
+        (capturable) AdamW, the draws on one seeded generator."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launch_counts()
+        lo, op = (trained, opt) if ccfg is graphed_cfg else setup()
+        step = make_lora_train_step(pipe.unet, op, ccfg=ccfg)
+        gen = torch.Generator(device=dev).manual_seed(18)
+        dms, hms, losses = timed_steps(torch, lambda: step(lo, batch, gen),
+                                       TRAIN_COMPARED_STEPS)
+        out = {"step": step, "lora": lo, "opt": op, "gen": gen, "losses": losses,
+               "state": training_state(lo, op), "first_call_ms": hms[0],
+               "step_ms": dms[1:], "step_host_ms": hms[1:]}
+        log(f"[training] {label}: {TRAIN_COMPARED_STEPS} steps, ms (CUDA events) "
+            f"{[round(t, 3) for t in dms]}, host ms {[round(t, 3) for t in hms]}; losses "
+            f"{[round(x.item(), 6) for x in losses]}")
+        return out
 
-    def timed_step(**draws):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        loss = step(trained, batch, g, **draws)
-        end.record()
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        device_ms.append(start.elapsed_time(end))
-        losses.append(loss.item())
-
-    timed_step(t=t1, noise=noise1)
-    unmoved = [m for m, f in trained.items() if not bool(f["b"].abs().max() > 0)]
-    with CardSampler() as card:
-        for _ in range(TRAIN_STEPS - 1):
-            timed_step()
-    counts = dict(cuda_build.launch_counts)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    reserved = torch.cuda.max_memory_reserved() / 2**30
-    timed = device_ms[1:]
-    res.update(losses=losses, step_ms=timed, step_host_ms=host_ms[1:], first_step_ms=device_ms[0],
-               step_ms_median=statistics.median(timed), step_ms_min=min(timed),
-               step_ms_max=max(timed), peak_gib=peak, peak_reserved_gib=reserved,
-               lora_modules=len(trained), counts=counts)
-    log(f"[training] SD1.5 UNet bf16, LoRA rank {TRAIN_RANK} f32 on {len(trained)} modules, "
-        f"batch {TRAIN_BATCH} at {shape[1]}x{shape[2]}x4, AdamW lr {TRAIN_LR}, kernels off: "
-        f"ms per step (CUDA events) {[round(t, 3) for t in timed]}, median "
-        f"{res['step_ms_median']:.3f}, spread "
-        f"{res['step_ms_min']:.3f} to {res['step_ms_max']:.3f}; host ms "
-        f"{[round(t, 3) for t in host_ms[1:]]}; first step {device_ms[0]:.3f} ms; losses "
-        f"{[round(x, 6) for x in losses]}; peak {peak:.2f} GiB allocated, {reserved:.2f} GiB "
-        f"reserved; launches {counts}; card: {card.text()}")
-    if not all(map(math.isfinite, losses)):
-        raise AssertionError(f"[training] a loss is not finite: {losses}")
+    # the eager step: its timed steps, one profiled
+    eager = train(eager_cfg, "eager step")
+    unmoved = [m for m, f in eager["lora"].items() if not bool(f["b"].abs().max() > 0)]
+    eager_counts = dict(cuda_build.launch_counts)
+    res["eager"] = {k: eager[k] for k in ("step_ms", "step_host_ms", "first_call_ms")}
+    res["eager"]["losses"] = [x.item() for x in eager["losses"]]
+    res["eager"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["eager"]["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    res["eager"]["profile"] = profile_image(
+        torch, lambda: eager["step"](eager["lora"], batch, eager["gen"]), "training step, eager",
+        unprofiled=(statistics.median(eager["step_ms"]), "not sampled"), what="step")
+    eager_state, eager_losses = eager["state"], eager["losses"]
+    del eager
     if unmoved:
         raise AssertionError(f"[training] step 1 left {len(unmoved)} B factors at zero: "
                              f"{unmoved[:3]}")
-    if any(counts.values()):
-        raise AssertionError(f"[training] a kernel launched with the kernels off: {counts}")
-    # one more step under the profiler: device time, idle share, the kernels by time
-    res["profile"] = profile_image(torch, lambda: step(trained, batch, g), "training step",
-                                   unprofiled=(res["step_ms_median"], card.text()),
-                                   what="step")
+
+    # the graphed step from the same state on the same draws
+    graphed = train(graphed_cfg, "graphed step (the first call warms up 3 times and captures)")
+    step = graphed["step"]
+    (cg,) = step.graphs()
+    pool = cg.graph.pool()
+    res["graph"] = {"capture_s": cg.capture_seconds, "instantiate_s": cg.instantiate_seconds,
+                    "nodes": cg.nodes, "pool_gib": pool_bytes(torch, pool) / 2**30,
+                    "replay_host_ms": launch_host_ms(torch, cg.graph),
+                    "first_call_s": graphed["first_call_ms"] / 1e3}
+    res["graphed_vs_eager"] = compare_training(torch, "training", graphed["state"], eager_state,
+                                               graphed["losses"], eager_losses)
+    with CardSampler() as card:
+        dms, hms, losses = timed_steps(torch, lambda: step(trained, batch, graphed["gen"]),
+                                       TRAIN_TIMED_STEPS)
+    counts = dict(cuda_build.launch_counts)
+    res["graphed"] = {"step_ms": dms, "step_host_ms": hms, "step_ms_median": statistics.median(dms),
+                      "step_host_ms_median": statistics.median(hms),
+                      "losses": [x.item() for x in graphed["losses"] + losses],
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+                      "counts": counts}
+    res["graphed"]["profile"] = profile_image(
+        torch, lambda: step(trained, batch, graphed["gen"]), "training step, graphed",
+        unprofiled=(res["graphed"]["step_ms_median"], card.text()), what="step")
+    log(f"[training] SD1.5 UNet bf16, LoRA rank {TRAIN_RANK} f32 on {len(trained)} modules, "
+        f"batch {TRAIN_BATCH} at {shape[1]}x{shape[2]}x4, AdamW lr {TRAIN_LR} (capturable), "
+        f"kernels off, graphed: first call {res['graph']['first_call_s']:.3f} s (3 warm-up "
+        f"steps, capture {cg.capture_seconds:.3f} s, instantiate {cg.instantiate_seconds:.3f} s, "
+        f"{cg.nodes} nodes, pool {res['graph']['pool_gib']:.2f} GiB, replay() returns after "
+        f"{res['graph']['replay_host_ms']:.3f} ms on the host); ms per step (CUDA events) "
+        f"{[round(t, 3) for t in dms]}, median {res['graphed']['step_ms_median']:.3f}; host ms "
+        f"{[round(t, 3) for t in hms]}; peak {res['graphed']['peak_gib']:.2f} GiB allocated, "
+        f"{res['graphed']['peak_reserved_gib']:.2f} GiB reserved (eager "
+        f"{res['eager']['peak_gib']:.2f}, {res['eager']['peak_reserved_gib']:.2f}); host calls "
+        f"a step: eager {res['eager']['profile']['host_launches']}, graphed "
+        f"{res['graphed']['profile']['host_launches']}; launches {counts}; card: {card.text()}")
+    losses = res["graphed"]["losses"] + res["eager"]["losses"]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[training] a loss is not finite: {losses}")
+    if any(counts.values()) or any(eager_counts.values()):
+        raise AssertionError(f"[training] a kernel launched with the kernels off: {counts}, "
+                             f"{eager_counts}")
+    del step, cg, graphed
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["graph"]["pool_gib_after_drop"] = pool_bytes(torch, pool) / 2**30
+    log(f"[training] the graphed step dropped: its pool holds "
+        f"{res['graph']['pool_gib_after_drop']:.2f} GiB; "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    if res["graph"]["pool_gib_after_drop"]:
+        raise AssertionError("[training] the dropped step's pool still holds memory")
 
     # B's gradient at step 1, batch 1: the bf16 UNet against an f32 copy
     one = {k: v[:1] for k, v in batch.items()}
-    got = train_b_grads(torch, pipe.unet, lora0, one, t1[:1], noise1[:1], plain)
+    got = train_b_grads(torch, pipe.unet, lora0, one, t1[:1], noise1[:1], eager_cfg)
     f32 = UNet2DConditionModel(SD15_UNET, device=dev, dtype=torch.float32)
     f32.load_state_dict(pipe.unet.module.state_dict())
-    ref = train_b_grads(torch, f32, lora0, one, t1[:1], noise1[:1], plain)
+    ref = train_b_grads(torch, f32, lora0, one, t1[:1], noise1[:1], eager_cfg)
     del f32
     _, _, rms = rel_errors(got, ref)
     res["b_grad_rms_rel"] = rms
@@ -2014,32 +2145,34 @@ def run_training(torch, dev, pipe, default, lat):
     if not rms <= TRAIN_GRAD_RMS_REL:
         raise AssertionError(f"[training] B's gradient rms_rel {rms} > {TRAIN_GRAD_RMS_REL}")
 
-    # the default configuration: K1 launches in the forward, the backward refuses
-    before = {m: {k: f[k].detach().clone() for k in ("a", "b")} for m, f in trained.items()}
-    state = {id(p): {k: v.clone() for k, v in s.items()} for p, s in opt.state.items()}
+    # the default configuration, graphed: K1 launches in the first warm-up's
+    # forward, its backward refuses, nothing is captured
+    before = training_state(trained, opt)
     cuda_build.reset_launch_counts()
     refusal = None
+    refused = make_lora_train_step(pipe.unet, opt)
     try:
-        make_lora_train_step(pipe.unet, opt)(trained, batch, g)
+        refused(trained, batch, g)
     except RuntimeError as e:
         refusal = str(e)
     refused_counts = dict(cuda_build.launch_counts)
-    kept = all(torch.equal(f[k], before[m][k]) for m, f in trained.items() for k in ("a", "b"))
-    kept_state = all(torch.equal(opt.state[p][k], v) for p in opt.state
-                     for k, v in state[id(p)].items())
-    res["refusal"] = {"message": refusal, "launches": refused_counts, "lora_unchanged": kept,
-                      "optimizer_state_unchanged": kept_state}
-    log(f"[training] under CompilationConfig.Default(): forward launches {refused_counts}; the "
-        f"backward raised: {refusal!r}; LoRA unchanged {kept}, optimizer state unchanged "
-        f"{kept_state}")
+    after = training_state(trained, opt)
+    kept = after.keys() == before.keys() and all(torch.equal(after[k], v)
+                                                 for k, v in before.items())
+    res["refusal"] = {"message": refusal, "launches": refused_counts, "state_unchanged": kept,
+                      "graphs": refused.cache_size}
+    log(f"[training] under CompilationConfig.Default(), graphed: forward launches "
+        f"{refused_counts}; the backward raised: {refusal!r}; graphs captured "
+        f"{refused.cache_size}; LoRA and AdamW state unchanged {kept}")
     if refusal is None or "flash_attention" not in refusal or \
             "enable_kernels=False" not in refusal:
         raise AssertionError(f"[training] the default configuration's backward did not refuse: "
                              f"{refusal!r}")
-    if refused_counts != EXPECTED_REFUSED_LAUNCHES or not kept or not kept_state:
+    if refused_counts != EXPECTED_REFUSED_LAUNCHES or not kept or refused.cache_size:
         raise AssertionError(f"[training] refused step: launches {refused_counts} (expected "
-                             f"{EXPECTED_REFUSED_LAUNCHES}), LoRA kept {kept}, state {kept_state}")
-    del before, state, opt
+                             f"{EXPECTED_REFUSED_LAUNCHES}), state kept {kept}, graphs "
+                             f"{refused.cache_size}")
+    del before, after, opt, refused
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3364,11 +3497,49 @@ def ring_check(torch, dev, mesh):
     return rows
 
 
+def mesh_train_check(torch, dev, unet, mesh):
+    """One graphed LoRA train step on the mesh's tensor-parallel UNet (the
+    gradients' all-reduces over tp, sp and dp in the graph) against one
+    eager step from the same state on the same draws, phase 16's settings
+    at batch 1."""
+    from sfast_tpu_torch import CompilationConfig
+    from sfast_tpu_torch.training import lora_training_setup, make_lora_train_step
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    batch = {"latents": torch.randn((1, 64, 64, 4), generator=g, device=dev),
+             "context": torch.randn((1, 77, unet.config.cross_attention_dim), generator=g,
+                                    device=dev)}
+    runs = {}
+    for graphed in (False, True):
+        lo, op = lora_training_setup(unet, rank=TRAIN_RANK, learning_rate=TRAIN_LR,
+                                     generator=torch.Generator(device=dev).manual_seed(17))
+        step = make_lora_train_step(unet, op, ccfg=CompilationConfig(
+            enable_kernels=False, enable_cuda_graph=graphed, mesh=mesh))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(lo, batch, torch.Generator(device=dev).manual_seed(20))
+        torch.cuda.synchronize()
+        runs[graphed] = (loss, training_state(lo, op), time.perf_counter() - t, step.graphs())
+        del lo, op, step
+    res = compare_training(torch, "mesh training", runs[True][1], runs[False][1],
+                           [runs[True][0]], [runs[False][0]])
+    (cg,) = runs[True][3]
+    res.update(nodes=cg.nodes, capture_s=cg.capture_seconds, first_call_s=runs[True][2],
+               eager_step_s=runs[False][2])
+    log(f"[mesh] a LoRA train step on the mesh, batch 1, kernels off: graphed (first call "
+        f"{res['first_call_s']:.3f} s, capture {cg.capture_seconds:.3f} s, {cg.nodes} nodes) "
+        f"against eager ({res['eager_step_s']:.3f} s): bit for bit {res['bit_for_bit']}")
+    del runs, cg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
 def run_mesh(torch, dev, pipe, default, lat):
     """Phase 17: phase 4's SD1.5 weights in new modules compiled over a
     world-1 NCCL mesh (dp, tp, sp all 1), their collectives in the graphs;
     the image against phase 4's bit for bit, a LoRA swap under the mesh,
-    and ring attention on an sp group of one."""
+    a graphed LoRA train step against an eager one, and ring attention on
+    an sp group of one."""
     import tempfile
 
     import torch.distributed as dist
@@ -3452,6 +3623,7 @@ def run_mesh(torch, dev, pipe, default, lat):
             res["lora"] = lora_swap_check(torch, dev, mpipe, "unet",
                                           dict(kw, seed=0, output_type="pt"), EXPECTED_LAUNCHES,
                                           "mesh lora", cfg=cfg)
+            res["train"] = mesh_train_check(torch, dev, mpipe.unet, mesh)
             res["ring"] = ring_check(torch, dev, mesh)
             del mpipe, unet, vae, te, models
             gc.collect()
@@ -3659,7 +3831,7 @@ def main():
                   EXPECTED_OPTIN_LAUNCHES, OPTIN_MODEL_RMS_REL, lat)
     fused = phase("6 fused loop", run_mode, torch, dev, pipe, "fused loop",
                   CompilationConfig(fuse_denoising_loop=True), EXPECTED_LAUNCHES, lat,
-                  timed_images=1)
+                  timed_images=1, profile=False)
     fused["vs_default_eager"] = compare_runs(torch, "fused loop vs default eager",
                                              default["eager"], fused)
     loop = fused["graphs"].get(f"denoise_loop_{STEPS}")

@@ -2,9 +2,11 @@
 """LoRA text-to-image fine-tuning of SD1.5's UNet — the port's version of
 ``examples/optimize_train_text_to_image_lora.py`` (same flags).
 
-The step is ``training.make_lora_train_step`` (eager forward, autograd's
-backward, AdamW) with every op on its plain PyTorch version
-(``enable_kernels=False``): no hand-written kernel has a backward.
+The step is ``training.make_lora_train_step`` with every op on its plain
+PyTorch version (``enable_kernels=False``: no hand-written kernel has a
+backward).  On the card it replays the forward, autograd's backward and
+AdamW as one CUDA graph (``enable_cuda_graph``, on by default), as JAX's
+example jits its step; the first step warms up three times and captures.
 ``--mesh dp×tp`` trains one process per card under torchrun, the UNet
 tensor-parallel over ``tp`` and the batch split over ``dp``:
 

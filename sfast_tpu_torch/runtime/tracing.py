@@ -164,6 +164,45 @@ class CapturedGraph:
             return _clone_tensors(self.static_out)
 
 
+def capture_graph(fn: Callable[[], object], device: torch.device, static_leaves: list, *,
+                  warmup_calls: int, name: str, cache_size: int = 1) -> CapturedGraph:
+    """``warmup_calls`` calls of ``fn`` on the calling thread's capture
+    stream, then one call captured into a new graph with a memory pool of
+    its own.  ``fn`` takes no arguments: it reads ``static_leaves`` (the
+    tensors a replay copies its inputs into) and whatever else it holds by
+    address.  The default stream waits for the warm-up calls, whether or
+    not they raise."""
+    stream = capture_stream(device)
+    current = torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    try:
+        with torch.cuda.stream(stream):
+            for _ in range(warmup_calls):
+                fn()
+    finally:
+        current.wait_stream(stream)
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    t0 = time.perf_counter()
+    # thread_local: another thread's allocations and syncs (a replay, a
+    # copy to the host) do not invalidate this capture
+    with cuda_build.recording_launches() as launches:
+        with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(), stream=stream,
+                              capture_error_mode="thread_local"):
+            out = fn()
+    capture_s = time.perf_counter() - t0
+    nodes = _node_count(graph)
+    t1 = time.perf_counter()
+    graph.instantiate()
+    instantiate_s = time.perf_counter() - t1
+    logger.info(
+        "sfast_tpu_torch: captured %s for a new input signature in %.2f s (%d nodes, "
+        "instantiated in %.2f s; cache size %d)",
+        name, capture_s, nodes, instantiate_s, cache_size,
+    )
+    return CapturedGraph(graph, static_leaves, out, launches, capture_s, instantiate_s, nodes)
+
+
 class LazyCompiledFunction:
     """A callable that captures ``fn`` into one CUDA graph per input
     signature on first use and replays it after.  ``warmup_calls`` calls of
@@ -250,32 +289,9 @@ class LazyCompiledFunction:
                 )
         static = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
         args, kwargs = pytree.tree_unflatten(static, spec)
-        stream = capture_stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            for _ in range(self.warmup_calls):
-                self.fn(*args, **kwargs)
-        torch.cuda.current_stream(device).wait_stream(stream)
-
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
-        # thread_local: another thread's allocations and syncs (a replay, a
-        # copy to the host) do not invalidate this capture
-        with cuda_build.recording_launches() as launches:
-            with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(), stream=stream,
-                                  capture_error_mode="thread_local"):
-                out = self.fn(*args, **kwargs)
-        capture_s = time.perf_counter() - t0
-        nodes = _node_count(graph)
-        t1 = time.perf_counter()
-        graph.instantiate()
-        instantiate_s = time.perf_counter() - t1
-        logger.info(
-            "sfast_tpu_torch: captured %s for a new input signature in %.2f s (%d nodes, "
-            "instantiated in %.2f s; cache size %d)",
-            self.name, capture_s, nodes, instantiate_s, len(self._cache) + 1,
-        )
-        return CapturedGraph(graph, static, out, launches, capture_s, instantiate_s, nodes)
+        return capture_graph(lambda: self.fn(*args, **kwargs), device, static,
+                             warmup_calls=self.warmup_calls, name=self.name,
+                             cache_size=len(self._cache) + 1)
 
 
 def lazy_jit(fn: Optional[Callable] = None, *, name: Optional[str] = None,

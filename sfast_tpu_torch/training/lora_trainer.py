@@ -33,9 +33,38 @@ every collective's backward is its adjoint (the ring's rotation included),
 so each rank differentiates its loss over tp · sp; the factors' gradients
 are then summed over ``tp`` and ``sp`` and averaged over ``dp``, and every
 rank's AdamW takes the same step.
+
+With ``ccfg.enable_cuda_graph`` (≙ JAX's ``jax.jit(train_step)``,
+``examples/optimize_train_text_to_image_lora.py:43``) a step on the card
+replays one CUDA graph per batch signature: the forward, autograd's
+backward, the gradients' all-reduces under a mesh, and AdamW's update.
+The graph reads and writes the LoRA's factors, the gradients and the
+optimizer's state by address, as the model graphs read their weights; its
+inputs are the latents, the text embeddings, t and the noise, which are
+drawn before each replay on the caller's generator in the eager step's
+order, so a graphed and an eager step on one generator take the same
+draws.  The first call of a signature runs three eager warm-up steps and
+the capture, then puts the LoRA and the optimizer's state back as they
+were (state the warm-ups created goes back to zeros: what a first AdamW
+step starts from) and replays once, so it takes the step an eager call
+would have taken.  The optimizer must be ``torch.optim.Adam`` or
+``AdamW`` built with ``capturable=True`` (``lora_training_setup`` builds
+it so on the card).  A graph keeps the hyperparameters it was captured
+with: a changed ``lr`` or ``weight_decay`` in ``param_groups`` raises at
+the next call, and a schedule writes into a device-tensor ``lr`` in place
+instead, which the graph reads by address.  Python hooks (an optimizer's
+step hooks, tensor hooks) run in the warm-ups and the capture only, never
+in a replay.  A step that raises in a warm-up (the kernels' refusal of a
+backward under ``CompilationConfig.Default()``) or in the capture raises,
+caches nothing and leaves the LoRA and the optimizer as they were; no
+call falls back to the eager step.  CPU tensors, and
+``enable_cuda_graph=False``, take the eager step.  Dropping the step
+frees its graphs' memory pools; the graphs are dropped when the UNet's
+tensors are replaced (``runtime.tracing.weights_version``).
 """
 
-from typing import Callable, Optional
+import warnings
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -45,6 +74,13 @@ from sfast_tpu_torch.config import CompilationConfig
 from sfast_tpu_torch.lora import LoRA, init_lora_params, merge_lora
 from sfast_tpu_torch.parallel.mesh import axis_rank, axis_size
 from sfast_tpu_torch.parallel.tensor_parallel import full_shapes, parallel_linears
+from sfast_tpu_torch.runtime.signature import call_signature
+from sfast_tpu_torch.runtime.tracing import (
+    WARMUP_CALLS,
+    CapturedGraph,
+    capture_graph,
+    weights_version,
+)
 from sfast_tpu_torch.schedulers.common import SchedulerConfig, alphas_cumprod
 
 # optax.adamw's defaults; torch.optim.AdamW's weight decay is 1e-2
@@ -60,6 +96,10 @@ def _module(unet) -> torch.nn.Module:
 
 def _device(module: torch.nn.Module) -> torch.device:
     return next(module.parameters()).device
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
 
 
 def lora_factors(lora: LoRA):
@@ -81,7 +121,8 @@ def lora_training_setup(
     (seed 0 on that device when None), its factors leaf tensors that
     require grad; a tensor-parallel UNet's is drawn for the unsharded
     shapes, the same on every rank.  The optimizer is AdamW at optax's
-    defaults."""
+    defaults, ``capturable`` on the card (its step count a device tensor,
+    so that the train step's graph can hold its update)."""
     module = _module(unet)
     dev = _device(module)
     if generator is None:
@@ -92,7 +133,8 @@ def lora_training_setup(
         for k in ("a", "b"):
             f[k] = f[k].to(dev).requires_grad_(True)
     optimizer = torch.optim.AdamW(lora_factors(lora), lr=learning_rate, betas=ADAMW_BETAS,
-                                  eps=ADAMW_EPS, weight_decay=ADAMW_WEIGHT_DECAY)
+                                  eps=ADAMW_EPS, weight_decay=ADAMW_WEIGHT_DECAY,
+                                  capturable=dev.type == "cuda")
     return lora, optimizer
 
 
@@ -102,7 +144,7 @@ def make_lora_train_step(
     *,
     ccfg: Optional[CompilationConfig] = None,
     sched_cfg: SchedulerConfig = SchedulerConfig(),
-) -> Callable:
+) -> "LoraTrainStep":
     """Returns ``train_step(lora, batch, generator=None, *, t=None,
     noise=None)`` → the loss, a 0-d f32 tensor, after one optimizer step.
 
@@ -111,7 +153,7 @@ def make_lora_train_step(
     num_train_timesteps) and noise ~ N(0, 1) in f32 are drawn on
     ``generator`` (on the latents' device) unless given; the tests hand in
     JAX's draws, since threefry is not Philox.  ``lora`` is the dict whose
-    factors ``optimizer`` holds.
+    factors ``optimizer`` holds; another raises.
 
     ``ccfg`` defaults to ``CompilationConfig.Default()``, as JAX's does; it
     is passed to the UNet's forward with the call, as JAX passes it, so the
@@ -119,55 +161,195 @@ def make_lora_train_step(
     serving from the same UNet on another thread keeps its routes.  On the card
     the default's K1 refuses the backward pass (``cuda_build.no_backward``):
     pass ``CompilationConfig(enable_kernels=False)``.  A step that raises
-    takes no optimizer step and leaves no gradient behind."""
-    ccfg = ccfg or CompilationConfig.Default()
-    module = _module(unet)
-    ac_host = torch.tensor(alphas_cumprod(sched_cfg), dtype=torch.float32)
-    n_train = sched_cfg.num_train_timesteps
-    mesh = ccfg.mesh
-    sharded = parallel_linears(module)
-    dp, block = axis_size(mesh, "dp"), axis_size(mesh, "tp") * axis_size(mesh, "sp")
+    takes no optimizer step and leaves no gradient behind.  Its
+    ``enable_cuda_graph`` (on by default) replays the step on the card as
+    one CUDA graph (the module's docstring)."""
+    return LoraTrainStep(unet, optimizer, ccfg or CompilationConfig.Default(), sched_cfg)
 
-    def train_step(lora: LoRA, batch, generator: Optional[torch.Generator] = None, *,
-                   t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+
+class LoraTrainStep:
+    """The train step of :func:`make_lora_train_step`, and its CUDA graphs:
+    one per batch signature (:attr:`cache_size`, :meth:`graphs`)."""
+
+    def __init__(self, unet, optimizer: torch.optim.Optimizer, ccfg: CompilationConfig,
+                 sched_cfg: SchedulerConfig):
+        self.module = _module(unet)
+        self.optimizer = optimizer
+        self.ccfg = ccfg
+        # on the module's device once: a copy from the host in every step
+        # would wait for the card, and no capture may hold one
+        self._ac = torch.tensor(alphas_cumprod(sched_cfg), dtype=torch.float32,
+                                device=_device(self.module))
+        self._n_train = sched_cfg.num_train_timesteps
+        self._sharded = parallel_linears(self.module)
+        mesh = ccfg.mesh
+        self._dp = axis_size(mesh, "dp")
+        self._block = axis_size(mesh, "tp") * axis_size(mesh, "sp")
+        self._cache: Dict[tuple, CapturedGraph] = {}
+        self._version = weights_version(self.module)
+        self._captured_with = None  # the optimizer's hyperparameters at the captures
+
+    @property
+    def cache_size(self) -> int:
+        return len(self._cache)
+
+    def graphs(self) -> List[CapturedGraph]:
+        return list(self._cache.values())
+
+    def __call__(self, lora: LoRA, batch, generator: Optional[torch.Generator] = None, *,
+                 t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+        _check_lora(lora, self.optimizer)
         latents, context = batch["latents"], batch["context"]
         dev = latents.device
         if (t is None or noise is None) and generator is None:
             raise ValueError("train_step: pass a generator, or both t and noise")
         if t is None:
-            t = torch.randint(0, n_train, (latents.shape[0],), generator=generator, device=dev)
+            t = torch.randint(0, self._n_train, (latents.shape[0],), generator=generator,
+                              device=dev)
         if noise is None:
             noise = torch.randn(latents.shape, generator=generator, device=dev,
                                 dtype=torch.float32)
-        if dp > 1:
-            if latents.shape[0] % dp:
-                raise ValueError(f"train_step: batch {latents.shape[0]} does not split {dp} ways")
-            n = latents.shape[0] // dp
+        inputs = [latents, context, t.to(dev), noise.to(dev)]
+        if self.ccfg.enable_cuda_graph and _on_card(latents):
+            return self._graph(lora, inputs).run(inputs)
+        return self._update(lora, *inputs)
+
+    def _update(self, lora: LoRA, latents, context, t, noise) -> torch.Tensor:
+        """One step's device work, with no host sync: the forward, the
+        backward, the gradients' reduction under a mesh and the optimizer's
+        update.  What a graph captures."""
+        mesh = self.ccfg.mesh
+        if self._dp > 1:
+            if latents.shape[0] % self._dp:
+                raise ValueError(f"train_step: batch {latents.shape[0]} does not split "
+                                 f"{self._dp} ways")
+            n = latents.shape[0] // self._dp
             r = axis_rank(mesh, "dp")
             latents, context, t, noise = (x.narrow(0, r * n, n)
                                           for x in (latents, context, t, noise))
-        ac = ac_host.to(dev)[t.to(dev)]
+        ac = self._ac[t]
         a = ac.sqrt()[:, None, None, None]
         s = (1 - ac).sqrt()[:, None, None, None]
         noisy = (a * latents + s * noise).to(latents.dtype)
-        base = module.state_dict()  # detached: only the LoRA factors get gradients
+        base = self.module.state_dict()  # detached: only the LoRA factors get gradients
         try:
-            pred = functional_call(module, merge_lora(base, lora, 1.0, sharded),
+            pred = functional_call(self.module, merge_lora(base, lora, 1.0, self._sharded),
                                    (noisy, t.to(torch.float32), context),
-                                   {"compilation_config": ccfg})
+                                   {"compilation_config": self.ccfg})
             loss = torch.mean((pred.float() - noise.float()) ** 2)
             if mesh is None:
                 loss.backward()
             else:
-                (loss / block).backward()
-                _reduce_grads(lora_factors(lora), mesh, dp)
-                loss = _mean_over_dp(loss.detach(), mesh, dp)
-            optimizer.step()
+                (loss / self._block).backward()
+                _reduce_grads(lora_factors(lora), mesh, self._dp)
+                loss = _mean_over_dp(loss.detach(), mesh, self._dp)
+            self.optimizer.step()
         finally:
-            optimizer.zero_grad(set_to_none=True)
+            self.optimizer.zero_grad(set_to_none=True)
         return loss.detach()
 
-    return train_step
+    def _graph(self, lora: LoRA, inputs) -> CapturedGraph:
+        version = weights_version(self.module)
+        if version != self._version:  # the UNet's tensors were replaced
+            self._cache.clear()
+            self._version = version
+        hyper = _hyperparameters(self.optimizer)
+        if self._cache and not _same_hyperparameters(hyper, self._captured_with):
+            raise ValueError(
+                "train_step: the optimizer's param_groups changed after the step's graph was "
+                "captured, and a graph keeps the values it was captured with; change a "
+                "device-tensor lr in place (AdamW(..., lr=torch.tensor(lr, device=...), "
+                "capturable=True)), or make a new step")
+        key = call_signature(inputs, {})
+        entry = self._cache.get(key)
+        if entry is None:
+            entry = self._cache[key] = self._capture(lora, inputs)
+            self._captured_with = hyper
+        return entry
+
+    def _capture(self, lora: LoRA, inputs) -> CapturedGraph:
+        device = inputs[0].device
+        _check_graphable(self.optimizer, device)
+        static = [x.clone() for x in inputs]
+        saved = _save_state(lora, self.optimizer)
+        try:
+            with warnings.catch_warnings():  # the warm-ups step a capturable AdamW eagerly
+                warnings.filterwarnings("ignore", "This instance was constructed with "
+                                        "capturable=True")
+                return capture_graph(lambda: self._update(lora, *static), device, static,
+                                     warmup_calls=WARMUP_CALLS, name="lora_train_step",
+                                     cache_size=len(self._cache) + 1)
+        finally:  # the warm-ups trained: put the LoRA and the optimizer back
+            _restore_state(saved, lora, self.optimizer)
+
+
+def _check_lora(lora: LoRA, optimizer: torch.optim.Optimizer) -> None:
+    held = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    factors = lora_factors(lora)
+    if held != {id(f) for f in factors} or len(factors) != len(held):
+        raise ValueError("train_step: the LoRA's factors are not the optimizer's parameters "
+                         "(lora_training_setup returns a matching pair)")
+
+
+def _check_graphable(optimizer: torch.optim.Optimizer, device: torch.device) -> None:
+    """The graphed step holds Adam's update: a device step count, and no
+    hyperparameter that a capture would copy from the host."""
+    if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        raise TypeError(f"train_step: the graphed step takes torch.optim.Adam or AdamW, not "
+                        f"{type(optimizer).__name__}; pass CompilationConfig("
+                        f"enable_cuda_graph=False) to train with it eagerly")
+    for group in optimizer.param_groups:
+        if not group["capturable"]:
+            raise ValueError("train_step: the graphed step needs an optimizer built with "
+                             "capturable=True (lora_training_setup builds one on the card)")
+        for k, v in group.items():
+            if k != "params" and torch.is_tensor(v) and v.device != device:
+                raise ValueError(f"train_step: the optimizer's {k} is a tensor on {v.device}; "
+                                 f"a graph on {device} would keep its value")
+
+
+def _hyperparameters(optimizer: torch.optim.Optimizer) -> list:
+    return [([id(p) for p in g["params"]], {k: v for k, v in g.items() if k != "params"})
+            for g in optimizer.param_groups]
+
+
+def _same_hyperparameters(a: list, b: list) -> bool:
+    """A tensor by identity (a graph reads it by address), any other value
+    by equality."""
+    def same(x, y):
+        if torch.is_tensor(x) or torch.is_tensor(y):
+            return x is y
+        return x == y
+
+    return len(a) == len(b) and all(
+        ids_a == ids_b and hp_a.keys() == hp_b.keys() and all(same(hp_a[k], hp_b[k]) for k in hp_a)
+        for (ids_a, hp_a), (ids_b, hp_b) in zip(a, b))
+
+
+def _save_state(lora: LoRA, optimizer: torch.optim.Optimizer):
+    """Copies of the LoRA's factors and of the optimizer's per-parameter
+    state (None for a parameter that has none yet)."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    state = {p: ({k: v.clone() for k, v in optimizer.state[p].items()}
+                 if optimizer.state.get(p) else None) for p in params}
+    return [f.detach().clone() for f in lora_factors(lora)], state
+
+
+def _restore_state(saved, lora: LoRA, optimizer: torch.optim.Optimizer) -> None:
+    """Writes ``saved`` back into the tensors in place, since a captured
+    graph holds their addresses.  State created after ``saved`` goes back
+    to zeros: an Adam whose step count and moments are zero takes exactly
+    the step of one that has no state yet."""
+    factors, state = saved
+    with torch.no_grad():
+        for f, v in zip(lora_factors(lora), factors):
+            f.copy_(v)
+        for p, was in state.items():
+            for k, v in optimizer.state.get(p, {}).items():
+                if was is None:
+                    v.zero_()
+                else:
+                    v.copy_(was[k])
 
 
 def _reduce_grads(factors, mesh, dp: int) -> None:

@@ -48,7 +48,9 @@ from sfast_tpu_torch.ops.group_norm import (
     group_norm_stats_ref,
 )
 from sfast_tpu_torch.runtime import cuda_build
-from sfast_tpu_torch.training import lora_factors, lora_training_setup, make_lora_train_step
+from sfast_tpu_torch.runtime.tracing import bump_weights_version
+from sfast_tpu_torch.training import lora_factors, lora_training_setup, lora_trainer
+from sfast_tpu_torch.training import make_lora_train_step
 from tests.test_torch_svd import _one_torch_thread  # noqa: F401  (an autouse fixture)
 
 J_CFG = dataclasses.replace(junet.TINY_UNET, cross_attention_dim=64)
@@ -325,3 +327,202 @@ def test_a_refused_backward_leaves_the_lora_and_optimizer_as_they_were(jax_run, 
     assert all(p.grad is None for p in lora_factors(lora))
     assert not opt.state
     assert m.compilation_config is saved
+
+
+# The graphed step's state handling, on the CPU.  A capture needs the card,
+# so the graph path runs here with ``capture_graph`` replaced by a stand-in
+# whose "replay" runs the captured function eagerly on the static inputs:
+# the LoRA and the optimizer are read by address either way, so a replay
+# equals an eager step exactly when the state around the warm-ups and the
+# capture is put back exactly.
+
+EAGER = CompilationConfig(enable_kernels=False, enable_cuda_graph=False)
+
+
+def _state(lora, opt):
+    """Copies of the factors and of AdamW's state, in the factors' order."""
+    factors = lora_factors(lora)
+    return ([f.detach().clone() for f in factors],
+            [{k: v.clone() for k, v in opt.state.get(f, {}).items()} for f in factors])
+
+
+def _assert_same_state(got, want):
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    for a, b in zip(got[1], want[1]):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _setup(params):
+    m = _unet(params)
+    lora, opt = lora_training_setup(m, rank=RANK, generator=torch.Generator().manual_seed(0))
+    return m, lora, opt
+
+
+def _torch_batch():
+    return {k: torch.from_numpy(v) for k, v in _batch().items()}
+
+
+class _ReplayEagerly:
+    """A captured graph's stand-in: ``run`` copies the inputs into the
+    static ones and runs the captured function on them."""
+
+    def __init__(self, fn, static):
+        self.fn, self.static_leaves = fn, static
+
+    def run(self, leaves):
+        for s, x in zip(self.static_leaves, leaves):
+            s.copy_(x)
+        return self.fn().clone()
+
+
+@pytest.fixture
+def graph_path(monkeypatch):
+    """The graphed step's path for CPU tensors; yields the names captured.
+    The stand-in capture runs the warm-ups and then the function once more
+    (a real capture runs nothing; the step restores the state after it
+    either way)."""
+    captured = []
+
+    def capture(fn, device, static, *, warmup_calls, name, cache_size):
+        assert warmup_calls == 3 and device.type == "cpu"
+        for _ in range(warmup_calls + 1):
+            fn()
+        captured.append(name)
+        return _ReplayEagerly(fn, static)
+
+    monkeypatch.setattr(lora_trainer, "capture_graph", capture)
+    monkeypatch.setattr(lora_trainer, "_on_card", lambda x: True)
+    monkeypatch.setattr(lora_trainer, "_check_graphable", lambda opt, dev: None)
+    return captured
+
+
+@pytest.mark.parametrize("saved_after", [0, 1])
+def test_restore_puts_back_the_lora_and_adamw_exactly(jax_run, saved_after):
+    """State saved after ``saved_after`` steps (0: AdamW has none yet), two
+    more steps, the restore: the next step equals the step taken right
+    after the save, bit for bit (factors, exp_avg, exp_avg_sq, step, loss)."""
+    params = jax_run[0]
+    batch = _torch_batch()
+    runs = []
+    for detour in (False, True):
+        m, lora, opt = _setup(params)
+        step = make_lora_train_step(m, opt, ccfg=EAGER)
+        g = torch.Generator().manual_seed(5)
+        for _ in range(saved_after):
+            step(lora, batch, g)
+        saved = lora_trainer._save_state(lora, opt)
+        if detour:
+            for _ in range(2):
+                step(lora, batch, torch.Generator().manual_seed(6))
+            lora_trainer._restore_state(saved, lora, opt)
+            if saved_after == 0:  # back to zeros, which a first AdamW step starts from
+                assert all(not v.any() for f in lora_factors(lora) for v in opt.state[f].values())
+        loss = step(lora, batch, g)
+        runs.append((loss, _state(lora, opt)))
+    (loss_a, state_a), (loss_b, state_b) = runs
+    assert torch.equal(loss_a, loss_b)
+    _assert_same_state(state_b, state_a)
+    assert all(s["step"].item() == saved_after + 1 for s in state_b[1])
+
+
+@pytest.mark.parametrize("mismatch", ["copied lora", "optimizer over half the factors"])
+def test_a_lora_that_is_not_the_optimizers_raises(jax_run, mismatch):
+    m, lora, opt = _setup(jax_run[0])
+    if mismatch == "copied lora":
+        lora = {mod: {k: f[k].detach().clone().requires_grad_(True) for k in ("a", "b")}
+                for mod, f in lora.items()}
+    else:
+        opt = torch.optim.AdamW(lora_factors(lora)[::2])
+    before = _state(lora, opt)
+    with pytest.raises(ValueError, match="not the optimizer's parameters"):
+        make_lora_train_step(m, opt, ccfg=PLAIN)(lora, _torch_batch(), torch.Generator())
+    _assert_same_state(_state(lora, opt), before)
+
+
+def test_graphed_steps_equal_eager_steps(jax_run, graph_path):
+    """Three steps through the graph path from a fresh AdamW (the first
+    call warms up three times and captures) equal three eager steps on
+    one generator's draws, bit for bit; one capture for one signature."""
+    params = jax_run[0]
+    batch = _torch_batch()
+    runs = []
+    for ccfg in (PLAIN, EAGER):
+        m, lora, opt = _setup(params)
+        step = make_lora_train_step(m, opt, ccfg=ccfg)
+        g = torch.Generator().manual_seed(7)
+        losses = [step(lora, batch, g) for _ in range(3)]
+        runs.append((losses, _state(lora, opt), step.cache_size))
+    (graphed, g_state, n_graphs), (eager, e_state, n_eager) = runs
+    assert graph_path == ["lora_train_step"] and (n_graphs, n_eager) == (1, 0)
+    assert all(torch.equal(a, b) for a, b in zip(graphed, eager))
+    _assert_same_state(g_state, e_state)
+
+
+def test_graphed_step_hyperparameters_and_weights_version(jax_run, graph_path):
+    """After the capture a float ``lr`` written into ``param_groups``
+    raises (a graph keeps the value it was captured with), and so does a
+    new parameter group; a tensor ``lr`` written in place is read at every
+    step, and takes effect as in the eager step.  A new
+    ``weights_version`` of the UNet drops the graph: the next call
+    captures again."""
+    params = jax_run[0]
+    batch = _torch_batch()
+    runs = []
+    for ccfg in (PLAIN, EAGER):
+        m, lora, opt = _setup(params)
+        for group in opt.param_groups:
+            group["lr"] = torch.tensor(group["lr"])
+        step = make_lora_train_step(m, opt, ccfg=ccfg)
+        g = torch.Generator().manual_seed(8)
+        losses = [step(lora, batch, g)]
+        opt.param_groups[0]["lr"].fill_(3e-4)
+        losses.append(step(lora, batch, g))
+        runs.append((losses, _state(lora, opt)))
+        if ccfg is PLAIN:
+            graphed = (m, lora, opt, step)
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    _assert_same_state(runs[0][1], runs[1][1])
+
+    m, lora, opt, step = graphed
+    lr = opt.param_groups[0]["lr"]
+    opt.param_groups[0]["lr"] = 3e-4
+    with pytest.raises(ValueError, match="param_groups changed"):
+        step(lora, batch, torch.Generator())
+    opt.param_groups[0]["lr"] = lr
+    opt.param_groups[0]["weight_decay"] = 1e-2
+    with pytest.raises(ValueError, match="param_groups changed"):
+        step(lora, batch, torch.Generator())
+    opt.param_groups[0]["weight_decay"] = 1e-4
+    step(lora, batch, torch.Generator())
+    assert graph_path == ["lora_train_step"]
+    bump_weights_version(m)
+    step(lora, batch, torch.Generator())
+    assert graph_path == ["lora_train_step"] * 2 and step.cache_size == 1
+
+
+def test_graphed_refusal_caches_nothing_and_restores_the_state(jax_run, graph_path,
+                                                               monkeypatch):
+    """Under ``CompilationConfig.Default()`` the first warm-up's backward
+    meets the refusal (every attention taken as if it were K1): the step
+    raises the kernel's message, captures and caches nothing, and leaves
+    the LoRA and AdamW, trained two steps before, as they were."""
+    params = jax_run[0]
+    m, lora, opt = _setup(params)
+    batch = _torch_batch()
+    trainer = make_lora_train_step(m, opt, ccfg=EAGER)
+    for _ in range(2):
+        trainer(lora, batch, torch.Generator().manual_seed(9))
+    before = _state(lora, opt)
+    attention = layers.dot_product_attention
+
+    def as_kernel(q, k, v, **kw):
+        return cuda_build.NoBackward.apply("flash_attention",
+                                           lambda q, k, v: attention(q, k, v, **kw), q, k, v)
+
+    monkeypatch.setattr(layers, "dot_product_attention", as_kernel)
+    step = make_lora_train_step(m, opt)  # CompilationConfig.Default(): graphed
+    with pytest.raises(RuntimeError, match="flash_attention: .*enable_kernels=False"):
+        step(lora, batch, torch.Generator())
+    assert step.cache_size == 0 and graph_path == []
+    _assert_same_state(_state(lora, opt), before)
+    assert all(p.grad is None for p in lora_factors(lora))

@@ -3812,11 +3812,10 @@ def main():
         return out
 
     def build():
+        fresh = not cuda_build.library_path().exists()
         path = cuda_build.build()
         cuda_build.library()
-        built = cuda_build.build_seconds
-        log(f"kernels: {path.name} "
-            + (f"built in {built:.1f} s" if built is not None else "already built"))
+        log(f"kernels: {path.name} " + ("built" if fresh else "already built"))
 
     phase("2 build", build)
     measured = phase("3 kernels", check_kernels, torch, dev)

@@ -77,6 +77,7 @@ import torch
 
 from sfast_tpu_torch.config import CompilationConfig
 from sfast_tpu_torch.models.layers import lcm_timestep_cond
+from sfast_tpu_torch.profile import spans
 from sfast_tpu_torch.runtime.executable_cache import global_executable_cache
 from sfast_tpu_torch.runtime.shape_bucket import pad_batch, unpad_batch
 from sfast_tpu_torch.runtime.tracing import LazyCompiledFunction
@@ -491,6 +492,7 @@ class StableDiffusionPipeline(PipelineBase):
                 negative_prompt_ids, _ = pad_batch(negative_prompt_ids, buckets)
         return prompt_ids, negative_prompt_ids, real_b
 
+    @spans.as_request
     @torch.inference_mode()
     def __call__(
         self,
@@ -521,7 +523,8 @@ class StableDiffusionPipeline(PipelineBase):
         ``callback_on_step_end(pipe, i, t, {"latents": latents})`` runs
         after each executed step (``t`` its timestep, a 0-d device tensor);
         ``output_type='pt'`` leaves the uint8 images on the device (JAX's
-        ``'device'``)."""
+        ``'device'``).  Under a profiler session the call is an
+        ``sfast.request`` span (``profile/spans.py``)."""
         self._sched_guard()
         prompt_ids, negative_prompt_ids, real_b = self._prompt_batch(
             prompt, prompt_ids, negative_prompt_ids)
@@ -659,7 +662,9 @@ class StableDiffusionPipeline(PipelineBase):
         if output_type == "pt":
             return PipelineOutput(image)
         if output_type == "np":
-            return PipelineOutput(image.cpu().numpy())
+            with spans.wait():
+                image = image.cpu()
+            return PipelineOutput(image.numpy())
         if output_type == "pil":
             return PipelineOutput(to_pil(image))
         raise ValueError(f"unknown output_type: {output_type!r}")
@@ -674,7 +679,11 @@ class StableDiffusionPipeline(PipelineBase):
         host work of the next call overlaps the device's work on this one.
 
         An item is a prompt string, a list of them, or pre-tokenized ids (a
-        tensor or array); ``kwargs`` go to ``__call__``."""
+        tensor or array); ``kwargs`` go to ``__call__``.  Under a profiler
+        session each item is an ``sfast.request`` span from the moment it is
+        taken to its copy being queued, and again around its fetch, whose
+        ``sfast.wait`` carries its id; the caller's iterator and the time
+        after a ``yield`` lie outside every span."""
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         if output_type not in ("np", "pil"):
@@ -683,23 +692,26 @@ class StableDiffusionPipeline(PipelineBase):
                 f"{output_type!r}")
 
         def fetch(entry):
-            host, done = entry
-            if done is not None:
-                done.synchronize()
-            images = np.array(host.numpy())  # out of the pinned buffer
-            return PipelineOutput(to_pil(images) if output_type == "pil" else images)
+            request_id, host, done = entry
+            with spans.request(request_id):
+                with spans.wait():
+                    if done is not None:
+                        done.synchronize()
+                images = np.array(host.numpy())  # out of the pinned buffer
+                return PipelineOutput(to_pil(images) if output_type == "pil" else images)
 
         pending = collections.deque()
         for p in prompts:
-            if isinstance(p, (str, list)):
-                out = self(p, output_type="pt", **kwargs)
-            elif hasattr(p, "shape"):  # pre-tokenized ids
-                out = self(prompt_ids=p, output_type="pt", **kwargs)
-            else:
-                raise TypeError(
-                    "map() items must be a prompt str, a list of prompt strs, or a "
-                    f"pre-tokenized ids array (has .shape); got {type(p).__name__}")
-            pending.append(_to_host_async(out.images))
+            with spans.request() as request_id:
+                if isinstance(p, (str, list)):
+                    out = self(p, output_type="pt", **kwargs)
+                elif hasattr(p, "shape"):  # pre-tokenized ids
+                    out = self(prompt_ids=p, output_type="pt", **kwargs)
+                else:
+                    raise TypeError(
+                        "map() items must be a prompt str, a list of prompt strs, or a "
+                        f"pre-tokenized ids array (has .shape); got {type(p).__name__}")
+                pending.append((request_id, *_to_host_async(out.images)))
             if len(pending) >= window:
                 yield fetch(pending.popleft())
         while pending:

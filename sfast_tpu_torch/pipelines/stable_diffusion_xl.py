@@ -25,6 +25,7 @@ from typing import List, Optional, Union
 import torch
 
 from sfast_tpu_torch.pipelines.stable_diffusion import PipelineOutput, StableDiffusionPipeline
+from sfast_tpu_torch.profile import spans
 
 
 class StableDiffusionXLPipeline(StableDiffusionPipeline):
@@ -104,6 +105,7 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
         h2, pooled = self.text_encoder_2(prompt_ids_2, output="penultimate_pooled")
         return torch.cat([h1, h2], dim=-1), pooled
 
+    @spans.as_request
     @torch.inference_mode()
     def __call__(
         self,
@@ -129,7 +131,8 @@ class StableDiffusionXLPipeline(StableDiffusionPipeline):
         callback_on_step_end=None,
     ) -> PipelineOutput:
         """``callback_on_step_end`` and ``output_type`` as the base
-        pipeline's, whose ``map`` and ``warmup`` serve SDXL too."""
+        pipeline's, whose ``map`` and ``warmup`` serve SDXL too; an
+        ``sfast.request`` span as the base pipeline's."""
         self._sched_guard()
         if prompt_ids is None:
             prompt_ids = self.tokenize(prompt)

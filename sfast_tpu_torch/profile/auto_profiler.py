@@ -108,8 +108,10 @@ class IterationProfiler:
 @contextlib.contextmanager
 def trace(log_dir: str):
     """``torch.profiler`` over the block (the card's kernels too, where
-    there is one); on exit writes ``<log_dir>/trace.json``, a Chrome trace.
-    Yields the profiler (``key_averages()`` for sums by kernel)."""
+    there is one); on exit writes ``<log_dir>/trace.json``, a Chrome trace,
+    in which the program's ``sfast.*`` spans (``profile/spans.py``) stand
+    above the kernels they launched.  Yields the profiler
+    (``key_averages()`` for sums by kernel)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

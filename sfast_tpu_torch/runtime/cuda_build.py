@@ -46,7 +46,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Optional
 
@@ -95,7 +94,6 @@ _local = threading.local()
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None  # wall time of the build this process ran
 
 
 def _own_counts() -> dict:
@@ -212,7 +210,6 @@ def build(extra_flags=()) -> Path:
 
     Returns its path.  ``extra_flags`` go to every compile as given (for
     example ``["-Xptxas", "-v"]``, whose report is printed)."""
-    global build_seconds
     out = library_path(extra_flags)
     if out.exists():
         return out
@@ -222,7 +219,6 @@ def build(extra_flags=()) -> Path:
     srcs = sorted(SRC_DIR.glob("*.cu"))
     objs = [out.parent / f"{tag}.{src.stem}.o" for src in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
     try:
         _run_all([
             [nvcc] + NVCC_FLAGS + list(extra_flags) + ["-c", str(src), "-o", str(obj)]
@@ -234,7 +230,6 @@ def build(extra_flags=()) -> Path:
         tmp.unlink(missing_ok=True)
         for obj in objs:
             obj.unlink(missing_ok=True)
-        build_seconds = time.perf_counter() - t0
     return out
 
 

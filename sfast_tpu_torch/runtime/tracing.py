@@ -16,6 +16,9 @@ SURVEY.md §3.3).  Here it is that cache again, in the reference's order:
   reference's ``tree_copy``): a caller that keeps an output across two
   replays, as DPM++ keeps ``x0_prev``, must not see it overwritten.
 
+Under a profiler session a graphed call is an ``sfast.replay`` span and a
+capture an ``sfast.capture`` span inside it (``profile/spans.py``).
+
 Calls whose tensors all lie on the CPU run the function directly and
 cache nothing, as every kernel wrapper takes its plain version there.  A
 capture that fails raises: unlike JAX's ``CompiledModel._cannot_compile``
@@ -73,6 +76,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 import torch.utils._pytree as pytree
 
+from sfast_tpu_torch.profile import spans
 from sfast_tpu_torch.runtime import cuda_build
 from sfast_tpu_torch.runtime.signature import call_signature
 
@@ -172,35 +176,36 @@ def capture_graph(fn: Callable[[], object], device: torch.device, static_leaves:
     tensors a replay copies its inputs into) and whatever else it holds by
     address.  The default stream waits for the warm-up calls, whether or
     not they raise."""
-    stream = capture_stream(device)
-    current = torch.cuda.current_stream(device)
-    stream.wait_stream(current)
-    try:
-        with torch.cuda.stream(stream):
-            for _ in range(warmup_calls):
-                fn()
-    finally:
-        current.wait_stream(stream)
+    with spans.capture(name):
+        stream = capture_stream(device)
+        current = torch.cuda.current_stream(device)
+        stream.wait_stream(current)
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(warmup_calls):
+                    fn()
+        finally:
+            current.wait_stream(stream)
 
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    t0 = time.perf_counter()
-    # thread_local: another thread's allocations and syncs (a replay, a
-    # copy to the host) do not invalidate this capture
-    with cuda_build.recording_launches() as launches:
-        with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(), stream=stream,
-                              capture_error_mode="thread_local"):
-            out = fn()
-    capture_s = time.perf_counter() - t0
-    nodes = _node_count(graph)
-    t1 = time.perf_counter()
-    graph.instantiate()
-    instantiate_s = time.perf_counter() - t1
-    logger.info(
-        "sfast_tpu_torch: captured %s for a new input signature in %.2f s (%d nodes, "
-        "instantiated in %.2f s; cache size %d)",
-        name, capture_s, nodes, instantiate_s, cache_size,
-    )
-    return CapturedGraph(graph, static_leaves, out, launches, capture_s, instantiate_s, nodes)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        # thread_local: another thread's allocations and syncs (a replay, a
+        # copy to the host) do not invalidate this capture
+        with cuda_build.recording_launches() as launches:
+            with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(), stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = fn()
+        capture_s = time.perf_counter() - t0
+        nodes = _node_count(graph)
+        t1 = time.perf_counter()
+        graph.instantiate()
+        instantiate_s = time.perf_counter() - t1
+        logger.info(
+            "sfast_tpu_torch: captured %s for a new input signature in %.2f s (%d nodes, "
+            "instantiated in %.2f s; cache size %d)",
+            name, capture_s, nodes, instantiate_s, cache_size,
+        )
+        return CapturedGraph(graph, static_leaves, out, launches, capture_s, instantiate_s, nodes)
 
 
 class LazyCompiledFunction:
@@ -257,7 +262,8 @@ class LazyCompiledFunction:
         leaves, spec = pytree.tree_flatten((args, kwargs))
         if not self._uses_graph(leaves):
             return self.fn(*args, **kwargs)
-        return self._get_graph(args, kwargs, leaves, spec).run(leaves)
+        with spans.replay(self.name):
+            return self._get_graph(args, kwargs, leaves, spec).run(leaves)
 
     @staticmethod
     def _uses_graph(leaves) -> bool:

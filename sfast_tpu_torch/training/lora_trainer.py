@@ -58,7 +58,9 @@ in a replay.  A step that raises in a warm-up (the kernels' refusal of a
 backward under ``CompilationConfig.Default()``) or in the capture raises,
 caches nothing and leaves the LoRA and the optimizer as they were; no
 call falls back to the eager step.  CPU tensors, and
-``enable_cuda_graph=False``, take the eager step.  Dropping the step
+``enable_cuda_graph=False``, take the eager step.  Under a profiler
+session a graphed step is an ``sfast.replay`` span of ``lora_train_step``
+(``profile/spans.py``).  Dropping the step
 frees its graphs' memory pools; the graphs are dropped when the UNet's
 tensors are replaced (``runtime.tracing.weights_version``).
 """
@@ -74,6 +76,7 @@ from sfast_tpu_torch.config import CompilationConfig
 from sfast_tpu_torch.lora import LoRA, init_lora_params, merge_lora
 from sfast_tpu_torch.parallel.mesh import axis_rank, axis_size
 from sfast_tpu_torch.parallel.tensor_parallel import full_shapes, parallel_linears
+from sfast_tpu_torch.profile import spans
 from sfast_tpu_torch.runtime.signature import call_signature
 from sfast_tpu_torch.runtime.tracing import (
     WARMUP_CALLS,
@@ -211,7 +214,8 @@ class LoraTrainStep:
                                 dtype=torch.float32)
         inputs = [latents, context, t.to(dev), noise.to(dev)]
         if self.ccfg.enable_cuda_graph and _on_card(latents):
-            return self._graph(lora, inputs).run(inputs)
+            with spans.replay("lora_train_step"):
+                return self._graph(lora, inputs).run(inputs)
         return self._update(lora, *inputs)
 
     def _update(self, lora: LoRA, latents, context, t, noise) -> torch.Tensor:

@@ -6,6 +6,8 @@ CLIP normalization of the SVD pipeline
 import numpy as np
 import torch
 
+from sfast_tpu_torch.profile import spans
+
 # CLIP's image normalization (OpenAI's mean and std, which OpenCLIP's
 # ViT-H keeps)
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -67,7 +69,9 @@ def to_pil(image) -> list:
     except ImportError as e:
         raise ImportError("Pillow is required for PIL output") from e
     if isinstance(image, torch.Tensor):
-        image = image.cpu().numpy()
+        with spans.wait():
+            image = image.cpu()
+        image = image.numpy()
     return [Image.fromarray(a) for a in np.asarray(image)]
 
 

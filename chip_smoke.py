@@ -247,40 +247,54 @@ PEAK_INT8 = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 EXP2_PER_S = 16 * 132 * 1.98e9
 # launches of one image: 5 level-0 self-attentions x 50 steps; 9 fused VAE
-# resnets x 2 + 3 upsample convs; one K3 per fused resnet.  Opt-in: every
-# UNet GroupNorm (22 resnets x 2 + 16 transformers + conv_norm_out = 61 per
-# eval) is one fused GroupNorm; 11 of the 16 GEGLUs pass the width rule
-# (K = 320 fails it); the 5 level-0 self-attentions take K6.
+# resnets x 2 + 3 upsample convs; one K3 per fused resnet.  Every UNet
+# GroupNorm (22 resnets x 2 + 16 transformers + conv_norm_out = 61 per
+# eval) is one fused GroupNorm, the default route of a bf16 GroupNorm on
+# the card; so are the decoder's 11 GroupNorms at 64²·512, and its
+# conv_norm_out at 512²·128, which `fused_plan` refuses, takes K3 then K5.
+# Opt-in: 11 of the 16 GEGLUs pass the width rule (K = 320 fails it); the
+# 5 level-0 self-attentions take K6.
+SD_DECODE_GN = 11
 EXPECTED_LAUNCHES = {
     "flash_attention": 5 * STEPS, "quantize_qkv": 0, "flash_attention_int8": 0,
-    "conv3x3": 21, "group_norm_stats": 9, "group_norm_apply": 0, "group_norm_fused": 0,
-    "linear_geglu": 0,
+    "conv3x3": 21, "group_norm_stats": 9 + 1, "group_norm_apply": 1,
+    "group_norm_fused": 61 * STEPS + SD_DECODE_GN, "linear_geglu": 0,
 }
 # img2img and inpainting at strength 0.8 run steps 10..49: 40 UNet evals;
 # the VAE encoder adds 6 fused resnets (12 K2, 6 K3) at 512², 256² and 128²
+# and 10 fused GroupNorms at 64²·512
 EXPECTED_IMG2IMG_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=5 * 40, conv3x3=21 + 12,
-                                 group_norm_stats=9 + 6)
+                                 group_norm_stats=9 + 6 + 1,
+                                 group_norm_fused=61 * 40 + SD_DECODE_GN + 10)
 STRENGTH = 0.8
 LORA_RANK = 8
 # SDXL 1024², Euler 30 steps, CFG 5: 70 self-attentions an eval take K1 at
 # head dim 64 (levels 1 and 2: 2 + 3 transformers of depth 2 at 4096
 # tokens, 5 of depth 10 and the mid block's at 1024); the decoder's 14
 # resnets (from 128², the mid block's two now above the K2 threshold) take
-# K2 twice and K3 once, its 3 upsample convs K2.  img2img at strength 0.8
-# runs 24 steps and the encoder's 10 resnets (1024² to 128², mid block).
+# K2 twice and K3 once, its 3 upsample convs K2; its mid attention's
+# GroupNorm at 128²·512 is fused, its conv_norm_out at 1024²·128 K3 then
+# K5.  Of the UNet's 46 GroupNorms an eval, 45 are fused and up level 2's
+# 128²·960 entry takes K3 then K5.  img2img at strength 0.8 runs 24 steps
+# and the encoder's 10 resnets (1024² to 128², mid block) and 2 fused
+# GroupNorms at 128²·512.
 SDXL_STEPS = 30
 SDXL_HW = 1024
 SDXL_GUIDANCE = 5.0
 SDXL_ATTN_PER_EVAL = 70
 EXPECTED_SDXL_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=SDXL_ATTN_PER_EVAL * SDXL_STEPS,
-                              conv3x3=31, group_norm_stats=14)
+                              conv3x3=31, group_norm_stats=14 + SDXL_STEPS + 1,
+                              group_norm_apply=SDXL_STEPS + 1,
+                              group_norm_fused=45 * SDXL_STEPS + 1)
 SDXL_IMG2IMG_STEPS = int(SDXL_STEPS * STRENGTH)  # the steps img2img runs
 EXPECTED_SDXL_IMG2IMG_LAUNCHES = dict(
     EXPECTED_SDXL_LAUNCHES, flash_attention=SDXL_ATTN_PER_EVAL * SDXL_IMG2IMG_STEPS,
-    conv3x3=31 + 20, group_norm_stats=14 + 10)
-# LCM 4 steps at guidance 1: no CFG, K1 at batch 1
+    conv3x3=31 + 20, group_norm_stats=14 + 10 + SDXL_IMG2IMG_STEPS + 1,
+    group_norm_apply=SDXL_IMG2IMG_STEPS + 1, group_norm_fused=45 * SDXL_IMG2IMG_STEPS + 1 + 2)
+# LCM 4 steps at guidance 1: no CFG, K1 and the fused GroupNorm at batch 1
 LCM_STEPS = 4
-EXPECTED_LCM_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=5 * LCM_STEPS)
+EXPECTED_LCM_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=5 * LCM_STEPS,
+                             group_norm_fused=61 * LCM_STEPS + SD_DECODE_GN)
 LCM_COND_DIM = 256  # the time_cond_proj_dim of SimianLuo/LCM_Dreamshaper_v7
 # ControlNet (JAX's tracked configuration, bench_extra_configs.py:126-175):
 # 30 DPM++ steps, CFG 7.5, control scale 0.8.  Each step runs the UNet's 5
@@ -291,17 +305,16 @@ CN_STEPS = 30
 CN_SCALE, IP_SCALE, IP_TOKENS = 0.8, 0.6, 4
 # the zero convs' weights, N(0, (scale)²/fan_in) with zero biases
 CN_ZERO_CONV_SCALE = 0.1
-EXPECTED_CN_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=(5 + 2) * CN_STEPS)
-CN_EVAL_LAUNCHES = {"flash_attention": 2}  # one ControlNet eval on the CFG batch
-EXPECTED_OPTIN_LAUNCHES = {
-    "flash_attention": 0, "quantize_qkv": 5 * STEPS, "flash_attention_int8": 5 * STEPS,
-    "conv3x3": 21, "group_norm_stats": 9, "group_norm_apply": 0,
-    "group_norm_fused": 61 * STEPS, "linear_geglu": 11 * STEPS,
-}
+EXPECTED_CN_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=(5 + 2) * CN_STEPS,
+                            group_norm_fused=(61 + 27) * CN_STEPS + SD_DECODE_GN)
+# one ControlNet eval on the CFG batch
+CN_EVAL_LAUNCHES = {"flash_attention": 2, "group_norm_fused": 27}
+EXPECTED_OPTIN_LAUNCHES = dict(
+    EXPECTED_LAUNCHES, flash_attention=0, quantize_qkv=5 * STEPS,
+    flash_attention_int8=5 * STEPS, linear_geglu=11 * STEPS)
 EXPECTED_CN_OPTIN_LAUNCHES = dict(
-    EXPECTED_OPTIN_LAUNCHES, quantize_qkv=(5 + 2) * CN_STEPS,
-    flash_attention_int8=(5 + 2) * CN_STEPS, group_norm_fused=(61 + 27) * CN_STEPS,
-    linear_geglu=(11 + 5) * CN_STEPS)
+    EXPECTED_CN_LAUNCHES, flash_attention=0, quantize_qkv=(5 + 2) * CN_STEPS,
+    flash_attention_int8=(5 + 2) * CN_STEPS, linear_geglu=(11 + 5) * CN_STEPS)
 
 # Stable Video Diffusion, SVD-XT (JAX's tracked configuration,
 # benchmarks/bench_svd_xt_fullsize.py:26-30): 25 frames at 576×1024, batch
@@ -311,36 +324,42 @@ EXPECTED_CN_OPTIN_LAUNCHES = dict(
 # 9,216 tokens (level 0) and 5 at 2,304 (level 1) through K1; each decoded
 # chunk of 5 frames 9 fused decoder resnets (144×256 to 576×1024: K2 twice,
 # K3 once) and 3 upsample convs, the conditioning image's encode at 576×1024
-# 6 fused encoder resnets.  Opt-in: 33 GEGLUs an eval pass K4's width rule
-# (K = 640, 1280), and of the 105 GroupNorms an eval `fused_plan` takes 84;
-# the other 21 (the temporal GroupNorms' folded (2, 25·H·W, C) shapes at
-# levels 0 and 1, and (50, 72·128, 960)) take K3 then K5.
+# 6 fused encoder resnets and 10 fused GroupNorms at 72×128·512.  Of the
+# 105 UNet GroupNorms an eval `fused_plan` takes 84; the other 21 (the
+# temporal GroupNorms' folded (2, 25·H·W, C) shapes at levels 0 and 1, and
+# (50, 72·128, 960)) take K3 then K5.  A decoded chunk's 40 GroupNorms
+# outside the fused resnets: 11 fused (its spatial ones at 72×128), 29 K3
+# then K5 (the temporal resnets' folded (1, 5·H, W, C) from 72×128·512 up,
+# and conv_norm_out).  Opt-in: 33 GEGLUs an eval pass K4's width rule
+# (K = 640, 1280).
 SVD_FRAMES, SVD_H, SVD_W, SVD_STEPS, SVD_CHUNK = 25, 576, 1024, 25, 5
 SVD_KW = dict(num_frames=SVD_FRAMES, height=SVD_H, width=SVD_W,
               num_inference_steps=SVD_STEPS, min_guidance_scale=1.0, max_guidance_scale=3.0,
               fps=7, motion_bucket_id=127, noise_aug_strength=0.02,
               decode_chunk_size=SVD_CHUNK)
 SVD_CHUNKS = SVD_FRAMES // SVD_CHUNK
-EXPECTED_SVD_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=10 * SVD_STEPS,
-                             conv3x3=21 * SVD_CHUNKS + 12, group_norm_stats=9 * SVD_CHUNKS + 6)
+EXPECTED_SVD_LAUNCHES = dict(
+    EXPECTED_LAUNCHES, flash_attention=10 * SVD_STEPS, conv3x3=21 * SVD_CHUNKS + 12,
+    group_norm_stats=21 * SVD_STEPS + (9 + 29) * SVD_CHUNKS + 6,
+    group_norm_apply=21 * SVD_STEPS + 29 * SVD_CHUNKS,
+    group_norm_fused=84 * SVD_STEPS + 11 * SVD_CHUNKS + 10)
 EXPECTED_SVD_OPTIN_LAUNCHES = dict(
     EXPECTED_SVD_LAUNCHES, flash_attention=0, quantize_qkv=10 * SVD_STEPS,
-    flash_attention_int8=10 * SVD_STEPS, linear_geglu=33 * SVD_STEPS,
-    group_norm_fused=84 * SVD_STEPS, group_norm_apply=21 * SVD_STEPS,
-    group_norm_stats=21 * SVD_STEPS + 9 * SVD_CHUNKS + 6)
+    flash_attention_int8=10 * SVD_STEPS, linear_geglu=33 * SVD_STEPS)
 # The route check's UNet eval: the CFG pair of 2 frames at 576×1024, its
-# 10 flash self-attentions (levels 0 and 1) through K1.  Opt-in, they take
-# K6, 33 GEGLUs K4, and of the 105 GroupNorms `fused_plan` takes 104 (the
-# temporal ones folded to (2, 2·H·W, C) among them); (4, 72·128, 960)
-# takes K3 then K5.
+# 10 flash self-attentions (levels 0 and 1) through K1; of the 105
+# GroupNorms `fused_plan` takes 104 (the temporal ones folded to
+# (2, 2·H·W, C) among them); (4, 72·128, 960) takes K3 then K5.  Opt-in,
+# the attentions take K6 and 33 GEGLUs K4.
 SVD_ROUTE_FRAMES = 2
-SVD_ROUTE_LAUNCHES = {"flash_attention": 10}
+SVD_ROUTE_GN = {"group_norm_fused": 104, "group_norm_stats": 1, "group_norm_apply": 1}
+SVD_ROUTE_LAUNCHES = {"flash_attention": 10, **SVD_ROUTE_GN}
 SVD_OPTIN_ROUTE_LAUNCHES = {"quantize_qkv": 10, "flash_attention_int8": 10, "linear_geglu": 33,
-                            "group_norm_fused": 104, "group_norm_stats": 1,
-                            "group_norm_apply": 1}
+                            **SVD_ROUTE_GN}
 # One decoded chunk of 5 frames: 9 fused resnets (K2 twice, K3 once) and 3
-# upsample convs
-SVD_DECODE_LAUNCHES = {"conv3x3": 21, "group_norm_stats": 9}
+# upsample convs; its other GroupNorms 11 fused, 29 K3 then K5
+SVD_DECODE_LAUNCHES = {"conv3x3": 21, "group_norm_stats": 9 + 29, "group_norm_apply": 29,
+                       "group_norm_fused": 11}
 # K1 at the SVD shapes (b, h, s, d); K2 and K3 at the temporal decoder's
 # for a chunk of frames (H, W, C, F, kind) and (H, W, C)
 SVD_ATTN = [(50, 5, 9216, 64), (50, 10, 2304, 64)]
@@ -399,15 +418,17 @@ EXPECTED_SDXL_OPTIN_LAUNCHES = dict(
     EXPECTED_SDXL_LAUNCHES, flash_attention=0,
     quantize_qkv=SDXL_ATTN_PER_EVAL * SDXL_STEPS,
     flash_attention_int8=SDXL_ATTN_PER_EVAL * SDXL_STEPS,
-    linear_geglu=70 * SDXL_STEPS, group_norm_fused=45 * SDXL_STEPS,
-    group_norm_stats=1 * SDXL_STEPS + 14, group_norm_apply=1 * SDXL_STEPS)
+    linear_geglu=70 * SDXL_STEPS)
 EXPECTED_SDXL_FUSED_CONV_LAUNCHES = dict(
-    EXPECTED_SDXL_OPTIN_LAUNCHES, group_norm_fused=36 * SDXL_STEPS,
-    group_norm_stats=5 * SDXL_STEPS + 14, group_norm_apply=0, conv3x3=11 * SDXL_STEPS + 31)
-# LCM with TAESD in both VAE slots: TAESD has no GroupNorm, so no K2 or K3;
-# img2img at strength 0.8 runs 3 of the 4 steps
-EXPECTED_LCM_TAESD_LAUNCHES = dict(EXPECTED_LCM_LAUNCHES, conv3x3=0, group_norm_stats=0)
-EXPECTED_LCM_TAESD_IMG2IMG_LAUNCHES = dict(EXPECTED_LCM_TAESD_LAUNCHES, flash_attention=5 * 3)
+    EXPECTED_SDXL_OPTIN_LAUNCHES, group_norm_fused=36 * SDXL_STEPS + 1,
+    group_norm_stats=5 * SDXL_STEPS + 14 + 1, group_norm_apply=1, conv3x3=11 * SDXL_STEPS + 31)
+# LCM with TAESD in both VAE slots: TAESD has no GroupNorm, so no K2 or K3
+# and only the UNet's fused GroupNorms; img2img at strength 0.8 runs 3 of
+# the 4 steps
+EXPECTED_LCM_TAESD_LAUNCHES = dict(EXPECTED_LCM_LAUNCHES, conv3x3=0, group_norm_stats=0,
+                                   group_norm_apply=0, group_norm_fused=61 * LCM_STEPS)
+EXPECTED_LCM_TAESD_IMG2IMG_LAUNCHES = dict(EXPECTED_LCM_TAESD_LAUNCHES, flash_attention=5 * 3,
+                                           group_norm_fused=61 * 3)
 # Quantization (phase 14, JAX's tracked setup, benchmarks/bench_w8a8.py:
 # 183-206): W8A16 (linears), dynamic W8A8 and calibrated static W8A8, both
 # with the resnet and resampling convs; the latents of 10 steps of seed 3
@@ -1440,7 +1461,8 @@ def run_img2img(torch, dev, pipe):
         res[name] = run
 
     res.update(encode_route_check(torch, pipe, preprocess_image(image, torch.bfloat16, dev),
-                                  "encode", {"conv3x3": 12, "group_norm_stats": 6}))
+                                  "encode", {"conv3x3": 12, "group_norm_stats": 6,
+                                             "group_norm_fused": 10}))
     return res
 
 
@@ -1910,8 +1932,12 @@ TRAIN_GRAD_RMS_REL = 5e-2
 # LoRA's factors and AdamW's moments after the compared steps
 TRAIN_GRAPH_RMS_REL = 1e-5
 # the refused step's forward under CompilationConfig.Default(): the 5
-# level-0 self-attentions of one eval, the batch folded into each launch
-EXPECTED_REFUSED_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0) | {"flash_attention": 5}
+# level-0 self-attentions of one eval, the batch folded into each launch,
+# and the 3 GroupNorms before the first LoRA factor (down level 0's first
+# resnet and transformer norm), which autograd does not record, so they
+# take the fused GroupNorm
+EXPECTED_REFUSED_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0) | {"flash_attention": 5,
+                                                                   "group_norm_fused": 3}
 # what the host issues to the card: the profiler's rows of these CUDA API
 # calls (launches, copies, memsets) in a profiled step
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -2509,7 +2535,7 @@ def run_sdxl(torch, dev):
     log_pools(torch, pipe, "sdxl")
     res["encode"] = encode_route_check(
         torch, pipe, preprocess_image(image, torch.bfloat16, dev), "sdxl encode",
-        {"conv3x3": 20, "group_norm_stats": 10})
+        {"conv3x3": 20, "group_norm_stats": 10, "group_norm_fused": 2})
 
     # the opt-in kernels (K6 at head dim 64, K4, the fused GroupNorm and K3
     # + K5 at 128²·960), then with enable_fused_conv (K2 and K3 on the

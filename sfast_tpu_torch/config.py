@@ -10,7 +10,11 @@ The fields the port reads, with the same defaults as
 - ``enable_fused_group_norm``: every UNet GroupNorm takes the fused
   GroupNorm kernel (one launch) where ``ops/group_norm.fused_plan`` accepts
   its shape, else the statistics kernel (K3) then the normalize kernel
-  (K5).  Off by default, as in JAX;
+  (K5), and raises where the kernels cannot take the tensor.  Off by
+  default, as in JAX; off, a GroupNorm takes the op's auto rule
+  (``ops/group_norm.group_norm_ok``), which on the card sends every bf16
+  GroupNorm that autograd does not record to the same kernels: plain
+  PyTorch does not fuse the plain form's passes as XLA fuses JAX's;
 - ``enable_fused_linear_geglu``: the feed-forward's linear + GEGLU may take
   the dual-GEMM kernel (K4) where its widths allow.  Off by default, as in
   JAX; the kernel computes the tanh GELU of the Pallas kernel, the plain

@@ -64,9 +64,9 @@ class VAEAttention(nn.Module):
         self.to_v = Linear(c, c, **mk)
         self.to_out = nn.ModuleList([Linear(c, c, **mk)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gn_backend=None) -> torch.Tensor:
         b, h, w, c = x.shape
-        hn = self.group_norm(x).reshape(b, h * w, c)
+        hn = self.group_norm(x, backend=gn_backend).reshape(b, h * w, c)
         q, k, v = (lin(hn)[:, None] for lin in (self.to_q, self.to_k, self.to_v))
         o = dot_product_attention(q, k, v, backend="plain")[:, 0]
         return x + self.to_out[0](o).reshape(b, h, w, c)
@@ -81,10 +81,10 @@ class _MidBlock(nn.Module):
         )
         self.attentions = nn.ModuleList([VAEAttention(c, groups, **mk)])
 
-    def forward(self, h: torch.Tensor, conv_backend=None) -> torch.Tensor:
-        h = self.resnets[0](h, conv_backend=conv_backend)
-        h = self.attentions[0](h)
-        return self.resnets[1](h, conv_backend=conv_backend)
+    def forward(self, h: torch.Tensor, conv_backend=None, gn_backend=None) -> torch.Tensor:
+        h = self.resnets[0](h, gn_backend=gn_backend, conv_backend=conv_backend)
+        h = self.attentions[0](h, gn_backend=gn_backend)
+        return self.resnets[1](h, gn_backend=gn_backend, conv_backend=conv_backend)
 
 
 class VAEDownsample2D(nn.Module):
@@ -173,25 +173,27 @@ class KLEncoderHalf(nn.Module):
     (built by the subclass), and ``encode``.  ``AutoencoderKL`` and the
     SVD ``AutoencoderKLTemporalDecoder`` share it."""
 
-    def _conv_backend(self):
-        # JAX's enable_pallas reaches only the GroupNorms; here enable_kernels
-        # switches the fused convs off too
+    def _backend(self):
+        """The route of every GroupNorm and fused conv: the op's auto rule,
+        or ``'plain'`` under ``enable_kernels=False`` (JAX's enable_pallas
+        reaches only the GroupNorms; here it switches the fused convs off
+        too)."""
         return None if self.compilation_config.enable_kernels else "plain"
 
     def encode(self, image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """image (B, H, W, 3) in [-1, 1] → (mean, logvar) of the latent
         posterior, each (B, H/8, W/8, latent_channels); logvar clamped to
         [-30, 20]."""
-        conv = self._conv_backend()
+        be = self._backend()
         e = self.encoder
         h = e.conv_in(image.to(e.conv_in.weight.dtype))
         for blk in e.down_blocks:
             for rn in blk.resnets:
-                h = rn(h, conv_backend=conv)
+                h = rn(h, gn_backend=be, conv_backend=be)
             if blk.downsamplers is not None:
                 h = blk.downsamplers[0](h)
-        h = e.mid_block(h, conv_backend=conv)
-        h = self.quant_conv(e.conv_out(e.conv_norm_out(h, act="silu")))
+        h = e.mid_block(h, conv_backend=be, gn_backend=be)
+        h = self.quant_conv(e.conv_out(e.conv_norm_out(h, act="silu", backend=be)))
         mean, logvar = h.chunk(2, dim=-1)
         return mean, logvar.clamp(-30.0, 20.0)
 
@@ -216,15 +218,15 @@ class AutoencoderKL(KLEncoderHalf):
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """latents (B, h, w, latent_channels), already divided by the
         scaling factor → image (B, 8h, 8w, 3) in about [-1, 1]."""
-        conv = self._conv_backend()
+        be = self._backend()
         d = self.decoder
         h = self.post_quant_conv(latents.to(self.post_quant_conv.weight.dtype))
-        h = d.mid_block(d.conv_in(h), conv_backend=conv)
+        h = d.mid_block(d.conv_in(h), conv_backend=be, gn_backend=be)
         for blk in d.up_blocks:
             for rn in blk.resnets:
-                h = rn(h, conv_backend=conv)
+                h = rn(h, gn_backend=be, conv_backend=be)
             if blk.upsamplers is not None:
-                h = blk.upsamplers[0](h, conv_backend=conv)
-        return d.conv_out(d.conv_norm_out(h, act="silu"))
+                h = blk.upsamplers[0](h, conv_backend=be)
+        return d.conv_out(d.conv_norm_out(h, act="silu", backend=be))
 
     forward = decode

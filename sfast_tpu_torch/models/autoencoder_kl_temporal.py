@@ -63,13 +63,14 @@ class _MidBlockTemporalDecoder(nn.Module):
             [_st_resnet(cfg, c, c, mk) for _ in range(cfg.layers_per_block)])
         self.attentions = nn.ModuleList([VAEAttention(c, cfg.norm_num_groups, **mk)])
 
-    def forward(self, h, *, num_frames: int, conv_backend=None):
+    def forward(self, h, *, num_frames: int, conv_backend=None, gn_backend=None):
         """resnets[0], then attention and resnet for each further resnet
         (JAX ``temporal_vae_decode_fwd``: with two resnets, diffusers'
         order)."""
-        h = self.resnets[0](h, num_frames=num_frames, conv_backend=conv_backend)
+        kw = dict(num_frames=num_frames, gn_backend=gn_backend, conv_backend=conv_backend)
+        h = self.resnets[0](h, **kw)
         for rn in self.resnets[1:]:
-            h = rn(self.attentions[0](h), num_frames=num_frames, conv_backend=conv_backend)
+            h = rn(self.attentions[0](h, gn_backend=gn_backend), **kw)
         return h
 
 
@@ -121,16 +122,16 @@ class AutoencoderKLTemporalDecoder(KLEncoderHalf):
         bf = latents.shape[0]
         if bf % num_frames:
             raise ValueError(f"{bf} latent frames are not videos of {num_frames} frames")
-        conv = self._conv_backend()
+        be = self._backend()
         d = self.decoder
         h = d.conv_in(latents.to(d.conv_in.weight.dtype))
-        h = d.mid_block(h, num_frames=num_frames, conv_backend=conv)
+        h = d.mid_block(h, num_frames=num_frames, conv_backend=be, gn_backend=be)
         for blk in d.up_blocks:
             for rn in blk.resnets:
-                h = rn(h, num_frames=num_frames, conv_backend=conv)
+                h = rn(h, num_frames=num_frames, gn_backend=be, conv_backend=be)
             if blk.upsamplers is not None:
-                h = blk.upsamplers[0](h, conv_backend=conv)
-        h = d.conv_out(d.conv_norm_out(h, act="silu"))
+                h = blk.upsamplers[0](h, conv_backend=be)
+        h = d.conv_out(d.conv_norm_out(h, act="silu", backend=be))
         _, hh, ww, c = h.shape
         return d.time_conv_out(h.reshape(bf // num_frames, num_frames, hh, ww, c)).reshape(
             bf, hh, ww, c)

@@ -18,10 +18,10 @@ as JAX's ``apply_linear`` / ``apply_conv`` (``layers.py:147-185``):
 Routing, as in JAX (``layers.py:472-486, 576-590, 614-636, 693-696``):
 ``attn_backend`` (``ops.attention``: ``None``, ``'int8'``, ``'flash_int8'``
 or ``'plain'``), ``conv_backend`` (``None`` = auto rule or ``'plain'``),
-``gn_backend`` (``ops.group_norm``: ``None`` = plain, ``'kernel'``,
-``'hybrid'`` or ``'plain'``) and ``geglu_backend`` (``ops.geglu``: ``None``
-= auto rule, ``'kernel'`` or ``'plain'``); the models derive them from
-their ``CompilationConfig``.
+``gn_backend`` (``ops.group_norm``: ``None`` = auto rule, on the card the
+fused GroupNorm for bf16, ``'kernel'``, ``'hybrid'`` or ``'plain'``) and
+``geglu_backend`` (``ops.geglu``: ``None`` = auto rule, ``'kernel'`` or
+``'plain'``); the models derive them from their ``CompilationConfig``.
 """
 
 import math

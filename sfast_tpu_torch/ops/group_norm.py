@@ -6,11 +6,17 @@
 Counterpart of ``sfast_tpu/ops/group_norm.py``.  :func:`group_norm`
 dispatches as JAX's ``group_norm`` (``:291-322``):
 
-- ``backend=None`` or ``'plain'``: ``group_norm_xla`` (``:254-288``), the
-  default in JAX, whose auto rule is XLA everywhere;
+- ``backend=None``: the auto rule, :func:`group_norm_ok`.  On the card a
+  bf16 GroupNorm takes the ``'kernel'`` route; everything else (the CPU,
+  f32, other widths, a call autograd records) the plain one.  JAX's auto
+  rule is ``group_norm_xla`` everywhere, which XLA fuses into one pass;
+  PyTorch runs the same plain form as about ten unfused full-size passes,
+  most of them in f32, so on the card the hand-written kernel is the
+  counterpart of what XLA gives;
+- ``'plain'``: ``group_norm_xla`` (``:254-288``), never a kernel;
 - ``'kernel'`` ≙ ``'pallas'`` (``group_norm_pallas``, K3′ then K5): the
-  fused GroupNorm, one launch, where :func:`fused_plan` accepts the shape
-  (every UNet GroupNorm under ``enable_fused_group_norm``), else K3 then K5;
+  fused GroupNorm, one launch, where :func:`fused_plan` accepts the shape,
+  else K3 then K5; it raises where the kernels cannot take the tensor;
 - ``'hybrid'`` (``group_norm_hybrid``): K3 then the plain affine.
 
 :func:`group_norm_stats` is the Pallas ``_stats_kernel`` entry point (K3,
@@ -116,6 +122,22 @@ def fused_plan(n: int, hw: int, c: int, groups: int) -> Optional[FusedPlan]:
     return best if best.smem <= _SMEM_LIMIT else None
 
 
+def group_norm_ok(x_shape, groups: int, dtype: torch.dtype, device_type: str,
+                  grad: bool) -> bool:
+    """The auto rule: does a GroupNorm of NHWC ``x_shape`` take the
+    ``'kernel'`` route (the fused GroupNorm where :func:`fused_plan` takes
+    the shape, else K3 then K5)?  Yes for a bf16 tensor on CUDA with C % 8
+    == 0 and at most 512 groups, unless autograd records the call
+    (``grad``): the kernels have no backward."""
+    return (
+        device_type == "cuda"
+        and dtype == torch.bfloat16
+        and x_shape[-1] % 8 == 0
+        and groups <= _MAX_GROUPS
+        and not grad
+    )
+
+
 def _act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     """JAX's GroupNorm activations: none, SiLU, or the tanh GELU."""
     if act == "gelu":
@@ -145,13 +167,19 @@ def group_norm(
     groups: int = 32,
     eps: float = 1e-5,
     act: Optional[str] = None,
-    backend: Optional[str] = None,  # None = plain | 'kernel' | 'hybrid' | 'plain'
+    backend: Optional[str] = None,  # None = auto rule | 'kernel' | 'hybrid' | 'plain'
 ) -> torch.Tensor:
-    """GroupNorm (+activation: None, 'silu' or tanh 'gelu') over NHWC."""
+    """GroupNorm (+activation: None, 'silu' or tanh 'gelu') over NHWC.  On
+    the card a bf16 call takes the fused GroupNorm by default (see the
+    module's docstring)."""
     c = x.shape[-1]
     if c % groups != 0:
         raise ValueError(f"channels ({c}) must be divisible by groups ({groups})")
-    if backend in (None, "plain"):
+    if backend is None:
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta))
+        ok = group_norm_ok(x.shape, groups, x.dtype, x.device.type, grad)
+        backend = "kernel" if ok else "plain"
+    if backend == "plain":
         return _group_norm_plain(x, gamma, beta, groups=groups, eps=eps, act=act)
     if backend not in ("kernel", "hybrid"):
         raise ValueError(f"unknown group_norm backend: {backend}")

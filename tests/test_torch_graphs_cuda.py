@@ -41,10 +41,11 @@ from sfast_tpu_torch.compilers import compile_vae
 from sfast_tpu_torch.models import (
     TINY_TEST_VAE, TINY_TEXT_ENCODER, AutoencoderKL, AutoencoderKLTemporalDecoder,
     CLIPTextModel, CLIPVisionConfig, CLIPVisionModel, ControlNetConfig, ControlNetModel,
-    SVDUNetConfig, TemporalVAEConfig, UNet2DConditionModel, UNetConfig,
+    SD15_UNET, SD_VAE, SVDUNetConfig, TemporalVAEConfig, UNet2DConditionModel, UNetConfig,
     UNetSpatioTemporalConditionModel, init_controlnet_weights_, init_svd_unet_weights_,
     init_temporal_vae_weights_, init_weights_,
 )
+from sfast_tpu_torch.ops import group_norm as gn_ops
 from sfast_tpu_torch.ops.group_norm import group_norm_stats
 from sfast_tpu_torch.pipelines import StableDiffusionPipeline, StableVideoDiffusionPipeline
 from sfast_tpu_torch.runtime.tracing import LazyCompiledFunction, capture_stream
@@ -72,6 +73,9 @@ UNET = UNetConfig(
 OPTIN = CompilationConfig(enable_fused_group_norm=True, enable_fused_linear_geglu=True,
                           enable_int8_attention=True)
 ROUTES = {"default": CompilationConfig(), "optin": OPTIN}
+# a route against another over a whole model at random weights, where tens
+# of layers compound each kernel's bf16 roundings (chip_smoke.MODEL_RMS_REL)
+MODEL_RMS_REL = 5e-2
 
 
 @pytest.fixture
@@ -172,6 +176,61 @@ def test_two_graphs_replayed_in_turn(dev):
     # the first output is a clone: later replays leave it as it was
     for got, ref in zip(outs, (ref1, ref2, ref1, ref2)):
         assert torch.equal(got, ref)
+
+
+def test_default_route_takes_the_fused_group_norm_at_sd15(dev, monkeypatch):
+    """SD1.5's UNet at CFG batch 2 and 64² latents, and its VAE decode at
+    512², under the default configuration: every UNet GroupNorm is one
+    fused launch (61 an eval), the decoder's 11 GroupNorms at 64²·512 too
+    and its ``conv_norm_out`` at 512²·128 K3 then K5; within
+    MODEL_RMS_REL of the plain GroupNorm, and the graphed eval equals the
+    eager one bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    unet = init_weights_(UNet2DConditionModel(SD15_UNET, device=dev, dtype=BF16), g)
+    vae = init_weights_(AutoencoderKL(SD_VAE, device=dev, dtype=BF16), g)
+    x = torch.randn((2, 64, 64, 4), generator=g, device=dev).to(BF16)
+    t = torch.tensor(801.0, device=dev)
+    ctx = torch.randn((2, 77, 768), generator=g, device=dev).to(BF16)
+    z = torch.randn((1, 64, 64, 4), generator=g, device=dev) / SD_VAE.scaling_factor
+    out, launched = {}, {}
+    with torch.inference_mode():
+        for route in ("default", "plain"):
+            if route == "plain":  # the rule refuses every call: the plain GroupNorm
+                monkeypatch.setattr(gn_ops, "group_norm_ok", lambda *a: False)
+            for what, run in (("unet", lambda: unet(x, t, ctx)), ("vae", lambda: vae.decode(z))):
+                cuda_build.reset_launch_counts()
+                out[route, what] = run()
+                torch.cuda.synchronize()
+                launched[route, what] = _launched()
+        monkeypatch.undo()
+        graphed = compile_unet(unet)
+        first, second = graphed(x, t, ctx), graphed(x, t, ctx)
+    assert launched["default", "unet"] == {"flash_attention": 5, "group_norm_fused": 61}
+    assert launched["plain", "unet"] == {"flash_attention": 5}
+    assert launched["default", "vae"] == {"conv3x3": 21, "group_norm_stats": 9 + 1,
+                                          "group_norm_apply": 1, "group_norm_fused": 11}
+    assert launched["plain", "vae"] == {"conv3x3": 21, "group_norm_stats": 9}
+    for what in ("unet", "vae"):
+        assert 0 < _rms_rel(out["default", what], out["plain", what]) <= MODEL_RMS_REL
+    assert torch.equal(first, out["default", "unet"]) and torch.equal(second, first)
+
+
+def test_default_route_under_autograd_keeps_the_plain_group_norm(dev):
+    """A kernels-on forward that autograd records (grad enabled, an input
+    that requires grad) runs every GroupNorm plain, so its backward
+    reaches no GroupNorm kernel; K1 still launches, under its refusal."""
+    unet = _unet(dev)
+    x, t, ctx = _inputs(dev)
+    with torch.enable_grad():
+        cuda_build.reset_launch_counts()
+        out = unet(x.clone().requires_grad_(), t, ctx)
+        torch.cuda.synchronize()
+    assert out.requires_grad
+    assert _launched() == {"flash_attention": 3}  # level 0: 1 down, 2 up
+    with torch.inference_mode():
+        cuda_build.reset_launch_counts()
+        unet(x, t, ctx)
+    assert _launched()["group_norm_fused"] > 0
 
 
 @pytest.fixture

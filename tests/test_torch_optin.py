@@ -14,6 +14,7 @@ Inputs come from seeded numpy.  Tolerances:
   each within 0.015 rms of exact attention (``tests/ops/test_attention.py``).
 """
 
+import contextlib
 import dataclasses
 import functools
 import importlib
@@ -24,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from sfast_tpu.config import CompilationConfig as JaxConfig
 from sfast_tpu.models import layers as JL
@@ -50,6 +52,7 @@ from sfast_tpu_torch.ops.group_norm import (
     group_norm,
     group_norm_fused,
     group_norm_fused_ref,
+    group_norm_ok,
     stats_chunks,
 )
 
@@ -151,19 +154,25 @@ VAE_GN = [(128, 512), (256, 512), (256, 256), (512, 256), (512, 128)]
 SMEM_LIMIT = 232448  # the H100's shared memory a CTA can use
 
 
-def _route(monkeypatch, n, hw, c):
-    """Which kernels group_norm(backend='kernel') calls for an (n, hw, hw, c)
-    tensor, with the wrappers stubbed out (no compute)."""
+def _calls(monkeypatch, x, gamma, beta, backend, groups=32):
+    """Which kernels, or the plain form, group_norm(x, backend=backend)
+    calls, with each stubbed out (no compute)."""
     seen = []
     gn_mod = importlib.import_module("sfast_tpu_torch.ops.group_norm")
-    stats = torch.zeros(n, 1, 1, c)
+    monkeypatch.setattr(gn_mod, "_group_norm_plain", lambda *a, **kw: seen.append("plain"))
     monkeypatch.setattr(gn_mod, "group_norm_fused", lambda *a, **kw: seen.append("fused"))
     monkeypatch.setattr(gn_mod, "group_norm_stats",
-                        lambda *a, **kw: seen.append("K3") or (stats, stats))
+                        lambda *a, **kw: seen.append("K3") or (None, None))
     monkeypatch.setattr(gn_mod, "group_norm_apply", lambda *a, **kw: seen.append("K5"))
-    x = torch.empty(n, hw, hw, c, device="meta")
-    group_norm(x, torch.ones(c), torch.zeros(c), groups=32, backend="kernel")
+    group_norm(x, gamma, beta, groups=groups, act="silu", backend=backend)
     return seen
+
+
+def _route(monkeypatch, n, hw, c):
+    """Which kernels group_norm(backend='kernel') calls for an (n, hw, hw, c)
+    tensor."""
+    x = torch.empty(n, hw, hw, c, device="meta")
+    return _calls(monkeypatch, x, torch.ones(c), torch.zeros(c), "kernel")
 
 
 @pytest.mark.parametrize("hw,c,act", UNET_GN)
@@ -210,6 +219,68 @@ def test_fused_rule_takes_16_ctas_only_two_an_sm(monkeypatch, n, hw, c, cluster)
     else:
         assert plan.cluster == cluster and plan.smem <= 116 * 1024
         assert _route(monkeypatch, n, hw, c) == ["fused"]
+
+
+# SDXL's UNet at 128² latents: up level 2's resnet entries at 960 and 640
+# channels and its 320-channel blocks (batch 2)
+SDXL_128_GN = [(128, 320), (128, 640), (128, 960)]
+
+
+@pytest.mark.parametrize("n,hw,c", [(2, hw, c) for hw, c, _ in UNET_GN]
+                         + [(1, hw, c) for hw, c in VAE_GN]
+                         + [(2, hw, c) for hw, c in SDXL_128_GN])
+def test_group_norm_rule_takes_a_kernel_on_the_card(n, hw, c):
+    """backend=None: on the card every bf16 GroupNorm of the UNets and the
+    VAE decoder takes the kernel route (the fused GroupNorm, or K3 then K5
+    where ``fused_plan`` refuses the shape)."""
+    assert group_norm_ok((n, hw, hw, c), 32, torch.bfloat16, "cuda", False)
+
+
+@pytest.mark.parametrize("shape,groups,dtype,device,grad", [
+    ((2, 64, 64, 320), 32, torch.bfloat16, "cpu", False),
+    ((2, 64, 64, 320), 32, torch.bfloat16, "meta", False),
+    ((2, 64, 64, 320), 32, torch.float32, "cuda", False),
+    ((2, 8, 8, 20), 4, torch.bfloat16, "cuda", False),       # C % 8 != 0
+    ((1, 8, 8, 2048), 1024, torch.bfloat16, "cuda", False),  # more groups than K3 holds
+    ((2, 64, 64, 320), 32, torch.bfloat16, "cuda", True),    # autograd records the call
+], ids=["cpu", "meta", "f32", "c20", "groups1024", "grad"])
+def test_group_norm_rule_keeps_the_plain_route(shape, groups, dtype, device, grad):
+    assert not group_norm_ok(shape, groups, dtype, device, grad)
+
+
+@pytest.mark.parametrize("device,n,hw,c,dtype,grad,backend,expected", [
+    ("cuda", 2, 64, 320, torch.bfloat16, False, None, ["fused"]),
+    ("cuda", 2, 8, 2560, torch.bfloat16, False, None, ["fused"]),
+    ("cuda", 1, 64, 512, torch.bfloat16, False, None, ["fused"]),  # the VAE decoder's 64² maps
+    ("cuda", 2, 128, 960, torch.bfloat16, False, None, ["K3", "K5"]),
+    ("cuda", 1, 512, 128, torch.bfloat16, False, None, ["K3", "K5"]),  # conv_norm_out
+    ("cuda", 2, 64, 320, torch.float32, False, None, ["plain"]),
+    ("cuda", 2, 64, 320, torch.bfloat16, True, None, ["plain"]),
+    ("cuda", 2, 64, 320, torch.bfloat16, False, "plain", ["plain"]),
+    ("cuda", 2, 128, 960, torch.bfloat16, False, "plain", ["plain"]),
+    ("cpu", 2, 4, 320, torch.bfloat16, False, None, ["plain"]),
+], ids=["64sq-320", "8sq-2560", "vae-64sq-512", "128sq-960", "512sq-128", "f32", "grad",
+        "plain", "plain-128sq-960", "cpu"])
+def test_group_norm_default_route_dispatch(monkeypatch, device, n, hw, c, dtype, grad, backend,
+                                           expected):
+    """group_norm(backend=None) reaches the fused GroupNorm where the rule
+    and ``fused_plan`` take the call, K3 then K5 where only the rule does,
+    and the plain form otherwise; ``'plain'`` never reaches a kernel."""
+    # on the card's device type, fake tensors: shape, dtype and device, no storage
+    with contextlib.nullcontext() if device == "cpu" else FakeTensorMode():
+        x = torch.empty(n, hw, hw, c, device=device, dtype=dtype, requires_grad=grad)
+        g, b = torch.ones(c, device=device), torch.zeros(c, device=device)
+        assert _calls(monkeypatch, x, g, b, backend) == expected
+
+
+def test_group_norm_default_route_on_the_cpu_is_the_plain_route():
+    """The CPU tests against JAX see the plain form under backend=None."""
+    rng = np.random.default_rng(3)
+    x = torch.tensor(_randn(rng, 2, 4, 3, 64)).to(torch.bfloat16)
+    g, b = _t(_randn(rng, 64, scale=0.3) + 1.0), _t(_randn(rng, 64, scale=0.2))
+    got = group_norm(x, g, b, groups=8, act="silu")
+    torch.testing.assert_close(got, group_norm(x, g, b, groups=8, act="silu", backend="plain"),
+                               rtol=0, atol=0)
 
 
 def _fused_emulation(x, plan, groups, eps):

@@ -5,7 +5,8 @@ the control, and the faults a comparison has to catch.
         [--program-only]
 
 For each seed it draws the inputs the cell's run would draw and puts the
-reference in the program's place:
+reference of the cell's family (``families/<family>.py``) in the program's
+place:
 
 - serving: the reference with its products in fp8 (e4m3, one scale a
   tensor), its images rounded to uint8 as the program serves them, against
@@ -43,7 +44,6 @@ def main(argv=None) -> int:
     import torch
 
     from run import CHECKOUT, cell_entries, environment, load_json
-    from hb import checks, inputs
     from hb.drive import Cell
 
     bench = load_json(CHECKOUT / "BENCHMARK.json")
@@ -58,36 +58,38 @@ def main(argv=None) -> int:
         cell = Cell(args.workload, cfg, traffic, seed, args.seconds, False, dev, CHECKOUT, t)
         out = {"workload": args.workload, "seed": seed}
         if traffic["call"] == "train":
-            out.update(train_readings(cell, checks, args.program_only))
+            out.update(train_readings(cell, args.program_only))
         else:
-            out.update(serve_readings(cell, checks, inputs))
+            out.update(serve_readings(cell))
         out["seconds"] = time.perf_counter() - t
         print(json.dumps(out), flush=True)
     return 0
 
 
-def serve_readings(cell, checks, inputs) -> dict:
+def serve_readings(cell) -> dict:
     import torch
 
-    from hb.drive import ServeDriver
+    from hb import checks
+    from hb.family import driver_for
 
-    d = ServeDriver(cell)
-    reqs = [(inputs.prompt_ids(cell.seed, i), d.request_seed(i))
-            for i in range(cell.traffic["check_requests"])]
-    ref = checks.reference_images(cell, reqs, "float32")
-    low = checks.reference_images(cell, reqs, "fp8")
+    d = driver_for(cell)(cell)
+    reqs = [(i, d.request_seed(i)) for i in range(cell.traffic["check_requests"])]
+    ref = cell.family.reference_outputs(cell, reqs, "float32")
+    low = cell.family.reference_outputs(cell, reqs, "fp8")
     served = [torch.round(x).to(torch.uint8).cpu().numpy() for x in low]
     return {"control_fp8": checks.image_gaps(served, ref)}
 
 
-def train_readings(cell, checks, program_only: bool) -> dict:
+def train_readings(cell, program_only: bool) -> dict:
     import gc
 
     import torch
 
-    from hb.drive import TrainDriver
+    from hb import checks
+    from hb.family import driver_for
 
-    d = TrainDriver(cell)
+    fam = cell.family
+    d = driver_for(cell)(cell)
     win = d.window(d.setup())
     d.free()
     out = {"steps": win.done, "program": d.check()}
@@ -95,17 +97,17 @@ def train_readings(cell, checks, program_only: bool) -> dict:
         batches = [d.batch(k) for k in range(3)]
         late = d.late
         late_batch = [d.batch(late["k"])]
-        f32 = checks.reference_unet(cell)
-        ref = checks.reference_training(cell, d.initial, batches, model=f32)
-        ref_late = checks.reference_training(cell, late["before"], late_batch,
-                                             state=late["state"], model=f32)
-        for name, model, keep in (("control_fp8", checks.reference_unet(cell, "fp8"), 0),
+        f32 = fam.reference_trainer(cell)
+        ref = fam.reference_training(cell, d.initial, batches, model=f32)
+        ref_late = fam.reference_training(cell, late["before"], late_batch,
+                                          state=late["state"], model=f32)
+        for name, model, keep in (("control_fp8", fam.reference_trainer(cell, "fp8"), 0),
                                   ("fault_half_batch", f32, cell.traffic["batch"] // 2)):
-            got = checks.reference_training(cell, d.initial, batches, keep_rows=keep,
-                                            model=model)
-            got_late = checks.reference_training(cell, late["before"], late_batch,
-                                                 keep_rows=keep, state=late["state"],
-                                                 model=model)
+            got = fam.reference_training(cell, d.initial, batches, keep_rows=keep,
+                                         model=model)
+            got_late = fam.reference_training(cell, late["before"], late_batch,
+                                              keep_rows=keep, state=late["state"],
+                                              model=model)
             out[name] = {**checks.train_gaps(d.initial, got["losses"], got["grads"][0],
                                              got["factors"], ref),
                          **checks.late_gaps(late["before"], got_late["factors"], ref_late)}

@@ -17,7 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hb import inputs
+from families.sd_unet_lib.prompts import empty_prompt_ids, ids_for_encoder_2
+from families.sd_unet_lib.reference import levels
 
 N_TRAIN = 1000
 STEP_NOISE_MIX = 0x9E3779B97F4A7C15
@@ -129,16 +130,6 @@ SAMPLERS = {
 }
 
 
-def ids_for_encoder_2(ids: np.ndarray) -> np.ndarray:
-    """The second SDXL encoder's ids: its tokenizer pads with 0 ('!')
-    after the first EOS."""
-    out = ids.copy()
-    for row in out:
-        at = int(np.argmax(row == inputs.EOS))
-        row[at + 1:] = 0
-    return out
-
-
 @torch.no_grad()
 def conditioning(cfg: dict, models: dict, ids: np.ndarray, use_cfg: bool, device):
     """(context, SDXL's added conditioning or None) of the prompt ``ids``
@@ -149,7 +140,7 @@ def conditioning(cfg: dict, models: dict, ids: np.ndarray, use_cfg: bool, device
             return models["text_encoder"](x)[0][-1]
         ctx = enc(t)
         if use_cfg:
-            ctx = torch.cat([enc(torch.as_tensor(inputs.empty_prompt_ids(), device=device)), ctx])
+            ctx = torch.cat([enc(torch.as_tensor(empty_prompt_ids(), device=device)), ctx])
         return ctx, None
     h1, _ = models["text_encoder"](t)
     h2, pooled = models["text_encoder_2"](torch.as_tensor(ids_for_encoder_2(ids), device=device))
@@ -165,8 +156,6 @@ def sample(cfg: dict, traffic: dict, models: dict, ids: np.ndarray, seed: int,
            device) -> torch.Tensor:
     """The reference's image of one request, as unrounded uint8 levels
     (1, H, W, 3) in float32."""
-    from hb.reference import levels
-
     steps, gs = traffic["steps"], traffic["guidance_scale"]
     use_cfg = gs > 1.0
     sampler = SAMPLERS[traffic["scheduler"]](steps)

@@ -81,26 +81,3 @@ def train(unet, base: Dict[str, torch.Tensor], lora: dict, batches: List[dict],
                 p.grad = None
     return {"losses": losses, "grads": grads,
             "factors": {k: v.detach() for k, v in factors.items()}}
-
-
-def norm_gap(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor], keep) -> float:
-    """The worst leaf's |‖prog‖ − ‖ref‖| against the larger of ‖ref‖ and the
-    median kept leaf's ‖ref‖, over the leaves in ``keep``."""
-    norms = {k: (prog[k].float().norm().item(), ref[k].float().norm().item()) for k in keep}
-    med = sorted(r for _, r in norms.values())[len(norms) // 2]
-    return max(abs(p - r) / max(r, med, 1e-30) for p, r in norms.values())
-
-
-def moving_leaves(grads: List[Dict[str, torch.Tensor]], share: float = 1e-3) -> list:
-    """The leaves whose reference gradient, at its largest over the steps,
-    is at least ``share`` of the median leaf's: the others move by
-    round-off alone under Adam."""
-    top = {k: max(g[k].norm().item() for g in grads) for k in grads[0]}
-    vals = sorted(top.values())
-    med = vals[len(vals) // 2] if len(vals) % 2 else 0.5 * (vals[len(vals) // 2 - 1]
-                                                             + vals[len(vals) // 2])
-    return sorted(k for k, v in top.items() if v >= share * med)
-
-
-def relative_gap(p: float, r: float) -> float:
-    return abs(p - r) / max(abs(r), 1e-30)

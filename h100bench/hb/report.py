@@ -3,7 +3,6 @@
 limits; printed as the last line of standard output."""
 
 import functools
-import importlib.util
 import json
 import math
 import sys
@@ -13,29 +12,35 @@ from typing import Callable, Dict, List
 import torch
 
 from hb.drive import Window
+from hb.family import by_path as _module
 
 
 class Reading:
     """What a per-layer metric reads: the cell, the window with its traced
-    stretch, and the model FLOPs of a request or a step."""
+    stretch, and from the cell's family the model FLOPs of a request or a
+    step and the calls of the port's kernels a request makes."""
 
     def __init__(self, cell, win: Window):
-        self.cfg, self.traffic, self.win = cell.cfg, cell.traffic, win
+        self.cell, self.cfg, self.traffic, self.win = cell, cell.cfg, cell.traffic, win
         self.trace = win.trace
 
     @functools.cached_property
     def request_flops(self) -> int:
-        from hb.flops import request_flops
-        return request_flops(self.cfg, self.traffic)["request"]
+        return self.cell.family.request_flops(self.cfg, self.traffic)["request"]
 
     @functools.cached_property
     def step_flops(self) -> int:
-        from hb.flops import train_step_flops
-        return train_step_flops(self.cfg, self.traffic)
+        return self.cell.family.train_step_flops(self.cfg, self.traffic)
+
+    @functools.cached_property
+    def kernel_calls(self) -> dict:
+        """{kernel: {call shape: calls}} of one request, where the family
+        reckons them."""
+        return self.cell.family.kernel_calls(self.cfg, self.traffic)
 
     def in_window(self, pred: Callable = lambda op: True) -> list:
-        lo, hi = self.trace.window_ns
-        return [o for o in self.trace.ops if lo <= o.start_ns < hi and pred(o)]
+        """The device ops launched in the traced window that ``pred`` takes."""
+        return [o for o in self.trace.window_ops() if pred(o)]
 
     def device_s(self, pred: Callable = lambda op: True) -> float:
         return sum(o.end_ns - o.start_ns for o in self.in_window(pred)) / 1e9
@@ -48,17 +53,6 @@ def read_metrics(entries: List[dict], folder: Path, arg) -> Dict[str, dict]:
         if value is not None:
             out[m["name"]] = {"value": float(value), "unit": m["unit"]}
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _module(path: Path):
-    """The metric file at ``path``, imported by its path (its name may hold
-    dots)."""
-    spec = importlib.util.spec_from_file_location(f"h100bench_{path.parent.name}_{path.stem}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def device_record(dev: torch.device) -> dict:

@@ -5,13 +5,22 @@ requests or steps of the window, inside a range named :data:`WINDOW`
 that ends after a sync.  From the profiler's events this keeps:
 
 - the device's activities (kernels, copies, memsets; never the device
-  side of a user range), each with the innermost benchmark range that was
-  open on the host when the call that launched it was made: a CUDA graph's
-  kernels come with the correlation id of its ``cudaGraphLaunch``;
+  side of a user range), each with the host time of the call that
+  launched it and the innermost benchmark range that was open on the host
+  then: a CUDA graph's kernels come with the correlation id of its
+  ``cudaGraphLaunch``;
 - the benchmark's ranges on the host, with their times;
 - the host's calls into the CUDA runtime that block it until the device
   has done its work (:data:`SYNC_CALLS`), with their start times;
 - the window's length, and the union of the device's busy intervals in it.
+
+An activity belongs to the window when the call that launched it was made
+in the window, on the host's clock, as the window's range is.  The device
+times of the profiler's activities can sit off that clock: on an H100 with
+PyTorch 2.11 a traced SDXL stretch placed tens to thousands of the
+window's activities outside it, by a few ms up to a whole request, so the
+device times of an activity say how long it ran, not which window
+launched it.  :meth:`Trace.misplaced` counts them.
 """
 
 import bisect
@@ -34,6 +43,7 @@ class DeviceOp:
     start_ns: int
     end_ns: int
     range: str  # the innermost benchmark range that launched it, or "" for none
+    launch_ns: Optional[int] = None  # the host time of its launching call, where found
 
 
 @dataclasses.dataclass
@@ -44,6 +54,21 @@ class Trace:
     unattributed: int  # device ops whose launching call was not found
     syncs: List[int] = dataclasses.field(default_factory=list)  # start ns of each sync call
     runtime_calls: int = 0  # the host's CUDA runtime calls the trace holds
+
+    def window_ops(self) -> List[DeviceOp]:
+        """The ops launched in the window (by their device start where the
+        launching call was not found)."""
+        lo, hi = self.window_ns
+        return [o for o in self.ops
+                if lo <= (o.start_ns if o.launch_ns is None else o.launch_ns) < hi]
+
+    def misplaced(self) -> int:
+        """The window's activities whose device times lie outside the
+        window: no work starts before the window's first launch or ends
+        after the sync that closes it, so their times are off the host's
+        clock."""
+        lo, hi = self.window_ns
+        return sum(1 for o in self.window_ops() if o.start_ns < lo or o.end_ns > hi)
 
     def host_syncs(self) -> int:
         """The syncs the host made in the window, leaving out the one that
@@ -57,9 +82,10 @@ class Trace:
         return (self.window_ns[1] - self.window_ns[0]) / 1e9
 
     def busy_intervals(self) -> List[Tuple[int, int]]:
-        """The union of the device ops' intervals, clipped to the window."""
+        """The union of the window's device ops' intervals, clipped to the
+        window."""
         lo, hi = self.window_ns
-        spans = sorted((max(o.start_ns, lo), min(o.end_ns, hi)) for o in self.ops
+        spans = sorted((max(o.start_ns, lo), min(o.end_ns, hi)) for o in self.window_ops()
                        if o.end_ns > lo and o.start_ns < hi)
         merged: List[List[int]] = []
         for s, e in spans:
@@ -82,9 +108,8 @@ class Trace:
         the window by the range the host was in when each began."""
         lo, hi = self.window_ns
         by_name: Dict[str, int] = collections.defaultdict(int)
-        for o in self.ops:
-            if lo <= o.start_ns < hi:
-                by_name[o.name] += o.end_ns - o.start_ns
+        for o in self.window_ops():
+            by_name[o.name] += o.end_ns - o.start_ns
         ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
         busy = self.busy_intervals()
         edges = [lo] + [x for s, e in busy for x in (s, e)] + [hi]
@@ -141,5 +166,5 @@ def from_profile(prof, range_names) -> Trace:
             if label is None:
                 hi = bisect.bisect_right(starts, at)
                 label = cache[corr] = innermost(ranges[:hi], at) or ""
-        ops.append(DeviceOp(e.name(), e.start_ns(), e.end_ns(), label))
+        ops.append(DeviceOp(e.name(), e.start_ns(), e.end_ns(), label, at))
     return Trace(ops, ranges, windows[0], unattributed, sorted(syncs), len(launch_at))

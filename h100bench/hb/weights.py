@@ -8,10 +8,16 @@ state dict's order, then scaled and cast to the dtype they are served in
 (norms in float32, as the program keeps them; the rest in the
 configuration's dtype).  The same seed gives the same tensors, so the
 reference regenerates them after the program has run.
+
+A model family may bring rules for parameters these do not know (a
+``Conv3d``'s weight, a bare ``nn.Parameter``): ``rules(module, name,
+param)`` gives the kind of :func:`plan` or None.  It is asked only where
+the base rules have none, so it never changes the draws of a parameter
+they know.
 """
 
 import math
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -20,33 +26,46 @@ EMBEDDING_STD = 0.02
 CHUNK = 1 << 28  # elements drawn by one call
 
 
-def plan(model: nn.Module):
+Rules = Optional[Callable[[nn.Module, str, nn.Parameter], object]]
+
+
+def base_kind(m: nn.Module, p_name: str, p: nn.Parameter):
+    """The base rules' kind of parameter ``p_name`` of ``m``, or None."""
+    if isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+        return "ones" if p_name == "weight" else "zeros"
+    if p_name == "bias":
+        return "zeros"
+    if isinstance(m, nn.Embedding):
+        return "embedding"
+    if isinstance(m, (nn.Linear, nn.Conv2d)):
+        return p[0].numel()
+    return None
+
+
+def plan(model: nn.Module, rules: Rules = None):
     """[(name, shape, kind)] of ``model``'s parameters in state-dict order;
     ``kind`` is 'zeros', 'ones', 'embedding' or the weight's fan-in."""
     out = []
     for mod_name, m in model.named_modules():
         for p_name, p in m.named_parameters(recurse=False):
             name = f"{mod_name}.{p_name}" if mod_name else p_name
-            if isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
-                kind = "ones" if p_name == "weight" else "zeros"
-            elif p_name == "bias":
-                kind = "zeros"
-            elif isinstance(m, nn.Embedding):
-                kind = "embedding"
-            elif isinstance(m, (nn.Linear, nn.Conv2d)):
-                kind = p[0].numel()
-            else:
+            kind = base_kind(m, p_name, p)
+            if kind is None and rules is not None:
+                kind = rules(m, p_name, p)
+            if kind is None:
                 raise ValueError(f"no init rule for {name} ({type(m).__name__})")
             out.append((name, tuple(p.shape), kind))
     return out
 
 
 def make_weights(model: nn.Module, seed: int, device, dtype: torch.dtype,
-                 norm_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+                 norm_dtype: torch.dtype = torch.float32,
+                 rules: Rules = None) -> Dict[str, torch.Tensor]:
     """The state dict of ``model`` (built anywhere, the ``meta`` device
-    included) drawn from ``seed`` on ``device``."""
+    included) drawn from ``seed`` on ``device``, with the extra ``rules``
+    of its family."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    entries = plan(model)
+    entries = plan(model, rules)
     out: Dict[str, torch.Tensor] = {}
     drawn = [e for e in entries if e[2] not in ("zeros", "ones")]
     i = 0

@@ -4,7 +4,9 @@
 
 from the root of a checkout.  The cell is an entry of ``workloads`` in
 ``BENCHMARK.json``; its configuration, traffic mix, limits and metrics are
-files under ``h100bench/`` found by name.  The last line of standard
+files under ``h100bench/`` found by name, and so are the configuration's
+model family (``families/<family>.py``) and the traffic's driver
+(``drivers/<call>.py``).  The last line of standard
 output is one JSON object: ``correct``, ``attempted``, ``failed``,
 ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
 per-layer ones), ``device``, with ``--trace 1`` ``breakdown``, and last
@@ -74,10 +76,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     bench = load_json(CHECKOUT / "BENCHMARK.json")
-    cell_e, config_e, e2e, per_layer = cell_entries(bench, args.workload)
-    cfg = load_json(CHECKOUT / config_e["file"])
-    traffic = load_json(HERE / "traffic" / f"{cell_e['traffic']}.json")
-    limits = load_json(HERE / "limits" / f"{args.workload}.json")
+    cell_e = cell_entries(bench, args.workload)[0]
     environment(CHECKOUT)
 
     import torch
@@ -86,14 +85,25 @@ def main(argv=None) -> int:
         print(f"h100bench: the cell needs {cell_e['chips']} CUDA card(s); this machine has "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    return run(bench, args.workload, args.seed, args.seconds, bool(args.trace), device)
+
+
+def run(bench: dict, workload: str, seed: int, seconds: float, trace: bool, device) -> int:
+    """One run of the cell ``workload`` on ``device``, past the look for a
+    card: its result line, and the exit code."""
+    cell_e, config_e, e2e, per_layer = cell_entries(bench, workload)
+    cfg = load_json(CHECKOUT / config_e["file"])
+    traffic = load_json(HERE / "traffic" / f"{cell_e['traffic']}.json")
+    limits = load_json(HERE / "limits" / f"{workload}.json")
     sys.path.insert(0, str(CHECKOUT))  # the program under test
-    from hb.drive import DRIVERS, Cell
+    from hb.drive import Cell
+    from hb.family import driver_for
     from hb.report import result_line
 
-    cell = Cell(args.workload, cfg, traffic, args.seed, args.seconds, bool(args.trace),
-                torch.device("cuda", 0), CHECKOUT, T0)
-    torch.cuda.set_device(cell.device)
-    return result_line(cell, DRIVERS[traffic["call"]](cell), limits, e2e, per_layer, HERE,
+    cell = Cell(workload, cfg, traffic, seed, seconds, trace, device, CHECKOUT, T0)
+    return result_line(cell, driver_for(cell)(cell), limits, e2e, per_layer, HERE,
                        forbidden_modules)
 
 

@@ -8,7 +8,8 @@ from pathlib import Path
 import torch
 
 SD = {
-    "name": "tiny_sd", "pipeline": "StableDiffusionPipeline", "dtype": "float32",
+    "name": "tiny_sd", "family": "sd_unet", "pipeline": "StableDiffusionPipeline",
+    "dtype": "float32",
     "unet": {"attention_head_dim": 4, "block_out_channels": [32, 64], "cross_attention_dim": 32,
              "down_block_types": ["CrossAttnDownBlock2D", "DownBlock2D"],
              "up_block_types": ["UpBlock2D", "CrossAttnUpBlock2D"], "in_channels": 4,
@@ -45,6 +46,20 @@ LCM_MAP = {"call": "map", "window": 2, "scheduler": "LCMScheduler", "steps": 4,
            "trace_requests": 2}
 TRAIN = {"call": "train", "batch": 4, "latent_hw": 8, "rank": 4, "learning_rate": 1e-4,
          "kernels": False, "pool_steps": 8, "trace_steps": 2}
+
+
+def family():
+    """The ``sd_unet`` family module, as a run finds it."""
+    from hb.family import family as find
+
+    return find(SD)
+
+
+def driver(c):
+    """An instance of the driver a run takes for the cell ``c``."""
+    from hb.family import driver_for
+
+    return driver_for(c)(c)
 
 
 def cell(cfg, traffic, seed=2**31 + 12345, seconds=0.5):

@@ -36,9 +36,12 @@ def test_keys_and_sizes():
 def test_a_cell_finds_its_files_by_name(cell):
     w = {x["name"]: x for x in BENCHMARK["workloads"]}[cell]
     config = {c["name"]: c for c in BENCHMARK["configs"]}[w["config"]]
-    assert json.loads((CHECKOUT / config["file"]).read_text())["name"] == w["config"]
+    cfg = json.loads((CHECKOUT / config["file"]).read_text())
+    assert cfg["name"] == w["config"]
+    fam = _module(BENCH / "families" / f"{cfg['family']}.py")
     traffic = json.loads((BENCH / "traffic" / f"{w['traffic']}.json").read_text())
-    assert traffic["call"] in ("call", "map", "train")
+    assert traffic["call"] in getattr(fam, "DRIVERS", {}) or (
+        BENCH / "drivers" / f"{traffic['call']}.py").is_file()
     limits = json.loads((BENCH / "limits" / f"{cell}.json").read_text())
     assert limits and all(v > 0 for v in limits.values())
     assert w["chips"] == 1 and 1 <= len(w["why"]) <= 200

@@ -9,7 +9,6 @@ import torch
 
 import h100bench_tiny as tiny
 from conftest import BENCH, CHECKOUT
-from hb import drive
 from hb.report import result_line
 
 BENCHMARK = json.loads((CHECKOUT / "BENCHMARK.json").read_text())
@@ -21,7 +20,7 @@ def limits(cell):
 
 def run(cfg, traffic, cell_limits, capsys):
     c = tiny.cell(cfg, traffic)
-    rc = result_line(c, drive.DRIVERS[traffic["call"]](c), cell_limits, [], [], BENCH,
+    rc = result_line(c, tiny.driver(c), cell_limits, [], [], BENCH,
                      lambda: [])
     assert rc == 0
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -98,17 +97,17 @@ def test_the_control_reads_far_above_the_program(traffic):
     """The reference with its products in fp8, served as uint8, against the
     float32 reference: many times the program's own gap (the cells' readings
     at full size: PERF.md)."""
-    from hb import checks, inputs
+    from hb import checks
 
     c = tiny.cell(tiny.SD, traffic)
-    d = drive.ServeDriver(c)
+    d = tiny.driver(c)
     win = d.window(d.setup())
     d.free()
     program = d.check()["image_mean_levels"]
-    reqs = [(inputs.prompt_ids(c.seed, i), d.request_seed(i)) for i in range(win.done)][:2]
-    ref = checks.reference_images(c, reqs)
-    low = [torch.round(x).to(torch.uint8).numpy() for x in checks.reference_images(c, reqs,
-                                                                                   "fp8")]
+    reqs = [(i, d.request_seed(i)) for i in range(win.done)][:2]
+    ref = c.family.reference_outputs(c, reqs)
+    low = [torch.round(x).to(torch.uint8).numpy() for x in c.family.reference_outputs(c, reqs,
+                                                                                      "fp8")]
     assert checks.image_gaps(low, ref)["image_mean_levels"] > 3 * program
 
 

@@ -28,8 +28,12 @@ def imported(mods, extra=""):
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    new = imported(["hb.reference", "hb.ref_sampling", "hb.ref_training", "hb.weights",
-                    "hb.roofline", "hb.flops"])
+    """The family's reference, its counts and the family module itself,
+    found by name as a run finds it."""
+    new = imported(["families.sd_unet_lib.reference", "families.sd_unet_lib.sampling",
+                    "families.sd_unet_lib.training", "families.sd_unet_lib.counts",
+                    "hb.weights", "hb.roofline", "hb.flops", "hb.family"],
+                   "import hb.family\nhb.family.family({'family': 'sd_unet'})\n")
     assert not new & {"jax", "jaxlib", "flax", "sfast_tpu", "sfast_tpu_torch"}
 
 
@@ -41,7 +45,9 @@ def test_a_run_imports_no_jax():
         "from hb import program\n"
         "import sfast_tpu_torch, sfast_tpu_torch.pipelines, sfast_tpu_torch.training\n"
         "import sfast_tpu_torch.schedulers\n"
-        "from hb import drive, report, checks, trace\n")
+        "from hb import drive, report, checks, trace, family\n"
+        "for call in ('call', 'map', 'train'):\n"
+        "    family.driver(call, family.family({'family': 'sd_unet'}))\n")
     new = imported(["run"], extra)
     assert "sfast_tpu_torch" in new
     assert not new & {"jax", "jaxlib", "flax", "sfast_tpu"}
@@ -56,3 +62,27 @@ def test_the_run_refuses_a_machine_without_a_card():
                          capture_output=True, text=True, cwd=CHECKOUT, timeout=300,
                          env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
     assert out.returncode != 0 and not out.stdout.strip()
+
+
+def test_only_a_family_imports_its_reference():
+    """No file of the harness (``hb/``, ``run.py``, ``drivers/``) imports a
+    family's reference modules, by any spelling of their names: the harness
+    reaches them through the family module."""
+    import ast
+
+    harness = [BENCH / "run.py", *sorted((BENCH / "hb").glob("*.py")),
+               *sorted((BENCH / "drivers").glob("*.py"))]
+    for path in harness:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = node.module or ""
+                names = [base] + [f"{base}.{a.name}" for a in node.names]
+            else:
+                continue
+            for name in names:
+                parts = name.split(".")
+                assert not (parts[0] in ("hb", "families") and set(parts[1:]) & {
+                    "reference", "ref_sampling", "ref_training", "sampling", "training",
+                    "sd_unet_lib"}), f"{path.name} imports {name}"

@@ -10,15 +10,17 @@ import torch
 
 import h100bench_tiny as tiny
 from conftest import CHECKOUT
-from hb import drive, inputs, program
+from families.sd_unet_lib import prompts
 from hb.weights import make_weights
+
+SD_UNET = tiny.family()
 
 
 def loaded(cfg, seed=1234):
-    meta = program.reference_modules(cfg)
+    meta = SD_UNET.reference_modules(cfg)
     w = {s: make_weights(m, seed + i, "cpu", torch.float32) for i, (s, m) in
          enumerate(meta.items())}
-    port = program.port_modules(cfg, w, "cpu")
+    port = SD_UNET.port_modules(cfg, w, "cpu")
     for s, m in meta.items():
         m.load_state_dict(w[s], strict=True, assign=True)
     return meta, port
@@ -42,14 +44,13 @@ def test_models_against_the_port(cfg):
     r = ref["vae"].decode(z)
     p = port["vae"].decode(z.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
     assert (r - p).abs().max() <= 1e-4 * r.abs().max()
-    ids = torch.from_numpy(inputs.prompt_ids(5, 0))
+    ids = torch.from_numpy(prompts.prompt_ids(5, 0))
     hidden, _ = ref["text_encoder"](ids)
     out = cfg["text_encoder"]["output"]
     want = hidden[-1] if out == "last" else hidden[-2]
     assert torch.allclose(port["text_encoder"](ids, output=out), want, atol=1e-4)
     if "text_encoder_2" in cfg:
-        from hb.ref_sampling import ids_for_encoder_2
-        ids2 = torch.from_numpy(ids_for_encoder_2(ids.numpy()))
+        ids2 = torch.from_numpy(prompts.ids_for_encoder_2(ids.numpy()))
         hidden, pooled = ref["text_encoder_2"](ids2)
         h, p = port["text_encoder_2"](ids2, output="penultimate_pooled")
         assert torch.allclose(h, hidden[-2], atol=1e-4)
@@ -61,8 +62,10 @@ def test_state_dict_names_at_full_size():
     full sizes (the shapes of the meta modules)."""
     for name in ("sd15", "sdxl"):
         cfg = json.loads((CHECKOUT / f"h100bench/configs/{name}.json").read_text())
-        ref = program.reference_modules(cfg)
-        confs = program.port_configs(cfg)
+        from families.sd_unet_lib.port import port_configs
+
+        ref = SD_UNET.reference_modules(cfg)
+        confs = port_configs(cfg)
         from sfast_tpu_torch.models import AutoencoderKL, CLIPTextModel, UNet2DConditionModel
         classes = {"unet": UNet2DConditionModel, "vae": AutoencoderKL,
                    "text_encoder": CLIPTextModel, "text_encoder_2": CLIPTextModel}
@@ -78,7 +81,7 @@ def test_state_dict_names_at_full_size():
 def test_pipelines_against_the_reference(cfg, traffic):
     """The port's float32 images of a window against the reference's: within
     the uint8 rounding."""
-    d = drive.DRIVERS[traffic["call"]](tiny.cell(cfg, traffic))
+    d = tiny.driver(tiny.cell(cfg, traffic))
     win = d.window(d.setup())
     d.free()
     assert win.done >= 1
@@ -87,7 +90,7 @@ def test_pipelines_against_the_reference(cfg, traffic):
 
 
 def test_train_step_against_the_reference():
-    d = drive.TrainDriver(tiny.cell(tiny.SD, tiny.TRAIN))
+    d = tiny.driver(tiny.cell(tiny.SD, tiny.TRAIN))
     win = d.window(d.setup())
     d.free()
     assert win.done >= 1 and all(np.isfinite(d.losses))
@@ -99,14 +102,13 @@ def test_train_step_against_the_reference():
 def test_the_reference_resumes_adamw_from_a_state():
     """Three steps from a fresh AdamW are two steps, then one from the state
     they left (in ``program.adam_state``'s form)."""
-    from hb import checks
-    from hb.ref_training import train
+    from families.sd_unet_lib.training import train
 
     c = tiny.cell(tiny.SD, tiny.TRAIN)
-    d = drive.TrainDriver(c)
+    d = tiny.driver(c)
     d.setup()
     batches = [d.batch(k) for k in range(3)]
-    unet, base, ac = checks.reference_unet(c)
+    unet, base, ac = SD_UNET.reference_trainer(c)
     lr = tiny.TRAIN["learning_rate"]
     tree = {}
     for name, t in d.initial.items():

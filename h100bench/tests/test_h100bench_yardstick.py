@@ -1,11 +1,13 @@
-"""The yardstick: the bound arithmetic, the reckoned kernel calls, the idle
-share from the union of busy intervals, and the model FLOPs."""
+"""The yardstick: the bound arithmetic, the ``sd_unet`` family's reckoned
+kernel calls and model FLOPs, and the idle share from the union of busy
+intervals."""
 
 import json
 from types import SimpleNamespace
 
 import pytest
 
+import h100bench_tiny as tiny
 from conftest import BENCH, CHECKOUT
 from hb import roofline
 from hb.report import Reading, _module
@@ -20,6 +22,7 @@ SD15, SDXL = load("h100bench/configs/sd15.json"), load("h100bench/configs/sdxl.j
 DPM50 = load("h100bench/traffic/t2i-dpm50-512.json")
 EULER30 = load("h100bench/traffic/t2i-euler30-1024.json")
 LCM4 = load("h100bench/traffic/lcm4-map-512.json")
+SD_UNET = tiny.family()
 
 
 def test_bound_takes_the_larger_of_operations_and_bytes():
@@ -29,22 +32,24 @@ def test_bound_takes_the_larger_of_operations_and_bytes():
 
 
 @pytest.mark.parametrize("cfg,traffic,k1,k2", [
-    (SD15, DPM50, {(2, 8, 4096, 40): 250}, 21),
-    (SDXL, EULER30, {(2, 10, 4096, 64): 300, (2, 20, 1024, 64): 1800}, 31),
-    (SD15, LCM4, {(1, 8, 4096, 40): 20}, 21),
+    (SD15, DPM50, {(2, 8, 4096, 4096, 40): 250}, 21),
+    (SDXL, EULER30, {(2, 10, 4096, 4096, 64): 300, (2, 20, 1024, 1024, 64): 1800}, 31),
+    (SD15, LCM4, {(1, 8, 4096, 4096, 40): 20}, 21),
 ])
 def test_reckoned_calls_are_the_launches_the_port_counts(cfg, traffic, k1, k2):
     """The counts chip_smoke.py and the port's card runs read: K1 250 an
     SD1.5 image, 2,100 an SDXL one (300 + 1,800), K2 21 and 31."""
-    assert roofline.k1_calls(cfg, traffic) == k1
-    assert sum(roofline.k2_calls(cfg, traffic).values()) == k2
+    calls = SD_UNET.kernel_calls(cfg, traffic)
+    assert calls["flash_attention"] == k1
+    assert sum(calls["conv3x3"].values()) == k2
 
 
 def test_k1_bound_of_one_sd15_call():
     flops = 4 * 2 * 8 * 4096 * 4096 * 40
-    assert roofline.k1_bound_s({(2, 8, 4096, 40): 1}) == pytest.approx(flops / 989e12)
+    one = {(2, 8, 4096, 4096, 40): 1}
+    assert roofline.k1_bound_s(one) == pytest.approx(flops / 989e12)
     # PERF.md's kernel table: 0.0434 ms at (2, 8, 4096, 40)
-    assert roofline.k1_bound_s({(2, 8, 4096, 40): 1}) * 1e3 == pytest.approx(0.0434, abs=1e-4)
+    assert roofline.k1_bound_s(one) * 1e3 == pytest.approx(0.0434, abs=1e-4)
 
 
 def trace(ops, window=(0, 100)):
@@ -61,6 +66,32 @@ def test_busy_is_the_union_of_intervals_clipped_to_the_window():
     assert _module(BENCH / "metrics" / "device_idle_pct.serve.py").read(r) == pytest.approx(50.0)
 
 
+def test_a_device_op_belongs_to_the_window_that_launched_it():
+    """The profiler's device times can sit off the host's clock: an op
+    launched in the window and placed after its end is the window's (and
+    misplaced); one launched before it and placed inside is not."""
+    t = Trace([DeviceOp("late", 90, 130, "", 50), DeviceOp("early", 5, 20, "", -30),
+               DeviceOp("k", 10, 30, "", 8), DeviceOp("no launch", 40, 60, "")],
+              [(0, 100, WINDOW)], (0, 100), 1)
+    assert [o.name for o in t.window_ops()] == ["late", "k", "no launch"]
+    assert t.misplaced() == 1
+    assert t.busy_intervals() == [(10, 30), (40, 60), (90, 100)]
+    assert [n for n, _ in t.breakdown()["device_ops"]] == ["late", "k", "no launch"]
+
+
+def test_kernel_roofline_reads_rows_the_device_clock_placed_outside_the_window():
+    """K1's rows of the last eval, launched in the window and placed after
+    its end (as a traced SDXL stretch on the card had them), still count."""
+    k1 = _module(BENCH / "metrics" / "k1_roofline.py")
+    ns = 100_000
+    rows = [DeviceOp("flash_fwd_kernel<40, 3>", i * ns, (i + 1) * ns, "unet", 0)
+            for i in range(250)]
+    r = reading(SD15, DPM50, [], {"flash_attention": 250})
+    r.trace = r.win.trace = Trace(rows, [(0, 200 * ns, WINDOW)], (0, 200 * ns), 0)
+    calls = SD_UNET.kernel_calls(SD15, DPM50)["flash_attention"]
+    assert k1.read(r) == pytest.approx(100 * roofline.k1_bound_s(calls) / (250 * ns * 1e-9))
+
+
 def test_breakdown_names_the_host_range_of_each_gap():
     t = Trace([DeviceOp("k", 10, 40, "unet"), DeviceOp("k", 70, 100, "unet")],
               [(0, 100, WINDOW), (0, 60, "unet"), (60, 100, "vae")], (0, 100), 0)
@@ -71,7 +102,7 @@ def test_breakdown_names_the_host_range_of_each_gap():
 
 def reading(cfg, traffic, ops, launches, traced=1):
     win = SimpleNamespace(trace=None, traced=traced, launches=launches, calls={})
-    r = Reading(SimpleNamespace(cfg=cfg, traffic=traffic), win)
+    r = Reading(SimpleNamespace(cfg=cfg, traffic=traffic, family=SD_UNET), win)
     r.trace = win.trace = trace(ops, (0, 10**12))
     return r
 
@@ -83,7 +114,8 @@ def k2_rows(n, ns=100_000):
 def test_kernel_roofline_reads_nothing_from_a_stale_count():
     k2 = _module(BENCH / "metrics" / "k2_roofline.py")
     good = k2.read(reading(SD15, DPM50, k2_rows(21), {"conv3x3": 21}))
-    expected = 100 * roofline.k2_bound_s(roofline.k2_calls(SD15, DPM50)) / (21 * 100e-6)
+    calls = SD_UNET.kernel_calls(SD15, DPM50)["conv3x3"]
+    expected = 100 * roofline.k2_bound_s(calls) / (21 * 100e-6)
     assert good == pytest.approx(expected)
     assert k2.read(reading(SD15, DPM50, k2_rows(20), {"conv3x3": 21})) is None
     assert k2.read(reading(SD15, DPM50, k2_rows(21), {"conv3x3": 22})) is None
@@ -97,9 +129,7 @@ def test_flop_counts_of_the_reference_on_meta(cfg, traffic, unet_tf, decode_tf):
     """The counts of the port's models on the meta device with the kernels
     off: SD1.5's UNet eval 1.607 TFLOP at CFG batch 2 and its decode 2.515,
     SDXL's 13.52 and 10.47."""
-    from hb.flops import request_flops
-
-    f = request_flops(cfg, traffic)
+    f = SD_UNET.request_flops(cfg, traffic)
     assert f["unet_eval"] / 1e12 == pytest.approx(unet_tf, rel=2e-3)
     assert f["decode"] / 1e12 == pytest.approx(decode_tf, rel=2e-3)
     assert f["request"] == f["text"] + traffic["steps"] * f["unet_eval"] + f["decode"]
@@ -111,12 +141,10 @@ def test_a_traced_run_reads_its_metrics_without_a_card():
     op was traced, never 0."""
     import dataclasses
 
-    import h100bench_tiny as tiny
-    from hb import drive
     from hb.report import read_metrics
 
     c = dataclasses.replace(tiny.cell(tiny.SD, tiny.DPM), trace=True)
-    d = drive.ServeDriver(c)
+    d = tiny.driver(c)
     w = d.window(d.setup())
     assert w.traced == 1 and w.calls["unet"] == tiny.DPM["steps"] and w.calls["vae"] == 1
     entries = [m for m in json.loads((CHECKOUT / "BENCHMARK.json").read_text())["per_layer"]
@@ -152,7 +180,6 @@ def test_a_retried_stretch_reads_what_a_single_one_reads(monkeypatch):
     and everything read is read from the last trace alone."""
     import dataclasses
 
-    import h100bench_tiny as tiny
     from hb import drive
     from hb.report import read_metrics
 
@@ -168,7 +195,7 @@ def test_a_retried_stretch_reads_what_a_single_one_reads(monkeypatch):
 
         monkeypatch.setattr(drive, "lost_rows", lost)
         c = dataclasses.replace(tiny.cell(tiny.SD, tiny.DPM), trace=True)
-        d = drive.ServeDriver(c)
+        d = tiny.driver(c)
         w = d.window(d.setup())
         assert len(looks) == (2 if retry else 1)
         return w, read_metrics(entries, BENCH / "metrics", Reading(c, w))
@@ -187,10 +214,7 @@ def test_a_traffic_key_that_no_driver_reads_is_refused(traffic, key):
     AdamW's betas (the program's own are compared) would have no effect."""
     import dataclasses
 
-    import h100bench_tiny as tiny
-    from hb import drive
-
     c = dataclasses.replace(tiny.cell(tiny.SD, dict(traffic, **{key: 4})))
     with pytest.raises(ValueError, match=key):
-        drive.DRIVERS[traffic["call"]](c)
-    drive.DRIVERS[traffic["call"]](tiny.cell(tiny.SD, traffic))  # the file as it is
+        tiny.driver(c)
+    tiny.driver(tiny.cell(tiny.SD, traffic))  # the file as it is

@@ -11,8 +11,9 @@ Counterpart of ``sfast_tpu/pipelines/stable_video_diffusion.py``
    latents (``in_channels`` 8);
 2. the micro-conditioning ids (fps − 1, motion bucket, noise augmentation)
    feed the UNet's addition embedding;
-3. EDM-Euler steps with classifier-free guidance at a per-frame scale, a
-   linear ramp from ``min_guidance_scale`` to ``max_guidance_scale``;
+3. EDM-Euler steps (v-prediction by default, as SVD checkpoints are
+   trained) with classifier-free guidance at a per-frame scale, a linear
+   ramp from ``min_guidance_scale`` to ``max_guidance_scale``;
 4. the latents decode in chunks of ``decode_chunk_size`` frames to uint8.
 
 After ``sfast_tpu_torch.compile`` the image encoder, the VAE encode, the
@@ -22,7 +23,9 @@ inputs, so a new guidance range, fps or motion bucket captures nothing.
 Under ``fuse_denoising_loop`` the N steps are one graph, keyed by (steps,
 frames).  Each decoded chunk is one graph of the decode and the uint8
 conversion, one per chunk size; a chunk is copied to pinned host memory
-without blocking, and the call synchronizes once at the end.
+without blocking, and the call synchronizes once at the end.  Under a
+profiler session a call is one ``sfast.request`` span and that sync, with
+the frames' ``.numpy()``, one ``sfast.wait`` inside it.
 
 A temporal decoder (``AutoencoderKLTemporalDecoder``, what SVD checkpoints
 ship) decodes each chunk as a video of its frames; a standard
@@ -35,10 +38,12 @@ draws (``aug_noise``, ``latents``).
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from sfast_tpu_torch.models.autoencoder_kl_temporal import AutoencoderKLTemporalDecoder
 from sfast_tpu_torch.pipelines.stable_diffusion import PipelineBase, PipelineOutput
+from sfast_tpu_torch.profile import spans
 from sfast_tpu_torch.runtime.executable_cache import global_executable_cache
 from sfast_tpu_torch.runtime.tracing import LazyCompiledFunction
 from sfast_tpu_torch.schedulers.edm_euler import EDMEulerScheduler
@@ -180,10 +185,11 @@ class StableVideoDiffusionPipeline(PipelineBase):
             self._decode_u8 = fn
         return self._decode_u8
 
-    def _decode(self, latents: torch.Tensor, chunk: int) -> torch.Tensor:
-        """(B, F, h, w, 4) latents → (B·F, H, W, 3) uint8 frames, on the host
-        (pinned) from a CUDA device: each chunk's copy is issued without
-        blocking, and the stream is synchronized once."""
+    def _decode(self, latents: torch.Tensor, chunk: int) -> np.ndarray:
+        """(B, F, h, w, 4) latents → (B·F, H, W, 3) uint8 frames on the host
+        (pinned from a CUDA device): each chunk's copy is issued without
+        blocking, and the stream is synchronized once, inside one
+        ``sfast.wait`` span with the frames' ``.numpy()``."""
         b, f, lh, lw, c = latents.shape
         flat = latents.reshape(b * f, lh, lw, c) / self.vae.config.scaling_factor
         dec = self._decoder_u8()
@@ -193,10 +199,12 @@ class StableVideoDiffusionPipeline(PipelineBase):
         host = torch.empty(shape, dtype=torch.uint8, pin_memory=on_card)
         for s in range(0, b * f, chunk):
             host[s:s + chunk].copy_(dec(flat[s:s + chunk]), non_blocking=on_card)
-        if on_card:
-            torch.cuda.current_stream(self.device).synchronize()
-        return host
+        with spans.wait():
+            if on_card:
+                torch.cuda.current_stream(self.device).synchronize()
+            return host.numpy()
 
+    @spans.as_request
     @torch.inference_mode()
     def __call__(
         self,
@@ -221,7 +229,9 @@ class StableVideoDiffusionPipeline(PipelineBase):
         to ``height`` × ``width``.  ``latents`` (B, F, h, w, 4) are the
         initial noise before it is scaled by σ_max, as diffusers takes them;
         ``aug_noise`` (B, height, width, 3) the augmentation's.  Returns
-        (B, F, height, width, 3) uint8 frames, or the latents."""
+        (B, F, height, width, 3) uint8 frames, or the latents.  Under a
+        profiler session the call is an ``sfast.request`` span
+        (``profile/spans.py``)."""
         self._sched_guard()
         num_frames = num_frames or self.unet.config.num_frames
         chunk = decode_chunk_size or num_frames
@@ -256,4 +266,4 @@ class StableVideoDiffusionPipeline(PipelineBase):
         if output_type != "np":
             raise ValueError(f"unknown output_type: {output_type!r}")
         frames = self._decode(latents, chunk)
-        return PipelineOutput(frames.numpy().reshape(b, num_frames, height, width, 3))
+        return PipelineOutput(frames.reshape(b, num_frames, height, width, 3))

@@ -6,6 +6,12 @@ Counterpart of ``sfast_tpu/schedulers/edm_euler.py``.  The model's
 timestep is ``c_noise = 0.25·log σ`` and ``init_noise_sigma`` (in the
 state) is σ_max.  Table reads at the step index are gathers
 (``common.table_at``), so one captured graph serves every step.
+
+The model predicts v, as SVD checkpoints are trained: c_out = −σ·σ_d /
+√(σ² + σ_d²), as diffusers' ``EulerDiscreteScheduler`` with
+``prediction_type='v_prediction'`` and generative-models'
+``VScalingWithEDMcNoise`` define it.  ``sfast_tpu``'s scheduler takes
+Karras' positive c_out; a UNet of negated output steps the same.
 """
 
 import dataclasses
@@ -41,7 +47,7 @@ class EDMEulerScheduler(TableState):
         """(c_skip, c_out, c_in) at ``sigma``."""
         sd2 = self.sigma_data**2
         c_skip = sd2 / (sigma**2 + sd2)
-        c_out = sigma * self.sigma_data / torch.sqrt(sigma**2 + sd2)
+        c_out = -sigma * self.sigma_data / torch.sqrt(sigma**2 + sd2)
         c_in = 1.0 / torch.sqrt(sigma**2 + sd2)
         return c_skip, c_out, c_in
 

@@ -38,6 +38,7 @@ from sfast_tpu_torch.pipelines import (
 from sfast_tpu_torch.schedulers import DPMSolverMultistepScheduler, EulerDiscreteScheduler
 from tests.test_torch_svd import _image as svd_image
 from tests.test_torch_svd import _jax_draws as svd_draws
+from tests.test_torch_svd import negate_output_
 from tests.test_torch_svd import _one_torch_thread  # noqa: F401  (an autouse fixture)
 
 F32 = dict(device="cpu", dtype=torch.float32)
@@ -187,6 +188,7 @@ def test_compile_converts_a_diffusers_pipeline_and_matches_jax(kind):
         aug, lat = svd_draws(3, FRAMES)
         kw = dict(num_frames=FRAMES, height=HW, width=HW, num_inference_steps=STEPS, seed=3)
         ref = jpipe(svd_image(), **kw).images
+        negate_output_(tpipe.unet.module)  # JAX's EDM step takes Karras' c_out, the port's −c_out
         got = tpipe(svd_image(), latents=lat, aug_noise=aug, **kw).images
     else:
         if kind == "sd2":

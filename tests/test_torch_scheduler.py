@@ -206,6 +206,9 @@ def _schedulers(name):
 
 SCHEDULERS = ["euler", "euler:karras", "euler:v", "euler_ancestral", "euler_ancestral:karras",
               "ddim", "ddim:v", "edm_euler", "lcm", "lcm:v"]
+# the sign of the model output the port's step takes for JAX's: the port's
+# EDM step is v-prediction (c_out < 0), JAX's takes Karras' c_out > 0
+OUT_SIGN = {"edm_euler": -1.0}
 
 
 @pytest.mark.parametrize("name", SCHEDULERS)
@@ -242,7 +245,7 @@ def test_scheduler_five_steps_match_jax(name):
             key, sub = jax.random.split(key)
             jkw["noise"] = jax.random.normal(sub, x.shape, jnp.float32)
             kw["noise"] = torch.tensor(np.asarray(jkw["noise"]))
-        xt, st = ours.step(st, torch.from_numpy(eps[i]), i, xt, **kw)
+        xt, st = ours.step(st, OUT_SIGN.get(name, 1.0) * torch.from_numpy(eps[i]), i, xt, **kw)
         jx, jst = theirs.step(jst, jnp.asarray(eps[i]), i, jx, **jkw)
         ref = np.asarray(jx)
         np.testing.assert_allclose(
@@ -266,6 +269,28 @@ def test_device_index_step_equals_int_index(name):
         a, _ = ours.step(st, eps[i], i, a, **kw(i))
         b, _ = ours.step(st, eps[i], torch.tensor(i), b, **kw(i))
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("num_steps", [5, 25])
+def test_edm_euler_steps_are_diffusers_v_prediction(num_steps):
+    """The EDM step is diffusers' ``EulerDiscreteScheduler`` with
+    ``prediction_type='v_prediction'`` (SVD's scheduler config):
+    denoised = −σ/√(σ²+1)·out + x/(σ²+1), x ← x + (σ_next − σ)·(x −
+    denoised)/σ, written out here in float64."""
+    sch = EDMEulerScheduler()
+    host = sch.set_timesteps(num_steps)
+    st = sch.device_state(host, "cpu")
+    sig = host["sigmas"].astype(np.float64)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, 4, 4, 4))
+    xt = torch.from_numpy(x.astype(np.float32))
+    for i in range(num_steps):
+        out = rng.standard_normal(x.shape)
+        den = -sig[i] / np.sqrt(sig[i] ** 2 + 1) * out + x / (sig[i] ** 2 + 1)
+        x = x + (sig[i + 1] - sig[i]) * (x - den) / sig[i]
+        xt, st = sch.step(st, torch.from_numpy(out.astype(np.float32)), i, xt)
+        np.testing.assert_allclose(xt.numpy(), x, rtol=0, atol=1e-5 * np.abs(x).max(),
+                                   err_msg=f"step {i}")
 
 
 def test_lcm_last_step_is_denoised_and_others_renoised():

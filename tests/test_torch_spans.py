@@ -22,10 +22,12 @@ from torch.profiler import ProfilerActivity, profile
 
 import sfast_tpu_torch
 from sfast_tpu_torch.models import (
-    TINY_TEST_VAE, TINY_TEXT_ENCODER, TINY_UNET, AutoencoderKL, CLIPTextModel,
-    UNet2DConditionModel, init_weights_,
+    TINY_IMAGE_ENCODER, TINY_SVD_UNET, TINY_TEMPORAL_VAE, TINY_TEST_VAE, TINY_TEXT_ENCODER,
+    TINY_UNET, AutoencoderKL, AutoencoderKLTemporalDecoder, CLIPTextModel, CLIPVisionModel,
+    UNet2DConditionModel, UNetSpatioTemporalConditionModel, init_svd_unet_weights_,
+    init_temporal_vae_weights_, init_weights_,
 )
-from sfast_tpu_torch.pipelines import StableDiffusionPipeline
+from sfast_tpu_torch.pipelines import StableDiffusionPipeline, StableVideoDiffusionPipeline
 from sfast_tpu_torch.profile import spans
 from sfast_tpu_torch.runtime.tracing import CapturedGraph, LazyCompiledFunction
 from sfast_tpu_torch.schedulers import DPMSolverMultistepScheduler
@@ -42,6 +44,12 @@ GRAPHS = ["text_encoder"] + ["unet", "scheduler.step"] * STEPS + ["vae"]
 # CLOCK_TOL_NS); a clock of another base is off by seconds or years
 CLOCK_SLACK_NS = 50_000
 CLOCK_TOL_NS = 1_000_000
+# a tiny SVD clip: 4 frames of 32², 2 steps, decoded in chunks of 3 + 1
+SVD_KW = dict(num_frames=4, height=32, width=32, num_inference_steps=2, decode_chunk_size=3)
+# its graphed calls: the image encoder, the VAE encode, a UNet eval and an
+# EDM step a step, the decode graph a chunk
+SVD_GRAPHS = (["image_encoder", "vae_encode"] + ["unet", "scheduler.step"] * 2
+              + ["svd_decode_u8"] * 2)
 
 
 @pytest.fixture(scope="module")
@@ -55,6 +63,22 @@ def pipe():
         init_weights_(m, g)
     return sfast_tpu_torch.compile(StableDiffusionPipeline(
         unet, vae, te, DPMSolverMultistepScheduler(), device="cpu", dtype=torch.float32))
+
+
+@pytest.fixture(scope="module")
+def svd_pipe():
+    f32 = dict(device="cpu", dtype=torch.float32)
+    g = torch.Generator().manual_seed(0)
+    unet = init_svd_unet_weights_(UNetSpatioTemporalConditionModel(TINY_SVD_UNET, **f32), g)
+    vae = init_temporal_vae_weights_(AutoencoderKLTemporalDecoder(TINY_TEMPORAL_VAE, **f32), g)
+    enc = init_weights_(CLIPVisionModel(TINY_IMAGE_ENCODER, **f32), g)
+    return sfast_tpu_torch.compile(StableVideoDiffusionPipeline(unet, vae, enc, device="cpu",
+                                                                dtype=torch.float32))
+
+
+def _still(i):
+    return torch.randint(0, 256, (1, 32, 32, 3), generator=torch.Generator().manual_seed(i),
+                         dtype=torch.uint8).numpy()
 
 
 @pytest.fixture(autouse=True)
@@ -135,6 +159,32 @@ def test_call_records_a_request_with_its_replays_and_its_wait(pipe, graphed):
         assert all(s.request == req.request and req.start_ns <= s.start_ns <= s.end_ns
                    <= req.end_ns for s in kids)
     assert len(found) == 2 * (len(GRAPHS) + 2)
+
+
+def test_svd_call_opens_no_span_without_a_session(svd_pipe, graphed):
+    before = spans.snapshot()
+    t0 = time.time_ns()
+    frames = svd_pipe(_still(0), **SVD_KW).images
+    assert frames.shape == (1, 4, 32, 32, 3)
+    after = spans.snapshot()
+    assert len(after) == len(before) and not [s for s in after if s.start_ns >= t0]
+
+
+def test_svd_call_is_one_request_with_its_replays_and_its_decode_wait(svd_pipe, graphed):
+    """A clip is one ``sfast.request``; its graphed calls replay inside it,
+    and the decode's sync with the frames' ``.numpy()`` is the one
+    ``sfast.wait``, last."""
+    svd_pipe(_still(0), **SVD_KW)  # captures
+    found, _ = _session(lambda: svd_pipe(_still(1), **SVD_KW))
+    requests = [s for s in found if s.name == "sfast.request"]
+    assert len(requests) == 1 and requests[0].parent is None
+    req = requests[0]
+    kids = _children(found, req)
+    assert [(s.name, s.graph) for s in kids] == (
+        [("sfast.replay", g) for g in SVD_GRAPHS] + [("sfast.wait", None)])
+    assert all(s.request == req.request and req.start_ns <= s.start_ns <= s.end_ns
+               <= req.end_ns for s in kids)
+    assert len(found) == len(SVD_GRAPHS) + 2
 
 
 def test_map_spans_each_item_and_its_fetch_and_leave_the_caller_out(pipe, graphed):

@@ -241,11 +241,23 @@ def _jax_draws(seed, num_frames):
     return np.array(aug), np.array(lat)
 
 
+def negate_output_(unet):
+    """``unet`` with ``conv_out``'s weight and bias negated in place, so its
+    output is the negative of the loaded weights' bit for bit: the port's
+    EDM step takes SVD's v-prediction c_out, the negative of ``sfast_tpu``'s
+    Karras c_out, so the port then steps as JAX does."""
+    with torch.no_grad():
+        unet.conv_out.weight.neg_()
+        unet.conv_out.bias.neg_()
+    return unet
+
+
 @pytest.fixture(scope="module")
 def svd_pipes():
     """(JAX pipeline, the port's compiled pipeline) over one set of tiny f32
     weights, the temporal VAE in the vae slot; then the same UNet and image
-    encoder (JAX's compiled, the port's modules) with a standard KL VAE."""
+    encoder (JAX's compiled, the port's modules) with a standard KL VAE.
+    The port's UNet has its output negated (:func:`negate_output_`)."""
     unet = jsvd.create_svd_unet(jsvd.TINY_SVD_UNET, jax.random.key(1))
     enc = create_image_encoder(J_TINY_ENC, jax.random.key(2))
     jdec, jenc = jtvae.create_temporal_vae(jtvae.TINY_TEMPORAL_VAE, jax.random.key(0))
@@ -253,6 +265,7 @@ def svd_pipes():
                                      dtype=jnp.float32), JAX_CCFG)
     tu = UNetSpatioTemporalConditionModel(TINY_SVD_UNET, **F32)
     tu.load_state_dict(from_jax.svd_unet_state_dict(unet.params))
+    negate_output_(tu)
     te = CLIPVisionModel(TINY_IMAGE_ENCODER, **F32)
     te.load_state_dict(from_jax.clip_vision_state_dict(enc.params))
     tv = AutoencoderKLTemporalDecoder(TINY_TEMPORAL_VAE, **F32)

@@ -15,7 +15,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    one PyTorch call that computes the same function where there is one
    (``library_ms``), and state its bound (``bound_ms``: operations over
    the peak rate against bytes over the memory rate) and the share of it
-   reached.  K6 is timed whole and as its two parts, the pre-processing
+   reached.  K7, the LayerNorm, at the UNets' LayerNorm rows.  K6 is timed
+   whole and as its two parts, the pre-processing
    (``quantize_qkv``) and the body, beside K1 at the same shape; the fused
    GroupNorm beside K3+K5 and the library GroupNorm at every UNet
    GroupNorm shape, with both routes' sums over one UNet eval; SDXL's
@@ -252,20 +253,25 @@ EXP2_PER_S = 16 * 132 * 1.98e9
 # eval) is one fused GroupNorm, the default route of a bf16 GroupNorm on
 # the card; so are the decoder's 11 GroupNorms at 64²·512, and its
 # conv_norm_out at 512²·128, which `fused_plan` refuses, takes K3 then K5.
+# Every LayerNorm of the UNet's 16 transformer blocks (3 each: 48 per eval)
+# takes K7, the default route of a bf16 LayerNorm on the card.
 # Opt-in: 11 of the 16 GEGLUs pass the width rule (K = 320 fails it); the
 # 5 level-0 self-attentions take K6.
 SD_DECODE_GN = 11
+SD_LN_PER_EVAL = 48
 EXPECTED_LAUNCHES = {
     "flash_attention": 5 * STEPS, "quantize_qkv": 0, "flash_attention_int8": 0,
     "conv3x3": 21, "group_norm_stats": 9 + 1, "group_norm_apply": 1,
     "group_norm_fused": 61 * STEPS + SD_DECODE_GN, "linear_geglu": 0,
+    "layer_norm": SD_LN_PER_EVAL * STEPS,
 }
 # img2img and inpainting at strength 0.8 run steps 10..49: 40 UNet evals;
 # the VAE encoder adds 6 fused resnets (12 K2, 6 K3) at 512², 256² and 128²
 # and 10 fused GroupNorms at 64²·512
 EXPECTED_IMG2IMG_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=5 * 40, conv3x3=21 + 12,
                                  group_norm_stats=9 + 6 + 1,
-                                 group_norm_fused=61 * 40 + SD_DECODE_GN + 10)
+                                 group_norm_fused=61 * 40 + SD_DECODE_GN + 10,
+                                 layer_norm=SD_LN_PER_EVAL * 40)
 STRENGTH = 0.8
 LORA_RANK = 8
 # SDXL 1024², Euler 30 steps, CFG 5: 70 self-attentions an eval take K1 at
@@ -277,38 +283,46 @@ LORA_RANK = 8
 # K5.  Of the UNet's 46 GroupNorms an eval, 45 are fused and up level 2's
 # 128²·960 entry takes K3 then K5.  img2img at strength 0.8 runs 24 steps
 # and the encoder's 10 resnets (1024² to 128², mid block) and 2 fused
-# GroupNorms at 128²·512.
+# GroupNorms at 128²·512.  Its 70 transformer blocks (levels 1 and 2 and the
+# mid block) take K7 for their 3 LayerNorms: 210 an eval.
 SDXL_STEPS = 30
 SDXL_HW = 1024
 SDXL_GUIDANCE = 5.0
 SDXL_ATTN_PER_EVAL = 70
+SDXL_LN_PER_EVAL = 3 * 70
 EXPECTED_SDXL_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=SDXL_ATTN_PER_EVAL * SDXL_STEPS,
                               conv3x3=31, group_norm_stats=14 + SDXL_STEPS + 1,
                               group_norm_apply=SDXL_STEPS + 1,
-                              group_norm_fused=45 * SDXL_STEPS + 1)
+                              group_norm_fused=45 * SDXL_STEPS + 1,
+                              layer_norm=SDXL_LN_PER_EVAL * SDXL_STEPS)
 SDXL_IMG2IMG_STEPS = int(SDXL_STEPS * STRENGTH)  # the steps img2img runs
 EXPECTED_SDXL_IMG2IMG_LAUNCHES = dict(
     EXPECTED_SDXL_LAUNCHES, flash_attention=SDXL_ATTN_PER_EVAL * SDXL_IMG2IMG_STEPS,
     conv3x3=31 + 20, group_norm_stats=14 + 10 + SDXL_IMG2IMG_STEPS + 1,
-    group_norm_apply=SDXL_IMG2IMG_STEPS + 1, group_norm_fused=45 * SDXL_IMG2IMG_STEPS + 1 + 2)
+    group_norm_apply=SDXL_IMG2IMG_STEPS + 1, group_norm_fused=45 * SDXL_IMG2IMG_STEPS + 1 + 2,
+    layer_norm=SDXL_LN_PER_EVAL * SDXL_IMG2IMG_STEPS)
 # LCM 4 steps at guidance 1: no CFG, K1 and the fused GroupNorm at batch 1
 LCM_STEPS = 4
 EXPECTED_LCM_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=5 * LCM_STEPS,
-                             group_norm_fused=61 * LCM_STEPS + SD_DECODE_GN)
+                             group_norm_fused=61 * LCM_STEPS + SD_DECODE_GN,
+                             layer_norm=SD_LN_PER_EVAL * LCM_STEPS)
 LCM_COND_DIM = 256  # the time_cond_proj_dim of SimianLuo/LCM_Dreamshaper_v7
 # ControlNet (JAX's tracked configuration, bench_extra_configs.py:126-175):
 # 30 DPM++ steps, CFG 7.5, control scale 0.8.  Each step runs the UNet's 5
 # and the ControlNet's 2 level-0 self-attentions through K1; the VAE as
 # before.  Opt-in: the ControlNet's 27 GroupNorms (20 in its resnets, 7 in
 # its transformers) and 5 GEGLUs (levels 1, 2 and mid) beside the UNet's.
+# Its 7 transformer blocks' 21 LayerNorms an eval take K7 beside the UNet's.
 CN_STEPS = 30
 CN_SCALE, IP_SCALE, IP_TOKENS = 0.8, 0.6, 4
 # the zero convs' weights, N(0, (scale)²/fan_in) with zero biases
 CN_ZERO_CONV_SCALE = 0.1
+CN_LN_PER_EVAL = 21
 EXPECTED_CN_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=(5 + 2) * CN_STEPS,
-                            group_norm_fused=(61 + 27) * CN_STEPS + SD_DECODE_GN)
+                            group_norm_fused=(61 + 27) * CN_STEPS + SD_DECODE_GN,
+                            layer_norm=(SD_LN_PER_EVAL + CN_LN_PER_EVAL) * CN_STEPS)
 # one ControlNet eval on the CFG batch
-CN_EVAL_LAUNCHES = {"flash_attention": 2, "group_norm_fused": 27}
+CN_EVAL_LAUNCHES = {"flash_attention": 2, "group_norm_fused": 27, "layer_norm": CN_LN_PER_EVAL}
 EXPECTED_OPTIN_LAUNCHES = dict(
     EXPECTED_LAUNCHES, flash_attention=0, quantize_qkv=5 * STEPS,
     flash_attention_int8=5 * STEPS, linear_geglu=11 * STEPS)
@@ -330,29 +344,32 @@ EXPECTED_CN_OPTIN_LAUNCHES = dict(
 # (50, 72·128, 960)) take K3 then K5.  A decoded chunk's 40 GroupNorms
 # outside the fused resnets: 11 fused (its spatial ones at 72×128), 29 K3
 # then K5 (the temporal resnets' folded (1, 5·H, W, C) from 72×128·512 up,
-# and conv_norm_out).  Opt-in: 33 GEGLUs an eval pass K4's width rule
-# (K = 640, 1280).
+# and conv_norm_out).  Each of the 16 transformers' spatial block (3
+# LayerNorms) and temporal block (4) takes K7: 112 an eval.  Opt-in: 33
+# GEGLUs an eval pass K4's width rule (K = 640, 1280).
 SVD_FRAMES, SVD_H, SVD_W, SVD_STEPS, SVD_CHUNK = 25, 576, 1024, 25, 5
 SVD_KW = dict(num_frames=SVD_FRAMES, height=SVD_H, width=SVD_W,
               num_inference_steps=SVD_STEPS, min_guidance_scale=1.0, max_guidance_scale=3.0,
               fps=7, motion_bucket_id=127, noise_aug_strength=0.02,
               decode_chunk_size=SVD_CHUNK)
 SVD_CHUNKS = SVD_FRAMES // SVD_CHUNK
+SVD_LN_PER_EVAL = 16 * (3 + 4)
 EXPECTED_SVD_LAUNCHES = dict(
     EXPECTED_LAUNCHES, flash_attention=10 * SVD_STEPS, conv3x3=21 * SVD_CHUNKS + 12,
     group_norm_stats=21 * SVD_STEPS + (9 + 29) * SVD_CHUNKS + 6,
     group_norm_apply=21 * SVD_STEPS + 29 * SVD_CHUNKS,
-    group_norm_fused=84 * SVD_STEPS + 11 * SVD_CHUNKS + 10)
+    group_norm_fused=84 * SVD_STEPS + 11 * SVD_CHUNKS + 10, layer_norm=SVD_LN_PER_EVAL * SVD_STEPS)
 EXPECTED_SVD_OPTIN_LAUNCHES = dict(
     EXPECTED_SVD_LAUNCHES, flash_attention=0, quantize_qkv=10 * SVD_STEPS,
     flash_attention_int8=10 * SVD_STEPS, linear_geglu=33 * SVD_STEPS)
 # The route check's UNet eval: the CFG pair of 2 frames at 576×1024, its
 # 10 flash self-attentions (levels 0 and 1) through K1; of the 105
 # GroupNorms `fused_plan` takes 104 (the temporal ones folded to
-# (2, 2·H·W, C) among them); (4, 72·128, 960) takes K3 then K5.  Opt-in,
-# the attentions take K6 and 33 GEGLUs K4.
+# (2, 2·H·W, C) among them); (4, 72·128, 960) takes K3 then K5; the 112
+# LayerNorms take K7.  Opt-in, the attentions take K6 and 33 GEGLUs K4.
 SVD_ROUTE_FRAMES = 2
-SVD_ROUTE_GN = {"group_norm_fused": 104, "group_norm_stats": 1, "group_norm_apply": 1}
+SVD_ROUTE_GN = {"group_norm_fused": 104, "group_norm_stats": 1, "group_norm_apply": 1,
+                "layer_norm": SVD_LN_PER_EVAL}
 SVD_ROUTE_LAUNCHES = {"flash_attention": 10, **SVD_ROUTE_GN}
 SVD_OPTIN_ROUTE_LAUNCHES = {"quantize_qkv": 10, "flash_attention_int8": 10, "linear_geglu": 33,
                             **SVD_ROUTE_GN}
@@ -428,7 +445,8 @@ EXPECTED_SDXL_FUSED_CONV_LAUNCHES = dict(
 EXPECTED_LCM_TAESD_LAUNCHES = dict(EXPECTED_LCM_LAUNCHES, conv3x3=0, group_norm_stats=0,
                                    group_norm_apply=0, group_norm_fused=61 * LCM_STEPS)
 EXPECTED_LCM_TAESD_IMG2IMG_LAUNCHES = dict(EXPECTED_LCM_TAESD_LAUNCHES, flash_attention=5 * 3,
-                                           group_norm_fused=61 * 3)
+                                           group_norm_fused=61 * 3,
+                                           layer_norm=SD_LN_PER_EVAL * 3)
 # Quantization (phase 14, JAX's tracked setup, benchmarks/bench_w8a8.py:
 # 183-206): W8A16 (linears), dynamic W8A8 and calibrated static W8A8, both
 # with the resnet and resampling convs; the latents of 10 steps of seed 3
@@ -469,6 +487,8 @@ KERNELS = {
     "group_norm_fused": ("sfast_tpu_torch/csrc/group_norm_fused.cu",
                          "sfast_tpu/ops/group_norm.py:76,105"),
     "linear_geglu": ("sfast_tpu_torch/csrc/geglu.cu", "sfast_tpu/ops/geglu.py:43"),
+    # no Pallas kernel: JAX's jnp LayerNorm is one XLA fusion on the TPU
+    "layer_norm": ("sfast_tpu_torch/csrc/layer_norm.cu", "none (sfast_tpu/ops/layer_norm.py)"),
 }
 
 # Every distinct UNet GroupNorm of the opt-in path at 512² (batch 2):
@@ -484,6 +504,15 @@ UNET_GN = [
 ]
 # K4's calls: (M, K, F) of the feed-forwards at levels 1, 2 and mid
 UNET_GEGLU = [(2048, 640, 2560), (512, 1280, 5120), (128, 1280, 5120)]
+# K7 at the UNets' LayerNorm rows (M, C): SVD's levels 0, 1 and 2 (the
+# spatial (50·H·W, C) and temporal (B·H·W·25, C) rows alike), SDXL's levels
+# 1 and 2, SD1.5's level 0 (CFG batch 2)
+LN_SHAPES = [(460800, 320), (115200, 640), (28800, 1280), (8192, 640), (2048, 1280),
+             (8192, 320)]
+# K7 against the plain form: both round one f32 value to bf16, from
+# statistics summed in another order, so a few elements a row take the
+# next bf16 value (2^-8 relative): relative rms errors of about 1e-3
+LN_RMS_REL = 1e-2
 # The device kernels each launch counted by cuda_build.launch_counts runs
 # once, by a piece of their names in the profiler
 KERNEL_ROWS = {
@@ -495,6 +524,7 @@ KERNEL_ROWS = {
     "group_norm_apply": ("gn_apply_kernel",),
     "group_norm_fused": ("gn_fused_kernel",),
     "linear_geglu": ("geglu_kernel",),
+    "layer_norm": ("ln_fused_kernel",),
 }
 
 
@@ -738,6 +768,7 @@ def check_kernels(torch, dev):
                   (256, 128), (128, 256), (1024, 128), (1024, 256)]:
         stats_case(torch, dev, g, out, 1, hw, hw, c)
 
+    ln_cases(torch, dev, g, out)
     check_optin_kernels(torch, dev, randn, out)
     # SDXL's UNet at 128² under enable_fused_conv (batch 2), then SDXL's
     # opt-in shapes: its 46 GroupNorms an eval, K4 at its two GEMMs, K6 at
@@ -754,6 +785,37 @@ def check_kernels(torch, dev):
     for name, cases in svd.items():
         out[name].extend(cases)
     return out
+
+
+def ln_cases(torch, dev, g, out):
+    """K7 against the plain LayerNorm at :data:`LN_SHAPES`, timed beside it
+    and beside ``F.layer_norm`` (bf16 weights: it takes no f32 weight with
+    bf16 rows); the bound reads each row and writes it once in bf16, and
+    gamma and beta once in f32."""
+    import torch.nn.functional as F
+
+    from sfast_tpu_torch.ops.layer_norm import layer_norm_fused, layer_norm_plain
+
+    for m, c in LN_SHAPES:
+        x = (torch.randn((m, c), generator=g, device=dev) * 1.5 + 0.75).to(torch.bfloat16)
+        gamma = 1 + 0.1 * torch.randn((c,), generator=g, device=dev)
+        beta = 0.1 * torch.randn((c,), generator=g, device=dev)
+        got = layer_norm_fused(x, gamma, beta)
+        torch.cuda.synchronize()
+        max_abs, max_rel, rms = rel_errors(got, layer_norm_plain(x, gamma, beta))
+        if not torch.equal(got, layer_norm_fused(x, gamma, beta)):
+            raise AssertionError("K7: two calls on the same inputs differ")
+        bnd = bound(0, 4 * m * c + 8 * c)
+        t = time_pair(lambda: layer_norm_fused(x, gamma, beta),
+                      lambda: layer_norm_plain(x, gamma, beta), bnd, plain_events=m * c > 2**24)
+        gb, bb = gamma.bfloat16(), beta.bfloat16()
+        lib_ms = device_ms(lambda: F.layer_norm(x, (c,), gb, bb), bnd[0])
+        log(f"K7 layer_norm ({m}, {c}): max_rel {max_rel:.3e} rms_rel {rms:.3e}  "
+            f"{timing_text(t)}")
+        if not rms <= LN_RMS_REL:
+            raise AssertionError(f"K7 rms rel error {rms} > {LN_RMS_REL}")
+        record(out, "layer_norm", f"({m}, {c})", max_abs, t, bnd,
+               (lib_ms, "F.layer_norm, bf16 weights"))
 
 
 def check_int8_ops(torch, dev):
@@ -1934,10 +1996,11 @@ TRAIN_GRAPH_RMS_REL = 1e-5
 # the refused step's forward under CompilationConfig.Default(): the 5
 # level-0 self-attentions of one eval, the batch folded into each launch,
 # and the 3 GroupNorms before the first LoRA factor (down level 0's first
-# resnet and transformer norm), which autograd does not record, so they
-# take the fused GroupNorm
-EXPECTED_REFUSED_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0) | {"flash_attention": 5,
-                                                                   "group_norm_fused": 3}
+# resnet and transformer norm) and the LayerNorm before it (the first
+# block's norm1), which autograd does not record, so they take the fused
+# GroupNorm and K7
+EXPECTED_REFUSED_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0) | {
+    "flash_attention": 5, "group_norm_fused": 3, "layer_norm": 1}
 # what the host issues to the card: the profiler's rows of these CUDA API
 # calls (launches, copies, memsets) in a profiled step
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",

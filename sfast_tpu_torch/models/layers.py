@@ -21,7 +21,12 @@ or ``'plain'``), ``conv_backend`` (``None`` = auto rule or ``'plain'``),
 ``gn_backend`` (``ops.group_norm``: ``None`` = auto rule, on the card the
 fused GroupNorm for bf16, ``'kernel'``, ``'hybrid'`` or ``'plain'``) and
 ``geglu_backend`` (``ops.geglu``: ``None`` = auto rule, ``'kernel'`` or
-``'plain'``); the models derive them from their ``CompilationConfig``.
+``'plain'``) and ``ln_backend`` (``ops.layer_norm``: ``None`` = auto rule,
+on the card K7 for bf16, ``'kernel'`` or ``'plain'``); the models derive
+them from their ``CompilationConfig``.  A ``LayerNorm`` module takes the
+plain form unless its caller names a backend: the UNets' transformer blocks
+pass theirs, and the CLIP encoders and the IP-Adapter projection, which sit
+outside the UNet's configuration, stay plain.
 """
 
 import math
@@ -116,8 +121,8 @@ class GroupNorm(nn.GroupNorm):
 
 
 class LayerNorm(nn.LayerNorm):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, eps=self.eps)
+    def forward(self, x: torch.Tensor, backend: Optional[str] = "plain") -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, eps=self.eps, backend=backend)
 
 
 @torch.no_grad()
@@ -479,14 +484,15 @@ class BasicTransformerBlock(nn.Module):
         *,
         attn_backend: Optional[str] = None,
         geglu_backend: Optional[str] = None,
+        ln_backend: Optional[str] = None,
         ip_embeds: Optional[torch.Tensor] = None,
         ip_scale=1.0,
     ) -> torch.Tensor:
         """``ip_embeds`` / ``ip_scale`` (IP-Adapter) reach ``attn2`` only."""
-        x = x + self.attn1(self.norm1(x), attn_backend=attn_backend)
-        x = x + self.attn2(self.norm2(x), context, attn_backend=attn_backend,
+        x = x + self.attn1(self.norm1(x, ln_backend), attn_backend=attn_backend)
+        x = x + self.attn2(self.norm2(x, ln_backend), context, attn_backend=attn_backend,
                            ip_embeds=ip_embeds, ip_scale=ip_scale)
-        return x + self.ff(self.norm3(x), geglu_backend=geglu_backend)
+        return x + self.ff(self.norm3(x, ln_backend), geglu_backend=geglu_backend)
 
 
 class Transformer2DModel(nn.Module):
@@ -527,6 +533,7 @@ class Transformer2DModel(nn.Module):
         gn_backend: Optional[str] = None,
         attn_backend: Optional[str] = None,
         geglu_backend: Optional[str] = None,
+        ln_backend: Optional[str] = None,
         ip_embeds: Optional[torch.Tensor] = None,
         ip_scale=1.0,
     ) -> torch.Tensor:
@@ -538,7 +545,7 @@ class Transformer2DModel(nn.Module):
             h = self.proj_in(h).reshape(b, hgt * wid, c)
         for blk in self.transformer_blocks:
             h = blk(h, context, attn_backend=attn_backend, geglu_backend=geglu_backend,
-                    ip_embeds=ip_embeds, ip_scale=ip_scale)
+                    ln_backend=ln_backend, ip_embeds=ip_embeds, ip_scale=ip_scale)
         if self.use_linear_projection:
             h = self.proj_out(h).reshape(b, hgt, wid, c)
         else:

@@ -112,9 +112,11 @@ def backends(ccfg: CompilationConfig) -> dict:
     auto rule with K6 in place of K1, ``('ring', mesh, 'sp')`` = ring
     attention when the mesh's ``sp`` axis has more than one rank (checked
     before the flash rule, after ``enable_kernels``, as JAX checks it after
-    ``enable_pallas``)."""
+    ``enable_pallas``).  ``ln`` routes the transformer blocks' LayerNorms:
+    None (K7 for a bf16 call on the card) unless the kernels are off; JAX
+    has no such knob, its LayerNorm being one XLA fusion."""
     if not ccfg.enable_kernels:
-        return dict(gn="plain", attn="plain", geglu="plain", conv="plain")
+        return dict(gn="plain", attn="plain", geglu="plain", conv="plain", ln="plain")
     gn = "kernel" if ccfg.enable_fused_group_norm else None
     conv = None if ccfg.enable_fused_conv else "plain"
     mesh = getattr(ccfg, "mesh", None)
@@ -127,7 +129,7 @@ def backends(ccfg: CompilationConfig) -> dict:
     else:
         attn = None
     geglu = None if ccfg.enable_fused_linear_geglu else "plain"
-    return dict(gn=gn, attn=attn, geglu=geglu, conv=conv)
+    return dict(gn=gn, attn=attn, geglu=geglu, conv=conv, ln=None)
 
 
 class _Block(nn.Module):
@@ -227,7 +229,7 @@ class UNetTrunk(nn.Module):
 
     def _attention(self, at, h, context, be, ip):
         return at(h, context, gn_backend=be["gn"], attn_backend=be["attn"],
-                  geglu_backend=be["geglu"], **ip)
+                  geglu_backend=be["geglu"], ln_backend=be["ln"], **ip)
 
     def _level(self, blk, j, h, emb, context, be, ip):
         h = self._resnet(blk.resnets[j], h, emb, be)

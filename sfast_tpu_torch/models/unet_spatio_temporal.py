@@ -17,7 +17,9 @@ self-attentions at 9,216 and 2,304 tokens (576×1024, levels 0 and 1) take
 K1 by ``flash_ok``; the 576-token level, the cross-attentions to the one
 image token and the temporal attentions over the frames take the plain
 route.  Under ``enable_fused_group_norm`` the GroupNorms take the fused
-GroupNorm where ``fused_plan`` accepts the shape, else K3 then K5.
+GroupNorm where ``fused_plan`` accepts the shape, else K3 then K5.  The
+LayerNorms of both kinds of transformer block (3 spatial, 4 temporal) take
+K7 by ``layer_norm_ok``.
 
 ``TransformerSpatioTemporalModel.time_pos_embed`` is diffusers'
 ``TimestepEmbedding(C, 4·C, out_dim=C)``; JAX's ``init_svd_unet_params``
@@ -232,12 +234,13 @@ class TemporalBasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, **f32)
         self.ff = FeedForward(dim, **mk)
 
-    def forward(self, x, context=None, *, attn_backend=None, geglu_backend=None):
-        x = x + self.ff_in(self.norm_in(x), geglu_backend=geglu_backend)
-        x = x + self.attn1(self.norm1(x), attn_backend=attn_backend)
+    def forward(self, x, context=None, *, attn_backend=None, geglu_backend=None,
+                ln_backend=None):
+        x = x + self.ff_in(self.norm_in(x, ln_backend), geglu_backend=geglu_backend)
+        x = x + self.attn1(self.norm1(x, ln_backend), attn_backend=attn_backend)
         if context is not None:
-            x = x + self.attn2(self.norm2(x), context, attn_backend=attn_backend)
-        return x + self.ff(self.norm3(x), geglu_backend=geglu_backend)
+            x = x + self.attn2(self.norm2(x, ln_backend), context, attn_backend=attn_backend)
+        return x + self.ff(self.norm3(x, ln_backend), geglu_backend=geglu_backend)
 
 
 class TransformerSpatioTemporalModel(nn.Module):
@@ -262,7 +265,7 @@ class TransformerSpatioTemporalModel(nn.Module):
         self.time_mixer = AlphaBlender(0.5, device=device)
 
     def forward(self, x, context, *, num_frames: int, gn_backend=None, attn_backend=None,
-                geglu_backend=None):
+                geglu_backend=None, ln_backend=None):
         """x (B·F, H, W, C); context (B·F, S, D), the image token per frame."""
         bf, hh, ww, c = x.shape
         b, hw = bf // num_frames, hh * ww
@@ -272,7 +275,7 @@ class TransformerSpatioTemporalModel(nn.Module):
         # the temporal blocks' context: frame 0's tokens, one copy per pixel
         time_context = context.reshape(b, num_frames, *context.shape[1:])[:, 0]
         time_context = time_context.repeat_interleave(hw, dim=0)  # (B·HW, S, D)
-        kw = dict(attn_backend=attn_backend, geglu_backend=geglu_backend)
+        kw = dict(attn_backend=attn_backend, geglu_backend=geglu_backend, ln_backend=ln_backend)
         for blk, tblk in zip(self.transformer_blocks, self.temporal_transformer_blocks):
             h = blk(h, context, **kw)
             ht = h.reshape(b, num_frames, hw, c).transpose(1, 2).reshape(b * hw, num_frames, c)
@@ -369,7 +372,8 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         h = blk.resnets[j](h, emb, num_frames=f, gn_backend=be["gn"], conv_backend=be["conv"])
         if blk.attentions is not None:
             h = blk.attentions[j](h, context, num_frames=f, gn_backend=be["gn"],
-                                  attn_backend=be["attn"], geglu_backend=be["geglu"])
+                                  attn_backend=be["attn"], geglu_backend=be["geglu"],
+                                  ln_backend=be["ln"])
         return h
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
@@ -403,7 +407,8 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         mid = self.mid_block
         h = mid.resnets[0](h, emb, num_frames=f, gn_backend=be["gn"], conv_backend=be["conv"])
         h = mid.attentions[0](h, context, num_frames=f, gn_backend=be["gn"],
-                              attn_backend=be["attn"], geglu_backend=be["geglu"])
+                              attn_backend=be["attn"], geglu_backend=be["geglu"],
+                              ln_backend=be["ln"])
         h = mid.resnets[1](h, emb, num_frames=f, gn_backend=be["gn"], conv_backend=be["conv"])
         for blk in self.up_blocks:
             for j in range(len(blk.resnets)):

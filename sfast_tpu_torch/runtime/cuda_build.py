@@ -70,6 +70,7 @@ launch_counts = {
     "group_norm_apply": 0,
     "group_norm_fused": 0,
     "linear_geglu": 0,
+    "layer_norm": 0,
 }
 
 _P = ctypes.c_void_p
@@ -85,6 +86,7 @@ _SIGNATURES = {
     "sfast_linear_geglu_bf16": [_P] * 3 + [_I, _P] + [_I] * 3 + [_P],
     "sfast_quantize_qkv_int8": [_P] * 3 + [_I] * 5 + [_L] * 9 + [_F] + [_P] * 9,
     "sfast_flash_attention_int8": [_P] * 8 + [_I] * 5 + [_L] * 3 + [_I, _P],
+    "sfast_layer_norm_bf16": [_P, _L, _P, _P, _P, _L, _I, _F, _P],
 }
 
 _counts_lock = threading.Lock()

@@ -205,8 +205,10 @@ def test_default_route_takes_the_fused_group_norm_at_sd15(dev, monkeypatch):
         monkeypatch.undo()
         graphed = compile_unet(unet)
         first, second = graphed(x, t, ctx), graphed(x, t, ctx)
-    assert launched["default", "unet"] == {"flash_attention": 5, "group_norm_fused": 61}
-    assert launched["plain", "unet"] == {"flash_attention": 5}
+    # and K7 for the 16 transformer blocks' 3 LayerNorms, on either GroupNorm route
+    assert launched["default", "unet"] == {"flash_attention": 5, "group_norm_fused": 61,
+                                           "layer_norm": 48}
+    assert launched["plain", "unet"] == {"flash_attention": 5, "layer_norm": 48}
     assert launched["default", "vae"] == {"conv3x3": 21, "group_norm_stats": 9 + 1,
                                           "group_norm_apply": 1, "group_norm_fused": 11}
     assert launched["plain", "vae"] == {"conv3x3": 21, "group_norm_stats": 9}

@@ -23,7 +23,10 @@ version at the kernel's tile (the same math; exp2 and the order of sums
 flip a few int8 roundings of p) and 0.015 of exact attention; K6's
 pre-processing within one int8 level of its plain version on at most 0.1%
 of the codes (the means are summed in another order) and 1e-6 relative in
-its f32 outputs.
+its f32 outputs.  K7 (the LayerNorm) against the plain form on the card:
+at most one bf16 ulp of |y| on any element, |y| taken at least 2^-10
+(below that the gap is set by the f32 statistics, which both compute, not
+by the rounding of y), and a mean absolute gap under 1e-3 of the mean |y|.
 """
 
 import dataclasses
@@ -53,6 +56,7 @@ from sfast_tpu_torch.ops.group_norm import (
     group_norm_stats,
     group_norm_stats_ref,
 )
+from sfast_tpu_torch.ops.layer_norm import layer_norm, layer_norm_fused, layer_norm_plain
 from sfast_tpu_torch.runtime import cuda_build
 from sfast_tpu_torch.training import lora_training_setup, make_lora_train_step
 
@@ -415,6 +419,102 @@ def test_group_norm_fused_rejects_what_it_cannot_run(dev):
                          zero[:8].repeat(2), groups=4, act="relu")
 
 
+# (M, C): the instantiated widths at the UNets' rows (SVD's level 0 spatial
+# and temporal, 460,800 rows of 320; its level 1, 115,200 of 640; its level
+# 2, 28,800 of 1280; SDXL's 8,192 of 640 and 2,048 of 1280; SD1.5's 8,192
+# of 320), short and ragged row counts, and the generic path's widths
+LN_CASES = [(1, 320), (37, 640), (4096, 768), (300, 1024), (2048, 1280), (8192, 320),
+            (8192, 640), (28800, 1280), (115200, 640), (460800, 320),
+            (513, 200), (3, 4096), (1000, 8), (77, 1152)]
+
+
+def _ln_inputs(dev, m, c, seed):
+    """Rows off zero mean (the E[x²] − E[x]² form at work) and LayerNorm
+    weights as trained ones look: gamma near 1, beta near 0."""
+    x = (_randn(dev, m, c, seed=seed).float() * 1.5 + 0.75).to(BF16)
+    g = 1 + 0.1 * _randn(dev, c, seed=seed + 1).float()
+    b = 0.1 * _randn(dev, c, seed=seed + 2).float()
+    return x, g, b
+
+
+def _assert_ln_close(got, ref):
+    got, ref = got.float(), ref.float()
+    gap = (got - ref).abs()
+    scale = torch.maximum(got.abs(), ref.abs()).clamp_min(2.0 ** -10)
+    ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)
+    assert bool((gap <= ulp).all()), f"{int((gap > ulp).sum())} elements beyond one bf16 ulp"
+    assert gap.mean().item() < 1e-3 * ref.abs().mean().item()
+
+
+@pytest.mark.parametrize("affine", [True, False], ids=["affine", "bare"])
+@pytest.mark.parametrize("m,c", LN_CASES)
+def test_layer_norm_matches_plain(dev, m, c, affine):
+    x, g, b = _ln_inputs(dev, m, c, seed=70)
+    g, b = (g, b) if affine else (None, None)
+    before = cuda_build.launch_counts["layer_norm"]
+    with torch.no_grad():
+        got = layer_norm_fused(x, g, b)
+        ref = layer_norm_plain(x, g, b)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["layer_norm"] == before + 1
+    assert got.shape == x.shape and got.dtype == BF16
+    _assert_ln_close(got, ref)
+
+
+def test_layer_norm_leading_dims_and_strided_rows(dev):
+    """(B, S, C) rows, a slice of wider rows (read at their stride, no
+    copy) and rows that are no uniform run (copied first)."""
+    x, g, b = _ln_inputs(dev, 2 * 300, 640 + 64, seed=71)
+    wide = x.reshape(2, 300, 704)
+    for view in (wide[..., :640].contiguous(), wide[..., :640], wide[..., 64:],
+                 wide[..., :640].transpose(0, 1)):
+        got = layer_norm_fused(view, g[:640], b[:640])
+        _assert_ln_close(got, layer_norm_plain(view, g[:640], b[:640]))
+
+
+def test_layer_norm_rule_routes_bf16_to_k7(dev):
+    x, g, b = _ln_inputs(dev, 64, 320, seed=72)
+    cuda_build.reset_launch_counts()
+    with torch.no_grad():
+        layer_norm(x, g, b)
+        layer_norm(x.float(), g, b)  # f32: the plain form
+        layer_norm(x, g, b, backend="plain")
+    with torch.enable_grad():  # autograd records the call: the plain form
+        layer_norm(x, g.clone().requires_grad_(), b)
+    assert {k: v for k, v in cuda_build.launch_counts.items() if v} == {"layer_norm": 1}
+
+
+def test_layer_norm_in_a_cuda_graph_equals_eager(dev):
+    """Captured at SDXL's level-1 rows: the replay equals the eager call bit
+    for bit, and follows new values written into the input."""
+    x, g, b = _ln_inputs(dev, 8192, 640, seed=73)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad():
+        with torch.cuda.stream(side):
+            layer_norm_fused(x, g, b)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = layer_norm_fused(x, g, b)
+        for seed in (74, 75):
+            x.copy_(_ln_inputs(dev, 8192, 640, seed=seed)[0])
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, layer_norm_fused(x, g, b))
+
+
+def test_layer_norm_rejects_what_it_cannot_run(dev):
+    with pytest.raises(ValueError, match="bf16"):
+        layer_norm_fused(torch.zeros(4, 64, device=dev))
+    with pytest.raises(ValueError, match="C % 8"):
+        layer_norm_fused(torch.zeros(4, 20, device=dev, dtype=BF16))
+    with pytest.raises(ValueError, match="C <= 4096"):
+        layer_norm_fused(torch.zeros(4, 8192, device=dev, dtype=BF16))
+    with pytest.raises(ValueError, match="gamma"):
+        layer_norm_fused(torch.zeros(4, 64, device=dev, dtype=BF16), torch.ones(32, device=dev))
+
+
 @pytest.mark.parametrize("f", [64, 320, 2560])
 @pytest.mark.parametrize("k", [32, 96, 640, 1280])
 @pytest.mark.parametrize("m", [1, 18, 130, 2048])
@@ -726,12 +826,14 @@ def _grad_cases(dev):
                              (leaf(x), ones, zeros)),
         "conv3x3": (fused_conv.conv3x3_block, (leaf(x), w3)),
         "linear_geglu": (linear_geglu_fused, (leaf(xg), wg)),
+        "layer_norm": (layer_norm_fused, (leaf(x), ones, zeros)),
     }
 
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "flash_attention_int8",
                                     "group_norm_stats", "group_norm_apply",
-                                    "group_norm_fused", "conv3x3", "linear_geglu"])
+                                    "group_norm_fused", "conv3x3", "linear_geglu",
+                                    "layer_norm"])
 def test_a_launch_under_autograd_refuses_the_backward(dev, kernel):
     """Each wrapper with an input that requires grad: the forward launches
     and gives the values it gives under ``no_grad``; the backward raises,

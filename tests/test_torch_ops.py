@@ -41,7 +41,7 @@ from sfast_tpu_torch.ops.group_norm import (
     group_norm_stats,
     group_norm_stats_ref,
 )
-from sfast_tpu_torch.ops.layer_norm import layer_norm
+from sfast_tpu_torch.ops.layer_norm import layer_norm, layer_norm_fused, layer_norm_ok, row_stride
 from sfast_tpu_torch.ops.linear import linear
 from sfast_tpu_torch.runtime import cuda_build
 
@@ -98,6 +98,66 @@ def test_layer_norm_matches_jax():
     x, g, b = _randn(rng, 2, 7, 48) + 0.5, _randn(rng, 48), _randn(rng, 48)
     ref = j_layer_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
     _close(layer_norm(_t(x), _t(g), _t(b)), ref, F32_TOL)
+
+
+@pytest.mark.parametrize("backend,affine", [("plain", True), ("plain", False),
+                                            ("kernel", True), ("kernel", False)])
+def test_layer_norm_backends_match_jax(backend, affine):
+    """Both routes on the CPU: ``'plain'``, and ``'kernel'``, whose wrapper
+    takes the plain form for a CPU tensor (K7's specification), with and
+    without gamma and beta."""
+    rng = _rng(3)
+    x, g, b = _randn(rng, 3, 5, 40) - 0.25, _randn(rng, 40), _randn(rng, 40)
+    gb = (jnp.asarray(g), jnp.asarray(b)) if affine else (None, None)
+    ref = j_layer_norm(jnp.asarray(x), *gb)
+    got = layer_norm(_t(x), *((_t(g), _t(b)) if affine else (None, None)), backend=backend)
+    _close(got, ref, F32_TOL)
+
+
+def _like(shape, dtype=torch.bfloat16, device="cuda", stride=None):
+    """What ``layer_norm_ok`` reads of a tensor, without a card: shape,
+    strides, dtype and device."""
+    import types
+
+    t = torch.empty(shape) if stride is None else torch.empty_strided(shape, stride)
+    return types.SimpleNamespace(shape=t.shape, stride=t.stride, dtype=dtype,
+                                 device=torch.device(device))
+
+
+# the UNets' LayerNorm rows (M, C): SD1.5 level 0 at CFG batch 2, SDXL's
+# levels 1 and 2, SVD's spatial level 0 and its temporal (B·H·W, F, C) view
+@pytest.mark.parametrize("shape", [(2, 4096, 320), (2, 4096, 640), (2, 1024, 1280),
+                                   (50, 9216, 320), (18432, 25, 320), (7, 24)])
+def test_layer_norm_rule_takes_k7_on_the_card(shape):
+    assert layer_norm_ok(_like(shape), False)
+    assert layer_norm_ok(_like(shape), False, torch.ones(shape[-1]), torch.zeros(shape[-1]))
+
+
+@pytest.mark.parametrize("x,grad,affine_dtype", [
+    (_like((2, 64, 320), device="cpu"), False, torch.float32),
+    (_like((2, 64, 320), device="meta"), False, torch.float32),
+    (_like((2, 64, 320), dtype=torch.float32), False, torch.float32),
+    (_like((2, 64, 320), stride=(320 * 64, 1, 64)), False, torch.float32),  # last dim strided
+    (_like((2, 64, 320), stride=(1, 2 * 320, 2)), False, torch.float32),  # rows not one run
+    (_like((2, 64, 20)), False, torch.float32),    # C % 8 != 0
+    (_like((2, 64, 8192)), False, torch.float32),  # wider than K7's rows
+    (_like((2, 64, 320)), False, torch.bfloat16),  # bf16 gamma and beta
+    (_like((2, 64, 320)), True, torch.float32),    # autograd records the call
+], ids=["cpu", "meta", "f32", "last-dim-strided", "rows-not-uniform", "c20", "c8192",
+        "bf16-affine", "grad"])
+def test_layer_norm_rule_keeps_the_plain_form(x, grad, affine_dtype):
+    c = x.shape[-1]
+    assert not layer_norm_ok(x, grad, torch.ones(c, dtype=affine_dtype),
+                             torch.zeros(c, dtype=affine_dtype))
+
+
+def test_layer_norm_row_stride():
+    assert row_stride((2, 3, 8), (24, 8, 1)) == 8
+    assert row_stride((2, 3, 8), (48, 16, 1)) == 16  # a slice of wider rows
+    assert row_stride((1, 3, 8), (999, 16, 1)) == 16  # a dim of one has any stride
+    assert row_stride((8,), (1,)) == 8
+    assert row_stride((2, 3, 8), (64, 16, 1)) is None  # two runs of rows
+    assert row_stride((2, 8), (8, 2)) is None
 
 
 @pytest.mark.parametrize("act,groups", [(None, 8), ("silu", 8), ("silu", 32)])
@@ -259,7 +319,7 @@ def test_gn_affine_and_affine_from_stats_match_jax():
 @pytest.mark.parametrize(
     "kernel",
     ["flash_attention", "conv3x3", "group_norm_stats", "group_norm_apply", "linear_geglu",
-     "flash_attention_int8", "group_norm_fused"],
+     "flash_attention_int8", "group_norm_fused", "layer_norm"],
 )
 def test_kernel_wrappers_raise_off_cpu_and_cuda(kernel):
     meta = dict(device="meta", dtype=torch.bfloat16)
@@ -280,6 +340,8 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda(kernel):
         elif kernel == "group_norm_fused":
             group_norm_fused(torch.empty(1, 8, 8, 64, **meta), torch.empty(64, **meta),
                              torch.empty(64, **meta), groups=8)
+        elif kernel == "layer_norm":
+            layer_norm_fused(torch.empty(4, 64, **meta))
         else:
             q = torch.empty(1, 2, 64, 40, **meta)
             flash_attention_int8(q, q, q)
@@ -295,7 +357,9 @@ def test_cpu_calls_launch_nothing():
     flash_attention_int8(q, q, q)
     group_norm(x, torch.ones(16), torch.zeros(16), groups=8, act="gelu", backend="kernel")
     linear_geglu_fused(torch.randn(4, 32), torch.randn(128, 32))
+    layer_norm(x.bfloat16(), backend="kernel")
     assert cuda_build.launch_counts == {
         "flash_attention": 0, "quantize_qkv": 0, "flash_attention_int8": 0, "conv3x3": 0,
         "group_norm_stats": 0, "group_norm_apply": 0, "group_norm_fused": 0, "linear_geglu": 0,
+        "layer_norm": 0,
     }

@@ -647,10 +647,14 @@ _KNOBS = ["enable_flash_attention", "enable_int8_attention", "enable_fused_group
 @pytest.mark.parametrize("kernels", [True, False])
 @pytest.mark.parametrize("bits", range(0, 32, 3))
 def test_backends_map_the_knobs_as_jax(kernels, bits):
+    """Every route JAX has, as JAX maps it; and the LayerNorm's, which JAX
+    lacks (its LayerNorm is one XLA fusion): the auto rule, or the plain
+    form with the kernels off."""
     knobs = {name: bool(bits >> i & 1) for i, name in enumerate(_KNOBS)}
     ours = backends(CompilationConfig(enable_kernels=kernels, **knobs))
     theirs = j_backends(JaxConfig(enable_pallas=kernels, **knobs))
     names = {"xla": "plain", "pallas": "kernel"}
+    assert ours.pop("ln") == (None if kernels else "plain")
     assert ours == {key: names.get(val, val) for key, val in theirs.items()}
 
 

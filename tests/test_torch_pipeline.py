@@ -104,6 +104,7 @@ def test_tiny_pipeline_matches_jax(pipes):
     assert cuda_build.launch_counts == {
         "flash_attention": 0, "quantize_qkv": 0, "flash_attention_int8": 0, "conv3x3": 0,
         "group_norm_stats": 0, "group_norm_apply": 0, "group_norm_fused": 0, "linear_geglu": 0,
+        "layer_norm": 0,
     }
 
 
@@ -370,13 +371,50 @@ def test_fused_conv_routing_rule(x, dtype, dev, ks, backend, expect):
 
 def test_config_to_backends():
     assert backends(CompilationConfig()) == {
-        "gn": None, "attn": None, "geglu": "plain", "conv": "plain"}
+        "gn": None, "attn": None, "geglu": "plain", "conv": "plain", "ln": None}
     assert backends(CompilationConfig(enable_kernels=False)) == {
-        "gn": "plain", "attn": "plain", "geglu": "plain", "conv": "plain"}
+        "gn": "plain", "attn": "plain", "geglu": "plain", "conv": "plain", "ln": "plain"}
     assert backends(CompilationConfig(enable_fused_conv=True)) == {
-        "gn": None, "attn": None, "geglu": "plain", "conv": None}
+        "gn": None, "attn": None, "geglu": "plain", "conv": None, "ln": None}
     assert backends(CompilationConfig(enable_flash_attention=False))["attn"] == "plain"
-    assert backends(OPTIN) == {"gn": "kernel", "attn": "int8", "geglu": None, "conv": "plain"}
+    assert backends(OPTIN) == {"gn": "kernel", "attn": "int8", "geglu": None, "conv": "plain",
+                               "ln": None}
+
+
+@pytest.mark.parametrize("model,kernels,expected", [
+    ("unet", True, 4 * 3), ("unet", False, 0),  # 4 transformer blocks, 3 LayerNorms each
+    ("svd", True, 4 * (3 + 4)), ("svd", False, 0),  # 4 spatial (3) and 4 temporal (4) blocks
+    ("clip", True, 0),  # outside the UNet's configuration: always the plain form
+])
+def test_layer_norms_take_k7_where_the_rule_says(monkeypatch, model, kernels, expected):
+    """With the rule forced true (on the CPU it never is), every LayerNorm
+    of the UNets' transformer blocks takes K7's wrapper, none with the
+    kernels off, and the CLIP encoder's never: the count a card's
+    ``launch_counts["layer_norm"]`` reads per eval."""
+    from sfast_tpu_torch.models import TINY_SVD_UNET, UNetSpatioTemporalConditionModel
+    from sfast_tpu_torch.ops import layer_norm as ln_ops
+
+    calls = []
+    real = ln_ops.layer_norm_fused
+    monkeypatch.setattr(ln_ops, "layer_norm_ok", lambda *a: True)
+    monkeypatch.setattr(ln_ops, "layer_norm_fused",
+                        lambda x, *a, **kw: calls.append(x.shape) or real(x, *a, **kw))
+    ccfg = CompilationConfig(enable_kernels=kernels)
+    g = torch.Generator().manual_seed(0)
+    f32 = dict(device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        if model == "unet":
+            m = UNet2DConditionModel(UNET64, **f32)
+            m(torch.randn(2, 16, 16, 4, generator=g), torch.tensor(10.0),
+              torch.randn(2, 7, 64, generator=g), compilation_config=ccfg)
+        elif model == "svd":
+            m = UNetSpatioTemporalConditionModel(TINY_SVD_UNET, **f32)
+            m.compilation_config = ccfg
+            m(torch.randn(1, 3, 16, 16, 8, generator=g), torch.tensor(0.5),
+              torch.randn(1, 1, 32, generator=g), torch.tensor([[6.0, 127.0, 0.02]]))
+        else:
+            CLIPTextModel(TINY_TEXT_ENCODER, **f32)(torch.randint(0, 99, (2, 7), generator=g))
+    assert len(calls) == expected
 
 
 # ---------------------------------------------------------------------------

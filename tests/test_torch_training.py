@@ -42,6 +42,7 @@ from sfast_tpu_torch.ops.flash_attention import flash_attention_ref
 from sfast_tpu_torch.ops.flash_attention_int8 import flash_attention_int8_ref, kernel_inputs
 from sfast_tpu_torch.ops.fused_conv import conv3x3_block_ref
 from sfast_tpu_torch.ops.geglu import linear_geglu_fused_ref
+from sfast_tpu_torch.ops.layer_norm import layer_norm_plain
 from sfast_tpu_torch.ops.group_norm import (
     group_norm_apply_ref,
     group_norm_fused_ref,
@@ -241,6 +242,9 @@ PLAIN_VERSIONS = {
     "linear_geglu": (linear_geglu_fused_ref,
                      lambda: [torch.randn(4, 16, requires_grad=True),
                               torch.randn(32, 16, requires_grad=True), torch.zeros(32)]),
+    "layer_norm": (layer_norm_plain,
+                   lambda: [torch.randn(4, 16, requires_grad=True), torch.ones(16),
+                            torch.zeros(16)]),
 }
 
 
